@@ -1,0 +1,57 @@
+"""JAX (flax) generator params -> this package's state_dict.
+
+The torch modules are named after the flax param tree (models/layers.py),
+so the conversion is a walk over that tree: every `Conv_0` or
+`ConvTranspose_0` node holding {kernel, bias} becomes `<path>.weight` and
+`<path>.bias`.
+
+* Conv kernels: flax HWIO [kh, kw, ci, co] -> torch OIHW [co, ci, kh, kw].
+* Deconv kernels: flip_hw(k) then permute(2, 3, 0, 1) -> [ci, co, kh, kw],
+  the same weight for both deconv modes (models/layers.ConvTransposeIN;
+  the inverse of tools/import_torch_checkpoint.py's `_deconv_w`).
+
+A reference (pix2pixHD torch) `.pth` goes in through
+tools/import_torch_checkpoint.convert_generator_state_dict, then here, and
+is served with --torch_deconv.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _conv_weight(kernel: np.ndarray) -> np.ndarray:
+    return kernel.transpose(3, 2, 0, 1)
+
+
+def _deconv_weight(kernel: np.ndarray) -> np.ndarray:
+    return kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+_LEAVES = {"Conv_0": _conv_weight, "ConvTranspose_0": _deconv_weight}
+
+
+def jax_to_torch_generator(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Generator param tree (nested dicts of arrays, with or without the
+    top-level "params" key) -> state_dict of models/generator.py."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: list) -> None:
+        for key, child in node.items():
+            if key in _LEAVES:
+                prefix = ".".join(path + [key])
+                kernel = np.asarray(child["kernel"], np.float32)
+                weight = np.ascontiguousarray(_LEAVES[key](kernel))
+                out[prefix + ".weight"] = torch.from_numpy(weight)
+                out[prefix + ".bias"] = torch.from_numpy(
+                    np.array(child["bias"], np.float32))
+            else:
+                walk(child, path + [key])
+
+    walk(tree, [])
+    return out
