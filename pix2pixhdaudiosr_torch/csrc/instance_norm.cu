@@ -20,16 +20,19 @@
 //      of up to 256 channels). Threads walk rows with neighbouring threads
 //      on neighbouring channels (NHWC: coalesced) and write f32 partial
 //      sums of x and x^2 for the chunk to a workspace [B, P, C, 2].
-//   2. in_finalize: one thread per (b, c) adds the P partials in a fixed
-//      order (deterministic, no atomics) and writes (mean, rstd).
+//   2. in_finalize (in_finalize.cuh): one thread per (b, c) adds the P
+//      partials in a fixed order (deterministic, no atomics) and writes
+//      (mean, rstd).
 //   3. in_apply: an elementwise pass, 16 bytes per thread per access when
 //      C allows it, normalises, applies the activation and casts.
 // The chunk count P (chosen by the wrapper) keeps both regimes of the
 // flagship busy: H*W = 64 with C = 1536 splits over channel tiles, and
-// H*W = 65536 with C = 48 splits over row chunks.
+// H*W = 65536 with C = 48 splits over row chunks. p2p_instance_stats runs
+// passes 1 and 2 alone, for a caller that folds the normalize into its own
+// next pass (ops/enhancer.py: the fused enhancer's entry prologue).
 #include <stdint.h>
 
-#include "common.cuh"
+#include "in_finalize.cuh"
 
 namespace {
 
@@ -72,25 +75,6 @@ __global__ void __launch_bounds__(kThreads)
     dst[0] = ts;
     dst[1] = tq;
   }
-}
-
-__global__ void in_finalize_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ stats, int B, int C,
-                                   int P, int HW, float eps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * C) return;
-  const int b = i / C, c = i % C;
-  float s = 0.f, q = 0.f;
-  for (int p = 0; p < P; ++p) {
-    const float* src = partial + (((size_t)b * P + p) * C + c) * 2;
-    s += src[0];
-    q += src[1];
-  }
-  const float mean = s / (float)HW;
-  const float ex2 = q / (float)HW;
-  const float var = fmaxf(ex2 - mean * mean, 0.f);
-  stats[(size_t)i * 2] = mean;
-  stats[(size_t)i * 2 + 1] = rsqrtf(var + eps);
 }
 
 __device__ __forceinline__ float activate(float y, int act) {
@@ -136,19 +120,28 @@ void launch_apply(const void* x, void* y, const float* stats, long long n,
       (const T*)x, (T*)y, stats, n_vec, hwc, C, act);
 }
 
+// Passes 1 and 2: the statistics, written as mean[i * stride] and
+// rstd[i * stride] for i = b * C + c.
 template <typename T>
-int run(const void* x, void* y, float* partial, float* stats, int B, int HW,
-        int C, int act, float eps, int P, cudaStream_t stream) {
+int stats_pass(const void* x, float* partial, float* mean, float* rstd,
+               int stride, int B, int HW, int C, float eps, int P,
+               cudaStream_t stream) {
   const int ctw = C < kMaxTile ? C : kMaxTile;
   const int rows_per_chunk = p2p::ceil_div(HW, P);
   dim3 grid(P, p2p::ceil_div(C, ctw), B);
   in_stats_kernel<T><<<grid, kThreads, 0, stream>>>((const T*)x, partial, HW,
                                                      C, rows_per_chunk);
-  int err = cudaGetLastError();
+  const int err = cudaGetLastError();
   if (err) return err;
-  in_finalize_kernel<<<p2p::ceil_div(B * C, kThreads), kThreads, 0, stream>>>(
-      partial, stats, B, C, P, HW, eps);
-  err = cudaGetLastError();
+  return p2p::launch_finalize(partial, mean, rstd, stride, B, C, P, HW, eps,
+                              stream);
+}
+
+template <typename T>
+int run(const void* x, void* y, float* partial, float* stats, int B, int HW,
+        int C, int act, float eps, int P, cudaStream_t stream) {
+  const int err = stats_pass<T>(x, partial, stats, stats + 1, 2, B, HW, C,
+                                eps, P, stream);
   if (err) return err;
   const long long n = (long long)B * HW * C;
   const long long hwc = (long long)HW * C;
@@ -178,6 +171,20 @@ int p2p_instance_norm_act(const void* x, void* y, void* partial, void* stats,
                               act, eps, P, s);
   return run<float>(x, y, (float*)partial, (float*)stats, B, HW, C, act, eps,
                     P, s);
+}
+
+// Passes 1 and 2 only (the fused enhancer's entry statistics): mean, rstd
+// f32 [B, C] on return; the other arguments as above.
+int p2p_instance_stats(const void* x, void* partial, void* mean, void* rstd,
+                       int B, int HW, int C, int dtype, float eps, int P,
+                       void* stream) {
+  if (B <= 0 || HW <= 0 || C <= 0) return cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return stats_pass<__nv_bfloat16>(x, (float*)partial, (float*)mean,
+                                     (float*)rstd, 1, B, HW, C, eps, P, s);
+  return stats_pass<float>(x, (float*)partial, (float*)mean, (float*)rstd, 1,
+                           B, HW, C, eps, P, s);
 }
 
 }  // extern "C"

@@ -31,8 +31,6 @@ from .utils.checkpoint import generator_path, load_generator
 
 # (condition on the config, what it asks for, the ROADMAP item that brings it)
 _NOT_YET = (
-    (lambda c: c.fused_enhancer, "--fused_enhancer",
-     "the fused enhancer-conv kernel, ROADMAP B4"),
     (lambda c: c.int8_trunk, "--int8_trunk", "quantized serving, ROADMAP A10"),
     (lambda c: c.data_type == 8, "--data_type 8",
      "quantized serving, ROADMAP A10"),

@@ -1,7 +1,9 @@
 """Generators: GlobalTrunk, GlobalGenerator, LocalEnhancer.
 
 Port of pix2pixhdaudiosr_tpu/models/generator.py:22-165 and
-`build_generator` (:201-225). Module names follow the flax param tree
+`build_generator` (:201-225). With `fused_enh_blocks`, the LocalEnhancer's
+resblocks run through ops/enhancer.py (`--fused_enhancer`), with the same
+modules and state_dict. Module names follow the flax param tree
 (`global.ConvIN_0`, `global.ResnetBlock_2.ConvIN_1`, `enh1_down1`,
 `enh1_block0`, `enh1_up`, `enh1_final`, ...). Forward takes and returns
 logical NCHW; the system feeds a channels_last view of its NHWC
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops import enhancer
 from .layers import ConvIN, ConvTransposeIN, ResnetBlock, avg_pool_3s2
 
 
@@ -62,15 +65,19 @@ class GlobalGenerator(nn.Module):
 
 class LocalEnhancer(nn.Module):
     """Coarse global trunk at ngf*2^n_local on a downsampled pyramid plus
-    per-level enhancer branches fused by addition."""
+    per-level enhancer branches fused by addition. fused_enh_blocks: run
+    each branch's down1 + resblocks through the fused conv + InstanceNorm
+    kernel (inference only) where `enhancer.supports` admits the shape."""
 
     def __init__(self, input_nc: int, output_nc: int, ngf: int = 32,
                  n_downsample_global: int = 4, n_blocks_global: int = 9,
                  n_local_enhancers: int = 1, n_blocks_local: int = 3,
-                 deconv_mode: str = "same", device=None):
+                 deconv_mode: str = "same", fused_enh_blocks: bool = False,
+                 device=None):
         super().__init__()
         self.n_local_enhancers = nle = n_local_enhancers
         self.n_blocks_local = n_blocks_local
+        self.fused_enh_blocks = fused_enh_blocks
         self.add_module("global", GlobalTrunk(
             input_nc, ngf * 2 ** nle, n_downsample_global, n_blocks_global,
             deconv_mode, device=device))
@@ -97,30 +104,56 @@ class LocalEnhancer(nn.Module):
             pyramid.append(avg_pool_3s2(pyramid[-1]))
         out = getattr(self, "global")(pyramid[-1])
         for n in range(1, nle + 1):
-            h = getattr(self, f"enh{n}_down0")(pyramid[nle - n])
-            h = getattr(self, f"enh{n}_down1")(h) + out
-            for i in range(self.n_blocks_local):
-                h = getattr(self, f"enh{n}_block{i}")(h)
+            down = getattr(self, f"enh{n}_down0")(pyramid[nle - n])
+            if self._fused(n, down):
+                h = self._fused_section(n, down, out)
+            else:
+                h = getattr(self, f"enh{n}_down1")(down) + out
+                for i in range(self.n_blocks_local):
+                    h = getattr(self, f"enh{n}_block{i}")(h)
             h = getattr(self, f"enh{n}_up")(h)
             if n == nle:
                 h = getattr(self, f"enh{n}_final")(h)
             out = h
         return out
 
+    def _fused(self, n: int, down: torch.Tensor) -> bool:
+        """The JAX gate (generator.py:130-135), on the shape down1 gives."""
+        B, _, H, W = down.shape
+        ch = getattr(self, f"enh{n}_down1").Conv_0.out_channels
+        return (self.fused_enh_blocks and self.n_blocks_local > 0
+                and enhancer.supports((B, (H + 1) // 2, (W + 1) // 2, ch),
+                                      down.dtype))
+
+    def _fused_section(self, n: int, down: torch.Tensor,
+                       out: torch.Tensor) -> torch.Tensor:
+        """down1 conv without its InstanceNorm, then the fused section."""
+        d1 = getattr(self, f"enh{n}_down1").Conv_0
+        d_raw = enhancer.conv_s2_raw(down, d1.weight, d1.bias)
+        blocks = []
+        for i in range(self.n_blocks_local):
+            blk = getattr(self, f"enh{n}_block{i}")
+            blocks.append(tuple((c.Conv_0.weight, c.Conv_0.bias)
+                                for c in (blk.ConvIN_0, blk.ConvIN_1)))
+        return enhancer.fused_enhancer_section(d_raw, out, blocks)
+
 
 def build_generator(net_g: str, input_nc: int, output_nc: int, ngf: int,
                     n_downsample_global: int, n_blocks_global: int,
                     n_local_enhancers: int, n_blocks_local: int,
-                    deconv_mode: str = "same", device=None) -> nn.Module:
+                    deconv_mode: str = "same", fused_enh_blocks: bool = False,
+                    device=None) -> nn.Module:
     """define_G parity. Parameters are left as torch initialises them (or
-    unallocated on device="meta"): load a state_dict or call `init_normal_`."""
+    unallocated on device="meta"): load a state_dict or call `init_normal_`.
+    fused_enh_blocks applies to the LocalEnhancer (`--fused_enhancer`)."""
     if net_g == "global":
         return GlobalGenerator(input_nc, output_nc, ngf, n_downsample_global,
                                n_blocks_global, deconv_mode, device=device)
     if net_g == "local":
         return LocalEnhancer(input_nc, output_nc, ngf, n_downsample_global,
                              n_blocks_global, n_local_enhancers,
-                             n_blocks_local, deconv_mode, device=device)
+                             n_blocks_local, deconv_mode,
+                             fused_enh_blocks=fused_enh_blocks, device=device)
     if net_g == "encoder":
         raise NotImplementedError("the feature Encoder comes with the "
                                   "optional nets (ROADMAP A9)")

@@ -32,6 +32,11 @@ _SIGNATURES = {
     "p2p_mdct2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "p2p_imdct2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "p2p_instance_norm_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "p2p_instance_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "p2p_conv3x3_in": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _F, _I, _I, _I, _I, _P),
+    "p2p_conv3x3_valid": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
 }
 
 _lib = None

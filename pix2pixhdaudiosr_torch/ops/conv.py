@@ -1,0 +1,56 @@
+"""VALID 3x3 stride-1 convolution of a pre-padded input: the second entry
+point of csrc/conv3x3_in.cu, and its plain twin.
+
+`conv3x3_valid` replaces pix2pixhdaudiosr_tpu/ops/conv_pallas.py:
+conv3x3_pallas, which no path of the JAX package calls either: the same
+kernel as `ops/enhancer.conv3x3_in` with no reflect, prologue, bias or
+statistics, Ci != Co allowed, and an optional ReLU before the bf16 round.
+A CPU tensor runs the twin; a CUDA tensor launches the kernel (counted in
+`conv3x3_valid.launches`) or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+from .enhancer import _check_activation, _check_weights, conv_tiling, pack_weights
+
+
+def conv3x3_valid_ref(x_padded: torch.Tensor, w: torch.Tensor,
+                      relu: bool = False) -> torch.Tensor:
+    """Twin of `conv3x3_valid`: the conv in f32, ReLU, cast to x's dtype."""
+    y = F.conv2d(x_padded.float(), w.float())
+    return (torch.relu(y) if relu else y).to(x_padded.dtype)
+
+
+def conv3x3_valid(x_padded: torch.Tensor, w: torch.Tensor,
+                  relu: bool = False) -> torch.Tensor:
+    """x_padded [B, Ci, H + 2, W + 2] (padded by one, reflect or zero: the
+    caller's choice) with OIHW w [Co, Ci, 3, 3] -> [B, Co, H, W]. On CUDA
+    x_padded is channels_last bfloat16 and so is the result."""
+    if x_padded.device.type == "cpu":
+        return conv3x3_valid_ref(x_padded, w, relu)
+    _cuda.check_cuda("conv3x3_valid", x_padded, w)
+    _check_activation("conv3x3_valid", x_padded=x_padded)
+    B, Ci, Hp, Wp = x_padded.shape
+    if w.dim() != 4 or tuple(w.shape[1:]) != (Ci, 3, 3):
+        raise ValueError(f"conv3x3_valid: weights must be [Co, {Ci}, 3, 3], "
+                         f"got {tuple(w.shape)}")
+    if Hp < 3 or Wp < 3:
+        raise ValueError(f"conv3x3_valid: input {Hp}x{Wp} smaller than 3x3")
+    Co, H, W = w.shape[0], Hp - 2, Wp - 2
+    wp = pack_weights(w)
+    _check_weights("conv3x3_valid", wp, Co, Ci)
+    th, tw, bn, P = conv_tiling(H, W, Ci, Co)
+    y = torch.empty((B, Co, H, W), dtype=torch.bfloat16,
+                    device=x_padded.device, memory_format=torch.channels_last)
+    _cuda.launch("p2p_conv3x3_valid", x_padded.device, x_padded.data_ptr(),
+                 wp.data_ptr(), y.data_ptr(), B, H, W, Ci, Co, int(relu), th,
+                 tw, bn, P)
+    conv3x3_valid.launches += 1
+    return y
+
+
+conv3x3_valid.launches = 0

@@ -8,7 +8,8 @@ eps 1e-5), with the activation fused. See csrc/instance_norm.cu for what
 bounds it on the card and how the design answers it. A CPU tensor runs the
 twin; a CUDA tensor launches the kernel (counted in
 `instance_norm_act.launches`) or raises. Inference only: the backward comes
-with training.
+with training. `instance_stats` runs the statistics passes alone (the fused
+enhancer folds the normalize into its next conv).
 """
 
 from __future__ import annotations
@@ -39,12 +40,18 @@ def activate(y: torch.Tensor, act: str) -> torch.Tensor:
 def instance_norm_act_ref(x: torch.Tensor, act: str = "none",
                           eps: float = 1e-5) -> torch.Tensor:
     """Twin of `instance_norm_act`. x: [B, C, H, W], any layout."""
-    xf = x.float()
-    mean = xf.mean(dim=(2, 3), keepdim=True)
-    ex2 = (xf * xf).mean(dim=(2, 3), keepdim=True)
-    var = torch.clamp(ex2 - mean * mean, min=0.0)
-    y = (xf - mean) * torch.rsqrt(var + eps)
+    mean, rstd = instance_stats_ref(x, eps)
+    y = (x.float() - mean[:, :, None, None]) * rstd[:, :, None, None]
     return activate(y, act).to(x.dtype)
+
+
+def instance_stats_ref(x: torch.Tensor, eps: float = 1e-5):
+    """Twin of `instance_stats`. x: [B, C, H, W], any layout."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3))
+    ex2 = (xf * xf).mean(dim=(2, 3))
+    var = torch.clamp(ex2 - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
 
 
 def stat_chunks(B: int, HW: int, C: int) -> int:
@@ -59,6 +66,18 @@ def stat_chunks(B: int, HW: int, C: int) -> int:
     return max(1, min(HW, max(fill, accuracy)))
 
 
+def _check_input(name: str, x: torch.Tensor) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {x.dtype} not supported "
+                         f"(float32 or bfloat16)")
+    if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name}: expected a channels_last [B, C, H, W] "
+                         f"tensor, got shape {tuple(x.shape)} strides "
+                         f"{x.stride()}")
+    if x.shape[0] > 65535:  # the stats pass launches a grid z-slice a sample
+        raise ValueError(f"{name}: batch {x.shape[0]} > 65535")
+
+
 def instance_norm_act(x: torch.Tensor, act: str = "none",
                       eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm2d(affine=False) + none/relu/leaky(0.2) over H, W.
@@ -67,18 +86,10 @@ def instance_norm_act(x: torch.Tensor, act: str = "none",
     if x.device.type == "cpu":
         return instance_norm_act_ref(x, act, eps)
     _cuda.check_cuda("instance_norm_act", x)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"instance_norm_act: dtype {x.dtype} not supported "
-                         f"(float32 or bfloat16)")
-    if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(f"instance_norm_act: expected a channels_last "
-                         f"[B, C, H, W] tensor, got shape {tuple(x.shape)} "
-                         f"strides {x.stride()}")
+    _check_input("instance_norm_act", x)
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     B, C, H, W = x.shape
-    if B > 65535:  # the stats pass launches one grid z-slice per sample
-        raise ValueError(f"instance_norm_act: batch {B} > 65535")
     P = stat_chunks(B, H * W, C)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     partial = torch.empty(B, P, C, 2, dtype=torch.float32, device=x.device)
@@ -91,3 +102,27 @@ def instance_norm_act(x: torch.Tensor, act: str = "none",
 
 
 instance_norm_act.launches = 0
+
+
+def instance_stats(x: torch.Tensor, eps: float = 1e-5):
+    """The statistics of `instance_norm_act` without the apply pass:
+    f32 (mean, rsqrt(var + eps)), each [B, C], of x [B, C, H, W]
+    (pix2pixhdaudiosr_tpu/ops/enhancer_pallas.py:_instance_stats). On CUDA
+    x must be channels_last float32 or bfloat16; launches counted in
+    `instance_stats.launches`."""
+    if x.device.type == "cpu":
+        return instance_stats_ref(x, eps)
+    _cuda.check_cuda("instance_stats", x)
+    _check_input("instance_stats", x)
+    B, C, H, W = x.shape
+    P = stat_chunks(B, H * W, C)
+    partial = torch.empty(B, P, C, 2, dtype=torch.float32, device=x.device)
+    stats = torch.empty(2, B, C, dtype=torch.float32, device=x.device)
+    _cuda.launch("p2p_instance_stats", x.device, x.data_ptr(),
+                 partial.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                 B, H * W, C, int(x.dtype == torch.bfloat16), float(eps), P)
+    instance_stats.launches += 1
+    return stats[0], stats[1]
+
+
+instance_stats.launches = 0

@@ -5,7 +5,9 @@ Port of the serving subset of pix2pixhdaudiosr_tpu/system.py:
 lr side (:170-185) and `inference` (:371-383). The generator is an
 nn.Module that holds its weights (the JAX package passes a param tree);
 it runs in the compute dtype, on a channels_last view of the NHWC
-spectrogram.
+spectrogram. The port serves only, so one netG carries `--fused_enhancer`
+where the JAX package builds a separate `netG_infer` beside its training
+tree.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ class Pix2PixHDSystem:
             cfg.n_downsample_global, cfg.n_blocks_global,
             cfg.n_local_enhancers, cfg.n_blocks_local,
             deconv_mode="torch" if cfg.torch_deconv else "same",
+            fused_enh_blocks=cfg.fused_enhancer,
             device="meta").to_empty(device=self.device)
 
     # ------------------------------------------------------------------

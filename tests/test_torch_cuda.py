@@ -58,3 +58,116 @@ def test_instance_norm_kernel_matches_twin(cuda, dtype, shape):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
     with pytest.raises(ValueError, match="channels_last"):
         instance_norm_act(x.contiguous())
+
+
+def _ulp_excess(got, want):
+    """max of |got - want| - one bf16 ulp (of the larger) - 1e-6 max(1,
+    max|want|): <= 0 when every element agrees within one ulp. Near zero
+    the ulp is smaller than the f32 sums' own rounding, which scales with
+    the size of the partial sums (~max|want|), hence the floor."""
+    def ulp(v):
+        a = v.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+        return torch.exp2(torch.floor(torch.log2(a)) - 7)
+    floor = 1e-6 * max(1.0, want.float().abs().max().item())
+    return ((got.float() - want.float()).abs() - floor
+            - torch.maximum(ulp(got), ulp(want))).max().item()
+
+
+@pytest.mark.parametrize("prologue", [None, "in_relu", "in_relu_add", "in_add"])
+@pytest.mark.parametrize("shape", [(2, 96, 16, 64), (3, 8, 5, 7),
+                                   (1, 40, 5, 150)])
+def test_conv3x3_in_kernel_matches_twin(cuda, shape, prologue):
+    """y within one bf16 ulp; mean and scale within 1e-4 of the channel's
+    magnitude (|mean| + std, and |scale|): a one-ulp flip of y moves the
+    mean by ulp / (H * W) however small the mean itself is. (1, 40, 5, 150)
+    takes two column tiles, one a partial, and a partial channel tile."""
+    from pix2pixhdaudiosr_torch.ops import enhancer as te
+    B, C, H, W = shape
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def act():
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    x, res = act(), act()
+    w = te.pack_weights(torch.randn(C, C, 3, 3, generator=gen, device=cuda) * .1)
+    bias = torch.randn(C, generator=gen, device=cuda) * .1
+    mean = torch.randn(B, C, generator=gen, device=cuda) * .3
+    scale = torch.rand(B, C, generator=gen, device=cuda) * 1.5 + .5
+    args = (x, w, bias, mean, scale, res, prologue)
+    n = te.conv3x3_in.launches
+    y, (m, s) = te.conv3x3_in(*args)
+    assert te.conv3x3_in.launches == n + 1
+    y_ref, (m_ref, s_ref) = te.conv3x3_in_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (B, C, H, W)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert _ulp_excess(y, y_ref) <= 0
+    assert ((m - m_ref).abs() <= 1e-4 * (m_ref.abs() + 1 / s_ref)).all()
+    assert ((s - s_ref).abs() <= 1e-4 * s_ref).all()
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape,co", [((2, 96, 18, 66), 96), ((3, 16, 7, 9), 24),
+                                      ((1, 16, 7, 9), 136)])
+def test_conv3x3_valid_kernel_matches_twin(cuda, shape, co, relu):
+    from pix2pixhdaudiosr_torch.ops.conv import conv3x3_valid, conv3x3_valid_ref
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = (torch.randn(co, shape[1], 3, 3, generator=gen, device=cuda) * .1
+         ).to(torch.bfloat16)
+    n = conv3x3_valid.launches
+    y = conv3x3_valid(x, w, relu)
+    assert conv3x3_valid.launches == n + 1
+    want = conv3x3_valid_ref(x, w, relu)
+    torch.cuda.synchronize()
+    assert y.shape == (shape[0], co, shape[2] - 2, shape[3] - 2)
+    assert _ulp_excess(y, want) <= 0
+    if relu:
+        assert (y >= 0).all()
+
+
+def test_instance_stats_kernel_matches_twin(cuda):
+    from pix2pixhdaudiosr_torch.ops.norm import instance_stats, instance_stats_ref
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(2, 96, 16, 64, generator=gen, device=cuda) + .5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    n = instance_stats.launches
+    m, s = instance_stats(x)
+    assert instance_stats.launches == n + 1
+    m_ref, s_ref = instance_stats_ref(x)
+    torch.testing.assert_close(m, m_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-6)
+
+
+def test_fused_section_launches_and_refusals(cuda):
+    """One fused enhancer section at B = 2 launches instance_stats once and
+    conv3x3_in twice a block; f32 and non-channels_last inputs raise."""
+    from pix2pixhdaudiosr_torch.ops import conv as tconv
+    from pix2pixhdaudiosr_torch.ops import enhancer as te
+    from pix2pixhdaudiosr_torch.ops.norm import instance_stats
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shape = (2, 16, 8, 8)
+    d, o = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for _ in range(2))
+    blocks = [tuple((torch.randn(16, 16, 3, 3, generator=gen, device=cuda) * .1,
+                     torch.zeros(16, device=cuda)) for _ in range(2))
+              for _ in range(2)]
+    n_conv, n_stats = te.conv3x3_in.launches, instance_stats.launches
+    h = te.fused_enhancer_section(d, o, blocks)
+    torch.cuda.synchronize()
+    assert te.conv3x3_in.launches - n_conv == 4
+    assert instance_stats.launches - n_stats == 1
+    assert h.shape == shape and torch.isfinite(h.float()).all()
+    w = torch.randn(16, 16, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tconv.conv3x3_valid(torch.randn(2, 16, 6, 6, device=cuda).contiguous(
+            memory_format=torch.channels_last), w)
+    with pytest.raises(ValueError, match="channels_last"):
+        tconv.conv3x3_valid(torch.randn(2, 16, 6, 6, device=cuda).to(
+            torch.bfloat16), w)
+    with pytest.raises(ValueError, match="channels_last"):
+        te.conv3x3_in(d.contiguous(), te.pack_weights(w), torch.zeros(16,
+                                                                    device=cuda))

@@ -1,6 +1,7 @@
 """The PyTorch port's serving slice against the JAX package (CPU, toy size):
-wav in, wav out through the chunked generate loop; the generate CLI; the
-jax-free import guard; the checkpoint export tool; the metrics.
+wav in, wav out through the chunked generate loop; the generate CLI, plain
+and with --fused_enhancer; the jax-free import guard; the checkpoint export
+tool; the metrics.
 
 Toy configuration: n_fft 64 / hop 32 / win 64, 480-sample segments (16
 frames), LocalEnhancer ngf 4 with 2 downsamples and 1 + 1 blocks, f32.
@@ -160,7 +161,6 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--fused_enhancer"], "B4"),
     (["--int8_trunk"], "A10"),
     (["--data_type", "8"], "A10"),
     (["--cp_shards", "2"], "A11"),
@@ -175,6 +175,79 @@ def test_unported_options_raise(tmp_path, extra, item):
         argv.append("--no_html")
     with pytest.raises(SystemExit, match=item):
         generate.main(argv)
+
+
+FUSED = ["--fused_enhancer", "--compute_dtype", "bfloat16"]
+
+
+def _spy_fused(monkeypatch):
+    """Count the generator's calls into the fused enhancer section."""
+    from pix2pixhdaudiosr_torch.ops import enhancer
+    calls = []
+    orig = enhancer.fused_enhancer_section
+    monkeypatch.setattr(enhancer, "fused_enhancer_section",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    return calls
+
+
+def test_fused_enhancer_inference_matches_jax(rng_np, monkeypatch):
+    """--fused_enhancer --compute_dtype bfloat16 at batch 128 (the JAX gate
+    needs B % 128): the port's system.inference against JAX
+    Pix2PixHDSystem.inference (its netG_infer, Pallas in interpret mode),
+    same params and mask noise; the lr spectrograms (f32 encode) within
+    1e-4. The plain bf16 layers of the two frameworks round at different
+    places (flax sums the avg-pool taps and adds each conv bias in bf16),
+    which alone moves the sr spectrogram by max|plain - jax plain| (0.11 of
+    max|want| in this configuration). Bound: the fused sr spectrogram stays
+    within that plus 0.05 max|want|, the JAX package's own fused-vs-plain
+    bound, and within 0.05 max|want| of the port's plain path."""
+    argv = TOY + FUSED
+    jcfg = jparse(argv, is_train=False, save=False)
+    tcfg = parse_config(argv, is_train=False, save=False)
+    jsys, params = _toy_params(jcfg)
+    assert jsys.netG_infer is not jsys.netG
+    lr = (rng_np.standard_normal((128, SEG)) * 0.2).astype(np.float32)
+    sr_want, _, _, lr_want = jax.jit(jsys.inference)(
+        params, jnp.asarray(lr), jax.random.PRNGKey(tcfg.seed))
+
+    system = Pix2PixHDSystem(tcfg, device="cpu")
+    system.netG.load_state_dict(jax_to_torch_generator(jax.device_get(params)))
+    system.netG.to(dtype=system.dtype, memory_format=torch.channels_last)
+    b, f, t, c = system.spectro_shape(128)
+    noise = _jax_mask_noise(tcfg.seed)(0, (b, system.codec.mask_size(f), t, c))
+    calls = _spy_fused(monkeypatch)
+    sr, _, _, lr_spec = system.inference(torch.from_numpy(lr), noise=noise)
+    assert calls == [1]
+    np.testing.assert_allclose(lr_spec.numpy(), np.asarray(lr_want), atol=1e-4)
+    want = np.asarray(sr_want)
+    assert sr.dtype == torch.float32 and sr.shape == want.shape
+
+    system.netG.fused_enh_blocks = False
+    plain, *_ = system.inference(torch.from_numpy(lr), noise=noise)
+    assert calls == [1]
+    plain_want = np.asarray(jsys.netG.apply(params, lr_want.astype(
+        jnp.bfloat16)).astype(jnp.float32))
+    scale = np.abs(want).max()
+    plain_err = np.abs(plain.numpy() - plain_want).max()
+    assert np.abs(sr.numpy() - want).max() <= plain_err + 0.05 * scale
+    assert np.abs(sr.numpy() - plain.numpy()).max() <= 0.05 * scale
+
+
+def test_generate_cli_fused_enhancer_on_cpu(tmp_path, rng_np, monkeypatch):
+    """The generate CLI with --fused_enhancer on the CPU at batch 128 runs
+    the fused section's twins and writes its outputs."""
+    wav = tmp_path / "in.wav"
+    write_wav(str(wav), (rng_np.standard_normal(1500) * 0.2).astype(np.float32),
+              48000)
+    _write_toy_pth(str(tmp_path / "run"), TOY)
+    calls = _spy_fused(monkeypatch)
+    audio = generate.main(TOY + FUSED + [
+        "--name", "run", "--checkpoints_dir", str(tmp_path), "--dataroot",
+        str(wav), "--batchSize", "128", "--no_html", "--device", "cpu"])
+    assert calls == [1]  # one batch of 128
+    assert np.isfinite(audio).all() and np.abs(audio).max() > 0
+    sr, rate = read_wav(str(tmp_path / "run" / "sr_audio.wav"))
+    assert rate == 48000 and sr.shape[1] >= 1500
 
 
 def test_flac_input_raises(tmp_path):
