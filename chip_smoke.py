@@ -13,21 +13,31 @@ Phases, each fatal on failure (exit code 1):
      prologue, y within one bf16 ulp (+1e-6 max(1, max|y|) near zero) and
      its mean and scale within 1e-4 of the channel's magnitude;
      conv3x3_valid at [64, 96, 258, 66] with and without ReLU, within one
-     bf16 ulp (+ the same floor)), and time both with CUDA events;
+     bf16 ulp (+ the same floor); the stochastic quantizer at [13824, 1536]
+     (a flagship trunk conv weight as 2-D) and [1000, 136], q and scale
+     bit-identical and q * scale within one step of x), and time both with
+     CUDA events; then the int8 trunk conv at [128, 1536, 16, 4] bf16: its
+     int32 accumulator on the card equal to the CPU's;
   4. write a 5 s synthetic 48 kHz wav;
   5. build the flagship generator (LocalEnhancer G3L2, ngf 48, 156,050,690
      parameters) with seeded N(0, 0.02) weights, saved and loaded as .pth;
-  6. run the port's generate CLI on it (bf16, batch 16), then again with
-     --fused_enhancer at batch 128 (the JAX gate needs B % 128), every
-     kernel launch counter set to 0 just before each run;
-  7. check their outputs (finite, right lengths, 48 kHz) and that every
-     kernel of each run was launched during it; hold the CUDA serve path
+  6. run the port's generate CLI on it (bf16, batch 16), then with
+     --fused_enhancer at batch 128 (the JAX gate needs B % 128), then with
+     --data_type 8 --int8_trunk at batch 16, every kernel launch counter
+     set to 0 just before each run;
+  7. check their outputs (finite, right lengths, 48 kHz), that every
+     kernel of each run was launched during it, and that the quantized run
+     printed "int8 weight quantization enabled"; hold the CUDA serve path
      against the same path on the CPU in f32 on one segment, stage by
      stage; hold the fused G output against the unfused one on the card
-     (bf16, one batch of 128, max|diff| <= 0.05 max|unfused|);
-  8. time the batch-128 serve forward (encode + G + decode) in bf16, plain
-     and --fused_enhancer in turns (plain, fused, fused, plain), and trace
-     one forward of each with torch.profiler (device time by kernel).
+     (bf16, one batch of 128, max|diff| <= 0.05 max|unfused|), and the
+     --int8_trunk and --data_type 8 G outputs against the plain one
+     (correlation >= 0.99);
+  8. time the batch-128 serve forward (encode + G + decode) in bf16, plain,
+     --fused_enhancer and --int8_trunk in turns (plain, fused, int8, int8,
+     fused, plain), and plain and int8 at batch 1 (plain, int8, int8,
+     plain); trace one forward of each path with torch.profiler (device
+     time by kernel); print the flagship's int8 size against f32 and bf16.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
@@ -37,6 +47,8 @@ torch.backends.cudnn.allow_tf32 both False).
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -68,10 +80,17 @@ KERNELS = {
                    "pix2pixhdaudiosr_tpu/ops/enhancer_pallas.py:182"),
     "conv3x3_valid": ("pix2pixhdaudiosr_torch/csrc/conv3x3_in.cu",
                       "pix2pixhdaudiosr_tpu/ops/conv_pallas.py:78"),
+    "stochastic_quantize_2d": ("pix2pixhdaudiosr_torch/csrc/quant.cu",
+                               "pix2pixhdaudiosr_tpu/ops/quant.py:152"),
 }
 # the flagship enhancer resblock activation [B, C, H, W]
 ENH_SHAPE = (128, 96, 256, 64)
 FUSED = ["--fused_enhancer", "--batchSize", "128"]
+QUANT = ["--data_type", "8", "--int8_trunk"]
+# the flagship trunk resblock activation [B, C, H, W], and one trunk conv
+# weight [Co, Ci, 3, 3] seen as the flax kernel's 2-D view [9 Ci, Co]
+TRUNK_SHAPE = (128, 1536, 16, 4)
+TRUNK_W2D = (9 * 1536, 1536)
 
 
 class SmokeFailure(Exception):
@@ -285,6 +304,80 @@ def phase_conv_kernels(dev):
     return rec, detail
 
 
+def phase_quant_kernels(dev):
+    """The stochastic quantizer against its twin: N(0, 0.02) (the flagship
+    init) at a trunk conv weight's 2-D shape, and a ragged shape; q and
+    scale bit-identical, q * scale within one step of x (+1e-6 for the
+    product's rounding). Then the int8 trunk conv at the flagship trunk
+    shape: the card's int32 accumulator equal to the CPU's, and its time
+    beside cuDNN's bf16 conv on the same activation (reflect pad + conv +
+    bias, as the plain trunk serves it). Returns {name: record}, details."""
+    import torch
+    import torch.nn.functional as F
+    from pix2pixhdaudiosr_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rec, detail = {}, {}
+    for shape in (TRUNK_W2D, (1000, 136)):
+        x = torch.randn(shape, generator=gen, device=dev) * 0.02
+        q, s = quant.stochastic_quantize_2d(x, 1234)
+        q_ref, s_ref = quant.stochastic_quantize_2d_ref(x, 1234)
+        torch.cuda.synchronize()
+        err = max((q.int() - q_ref.int()).abs().max().item(),
+                  (s - s_ref).abs().max().item())
+        steps = ((q.float() * s - x).abs() / s).max().item()
+        print(f"[kernels] stochastic_quantize_2d {list(shape)}: max|err| "
+              f"{err}, max|q*s - x| {steps:.6f} steps")
+        check(torch.equal(q, q_ref) and torch.equal(s, s_ref),
+              f"stochastic_quantize_2d {shape}: not bit-identical ({err})")
+        check(steps <= 1 + 1e-6, f"stochastic_quantize_2d {shape}: "
+              f"{steps} steps from x")
+        detail[f"stochastic_quantize_2d {list(shape)}"] = dict(
+            max_abs_err=err, max_steps=steps,
+            ms=cuda_ms(lambda: quant.stochastic_quantize_2d(x, 1234)),
+            plain_ms=cuda_ms(lambda: quant.stochastic_quantize_2d_ref(x, 1234),
+                             iters=5))
+    main = detail[f"stochastic_quantize_2d {list(TRUNK_W2D)}"]
+    rec["stochastic_quantize_2d"] = dict(max_abs_err=main["max_abs_err"],
+                                         ms=main["ms"],
+                                         plain_ms=main["plain_ms"])
+
+    B, C, H, W = TRUNK_SHAPE
+    cpu = torch.Generator().manual_seed(10)
+    x = torch.randn(TRUNK_SHAPE, generator=cpu).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn(C, C, 3, 3, generator=cpu) * 0.02).to(torch.bfloat16)
+    b = torch.zeros(C, dtype=torch.bfloat16)
+    kq, sw = quant.quantize_conv_weight(w)
+    t0 = time.perf_counter()
+    acc, sx = quant.conv3x3_int8_acc(x, kq)
+    cpu_s = time.perf_counter() - t0
+    xc, wc, bc = x.to(dev), w.to(dev), b.to(dev)
+    kq_c, sw_c = quant.quantize_conv_weight(wc)
+    acc_c, sx_c = quant.conv3x3_int8_acc(xc, kq_c)
+    torch.cuda.synchronize()
+    same = (torch.equal(kq_c.cpu(), kq) and torch.equal(sw_c.cpu(), sw)
+            and torch.equal(acc_c.cpu(), acc) and sx_c.item() == sx.item())
+    print(f"[kernels] conv3x3_int8 {list(TRUNK_SHAPE)} bf16: int32 "
+          f"accumulator on the card {'equals' if same else 'DIFFERS FROM'} "
+          f"the CPU's (CPU {cpu_s:.1f} s)")
+    check(same, "conv3x3_int8: the card's accumulator differs from the CPU's")
+    del acc, acc_c
+    cols = torch.zeros(B * H * W, 9 * C, dtype=torch.int8, device=dev)
+    searched = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    detail["conv3x3_int8"] = dict(
+        shape=f"{list(TRUNK_SHAPE)} bf16",
+        ms=cuda_ms(lambda: quant.conv3x3_int8(xc, kq_c, sw_c, bc)),
+        int_mm_ms=cuda_ms(lambda: torch._int_mm(cols, kq_c.t())),
+        quantize_weight_ms=cuda_ms(lambda: quant.quantize_conv_weight(wc)),
+        cudnn_bf16_ms=cuda_ms(lambda: F.conv2d(
+            F.pad(xc, (1, 1, 1, 1), mode="reflect"), wc, bc)))
+    torch.backends.cudnn.benchmark = searched
+    print("[kernels] conv3x3_int8 timing " + json.dumps(detail["conv3x3_int8"]))
+    return rec, detail
+
+
 def write_synthetic_wav(path: str, seconds: float = 5.0, rate: int = 48000):
     import numpy as np
     from pix2pixhdaudiosr_torch.data.wavio import write_wav
@@ -311,7 +404,10 @@ def flagship_generator_pth(expr_dir: str, seed: int = 0) -> str:
     return save_generator(net, os.path.join(expr_dir, "latest_net_G.pth"))
 
 
-def phase_generate(dev, counters, wav: str, n_in: int, extra=()) -> dict:
+def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
+                   expect=()) -> dict:
+    """One run of the generate CLI; every counter in `counters` must move,
+    and every line in `expect` must be among what it printed."""
     import numpy as np
     from pix2pixhdaudiosr_torch import generate
     from pix2pixhdaudiosr_torch.data.wavio import read_wav
@@ -321,14 +417,20 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=()) -> dict:
             "16", "--no_html", "--device", dev, *FLAGSHIP, *extra]
     for fn in counters.values():
         fn.launches = 0
+    out = io.StringIO()
     t0 = time.perf_counter()
-    audio = generate.main(argv)
+    with contextlib.redirect_stdout(out):
+        audio = generate.main(argv)
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    sys.stdout.write(out.getvalue())
     print(f"[generate{' ' + ' '.join(extra) if extra else ''}] "
           f"{seconds:.1f} s, launches {launches}")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched by the generate run")
+    for line in expect:
+        check(line in out.getvalue().splitlines(),
+              f"the generate run did not print {line!r}")
     check(bool(np.isfinite(audio).all()), "generate produced non-finite audio")
     check(float(np.abs(audio).max()) > 0, "generate produced silence")
     sr, rate = read_wav(os.path.join(WORK, "smoke", "sr_audio.wav"))
@@ -390,24 +492,35 @@ def phase_reference(dev) -> dict:
     return err
 
 
-def fused_system(dev, batch: int = 128):
-    """The flagship system in bf16 with --fused_enhancer (its netG toggles
-    the fused section through `fused_enh_blocks`), and a seeded batch."""
+def flagship_system(dev, extra=()):
+    """The flagship system in bf16 as generate loads it, with `extra`
+    flags. Its netG switches paths in place: `fused_enh_blocks` for the
+    fused enhancer section, the global trunk's `int8_blocks` for the int8
+    trunk (set_path)."""
     import torch
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.generate import load_system
 
     cfg = parse_config(["--name", "smoke", "--checkpoints_dir", WORK,
                         "--load_pretrain", os.path.join(WORK, "smoke"),
-                        *FLAGSHIP, "--fused_enhancer"], is_train=False,
-                       save=False)
-    system = load_system(cfg, torch.device(dev))
+                        *FLAGSHIP, *extra], is_train=False, save=False)
+    return load_system(cfg, torch.device(dev))
+
+
+def seeded_batch(system, dev, batch: int):
+    """A seeded lr batch [batch, SEG] and its mask noise."""
+    import torch
     gen = torch.Generator(device=dev).manual_seed(3)
     lr = torch.randn(batch, SEG, generator=gen, device=dev) * 0.1
     b, f, t, c = system.spectro_shape(batch)
     noise = torch.randn(b, system.codec.mask_size(f), t, c, generator=gen,
                         device=dev)
-    return system, lr, noise
+    return lr, noise
+
+
+def set_path(system, fused: bool = False, int8: bool = False) -> None:
+    system.netG.fused_enh_blocks = fused
+    getattr(system.netG, "global").int8_blocks = int8
 
 
 def phase_fused_vs_plain(system, lr, noise) -> dict:
@@ -419,12 +532,13 @@ def phase_fused_vs_plain(system, lr, noise) -> dict:
 
     out = {}
     for fused in (False, True):
-        system.netG.fused_enh_blocks = fused
+        set_path(system, fused=fused)
         n = enhancer.conv3x3_in.launches
         with torch.no_grad():
             out[fused] = system.inference(lr, noise=noise)[0]
         check((enhancer.conv3x3_in.launches > n) == fused,
               f"fused={fused}: conv3x3_in launched {enhancer.conv3x3_in.launches - n}x")
+    set_path(system)
     scale = out[False].abs().max().item()
     err = (out[True] - out[False]).abs().max().item()
     res = dict(max_abs_diff=err, max_abs_unfused=scale, ratio=err / scale,
@@ -436,36 +550,103 @@ def phase_fused_vs_plain(system, lr, noise) -> dict:
     return res
 
 
+def phase_quant_vs_plain(system, dq_system, lr, noise) -> dict:
+    """--int8_trunk G (the same system, trunk switched to int8) and
+    --data_type 8 G (dq_system, loaded with the flag) against the plain G on
+    the card: bf16, one batch, the same weights and noise; correlation
+    >= 0.99, the JAX package's own bound (tests/test_quant.py:47, :114).
+    Also prints max|diff| / max|plain|."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import quant
+
+    n_convs = 2 * getattr(system.netG, "global").n_blocks
+    out = {}
+    for name, sys_, int8 in (("plain", system, False),
+                             ("int8_trunk", system, True),
+                             ("data_type_8", dq_system, False)):
+        set_path(sys_, int8=int8)
+        n = quant.conv3x3_int8.launches
+        with torch.no_grad():
+            out[name] = sys_.inference(lr, noise=noise)[0].double()
+        launched = quant.conv3x3_int8.launches - n
+        check(launched == (n_convs if int8 else 0),
+              f"{name}: conv3x3_int8 launched {launched}x")
+    set_path(system)
+    plain = out["plain"].flatten()
+    scale = plain.abs().max().item()
+    res = {}
+    for name in ("int8_trunk", "data_type_8"):
+        got = out[name].flatten()
+        check(bool(torch.isfinite(got).all()), f"{name} G output not finite")
+        corr = torch.corrcoef(torch.stack([got, plain]))[0, 1].item()
+        res[name] = dict(corr=corr, ratio=(got - plain).abs().max().item()
+                         / scale, bound_corr=0.99)
+        print(f"[{name} vs plain] " + json.dumps(res[name]))
+        check(corr >= 0.99, f"{name} G output correlates {corr} < 0.99 with "
+              f"the plain G")
+    return res
+
+
 def phase_serve_timing(system, lr, noise) -> dict:
-    """ms/batch, frames/s and peak GiB of the serve forward, plain and
-    fused in turns (plain, fused, fused, plain), 5 forwards after 2 warm-ups
-    each; then one traced forward of each."""
+    """ms/batch, frames/s and peak GiB of the serve forward at batch 128,
+    plain, fused and int8 trunk in turns (plain, fused, int8, int8, fused,
+    plain), 5 forwards after 2 warm-ups each; plain and int8 at batch 1 in
+    turns (plain, int8, int8, plain), 20 forwards after 3 warm-ups; then one
+    traced forward of each path at batch 128."""
     import torch
     t = system.n_frames
+    paths = {"plain": {}, "fused_enhancer": dict(fused=True),
+             "int8_trunk": dict(int8=True)}
 
-    def serve():
-        with torch.no_grad():
-            sr, pha, norm, _ = system.inference(lr, noise=noise)
-            return system.codec.imdct_eval(torch.abs(sr), pha, norm)
+    def timed(lr_, noise_, order, iters, warmup):
+        def serve():
+            with torch.no_grad():
+                sr, pha, norm, _ = system.inference(lr_, noise=noise_)
+                return system.codec.imdct_eval(torch.abs(sr), pha, norm)
+        runs = {name: [] for name in order}
+        for name in order:
+            set_path(system, **paths[name])
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(serve, iters=iters, warmup=warmup)
+            runs[name].append((ms, torch.cuda.max_memory_allocated() / 2**30))
+        res = {}
+        for name, rs in runs.items():
+            ms = sum(r[0] for r in rs) / len(rs)
+            res[name] = dict(batch=lr_.shape[0], ms_per_batch=ms,
+                             ms_runs=[r[0] for r in rs],
+                             frames_per_s=lr_.shape[0] * t / (ms / 1e3),
+                             peak_gib=max(r[1] for r in rs))
+            print(f"[serve {name} b{lr_.shape[0]}] " + json.dumps(res[name]))
+        return res, serve
 
-    runs = {False: [], True: []}
-    for fused in (False, True, True, False):
-        system.netG.fused_enh_blocks = fused
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(serve, iters=5, warmup=2)
-        runs[fused].append((ms, torch.cuda.max_memory_allocated() / 2**30))
-    res = {}
-    for fused, name in ((False, "plain"), (True, "fused_enhancer")):
-        ms = sum(r[0] for r in runs[fused]) / 2
-        res[name] = dict(batch=lr.shape[0], ms_per_batch=ms,
-                         ms_runs=[r[0] for r in runs[fused]],
-                         frames_per_s=lr.shape[0] * t / (ms / 1e3),
-                         peak_gib=max(r[1] for r in runs[fused]))
-        print(f"[serve {name}] " + json.dumps(res[name]))
-    for fused, name in ((False, "plain"), (True, "fused_enhancer")):
-        system.netG.fused_enh_blocks = fused
+    res, serve = timed(lr, noise, ("plain", "fused_enhancer", "int8_trunk",
+                                   "int8_trunk", "fused_enhancer", "plain"),
+                       iters=5, warmup=2)
+    res["batch1"], _ = timed(lr[:1], noise[:1], ("plain", "int8_trunk",
+                                                 "int8_trunk", "plain"),
+                             iters=20, warmup=3)
+    for name in paths:
+        set_path(system, **paths[name])
         res[name]["profile"] = profile_serve(serve)
         print(f"[profile {name}] " + json.dumps(res[name]["profile"]))
+    set_path(system)
+    return res
+
+
+def phase_sizes(pth: str) -> dict:
+    """quantized_size_bytes of the flagship generator (int8 weights, f32
+    scales and biases) against its f32 and bf16 sizes."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops.quant import (quantize_state_dict,
+                                                  quantized_size_bytes)
+    state = torch.load(pth, map_location="cpu", weights_only=True)
+    n = sum(t.numel() for t in state.values())
+    qstate, scales = quantize_state_dict(state)
+    res = dict(f32_bytes=4 * n, bf16_bytes=2 * n,
+               int8_bytes=quantized_size_bytes(qstate),
+               scale_bytes=sum(s.numel() * 4 for s in scales.values()
+                               if s is not None))
+    print("[sizes] " + json.dumps(res))
     return res
 
 
@@ -517,31 +698,44 @@ def main() -> int:
         from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
         from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
                                                      instance_stats)
+        from pix2pixhdaudiosr_torch.ops.quant import (conv3x3_int8,
+                                                      stochastic_quantize_2d)
         lib = _cuda.build()
         _cuda.library()
         print(f"[build] {lib} in {time.perf_counter() - t0:.1f} s")
         print(open(lib.parent / "build.log").read()[-3000:])
 
         rec, detail = phase_kernels(dev)
-        rec_conv, detail_conv = phase_conv_kernels(dev)
-        rec.update(rec_conv)
-        detail.update(detail_conv)
-        valid_launches = conv3x3_valid.launches  # no path calls B5
+        for phase in (phase_conv_kernels, phase_quant_kernels):
+            rec_p, detail_p = phase(dev)
+            rec.update(rec_p)
+            detail.update(detail_p)
+        # no path calls B5 or B6: their launches are phase 3's
+        valid_launches = conv3x3_valid.launches
+        quant_launches = stochastic_quantize_2d.launches
         shutil.rmtree(WORK, ignore_errors=True)
         os.makedirs(os.path.join(WORK, "smoke"))
         wav = os.path.join(WORK, "input_48k.wav")
         n_in = write_synthetic_wav(wav)
-        flagship_generator_pth(os.path.join(WORK, "smoke"))
+        pth = flagship_generator_pth(os.path.join(WORK, "smoke"))
         counters = {"mdct2": mdct2, "imdct2": imdct2,
                     "instance_norm_act": instance_norm_act}
         gen_res = phase_generate(dev, counters, wav, n_in)
         gen_fused = phase_generate(dev, dict(
             counters, conv3x3_in=conv3x3_in, instance_stats=instance_stats),
             wav, n_in, FUSED)
+        gen_quant = phase_generate(dev, dict(counters,
+                                             conv3x3_int8=conv3x3_int8),
+                                   wav, n_in, QUANT,
+                                   expect=["int8 weight quantization enabled"])
         ref_err = phase_reference(dev)
-        system, lr, noise = fused_system(dev)
+        system = flagship_system(dev, ["--fused_enhancer"])
+        lr, noise = seeded_batch(system, dev, 128)
         fused_err = phase_fused_vs_plain(system, lr, noise)
+        quant_err = phase_quant_vs_plain(
+            system, flagship_system(dev, ["--data_type", "8"]), lr, noise)
         serve = phase_serve_timing(system, lr, noise)
+        sizes = phase_sizes(pth)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -550,7 +744,8 @@ def main() -> int:
 
     launches = dict(gen_res["launches"],
                     conv3x3_in=gen_fused["launches"]["conv3x3_in"],
-                    conv3x3_valid=valid_launches)
+                    conv3x3_valid=valid_launches,
+                    stochastic_quantize_2d=quant_launches)
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
                     max_abs_err=rec[k]["max_abs_err"], ms=rec[k]["ms"],
@@ -558,8 +753,9 @@ def main() -> int:
     print("[detail] " + json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         kernel_detail=detail, generate=gen_res, generate_fused=gen_fused,
-        reference_max_abs_err=ref_err, fused_vs_plain=fused_err,
-        serve=serve)))
+        generate_quant=gen_quant, reference_max_abs_err=ref_err,
+        fused_vs_plain=fused_err, quant_vs_plain=quant_err, serve=serve,
+        sizes=sizes)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,14 +26,12 @@ from .config import parse_config
 from .data.dataset import AudioTestDataset
 from .data.wavio import write_wav
 from .metrics import compute_metrics, segmental_snr
+from .ops.quant import dequantize_state_dict, quantize_state_dict
 from .system import Pix2PixHDSystem
 from .utils.checkpoint import generator_path, load_generator
 
 # (condition on the config, what it asks for, the ROADMAP item that brings it)
 _NOT_YET = (
-    (lambda c: c.int8_trunk, "--int8_trunk", "quantized serving, ROADMAP A10"),
-    (lambda c: c.data_type == 8, "--data_type 8",
-     "quantized serving, ROADMAP A10"),
     (lambda c: c.cp_shards > 1, "--cp_shards > 1", "parallel modes, ROADMAP A11"),
     (lambda c: c.tp_shards > 1, "--tp_shards > 1", "parallel modes, ROADMAP A11"),
     (lambda c: c.use_features or c.net_g == "encoder",
@@ -102,9 +100,15 @@ def generate_segments(system: Pix2PixHDSystem, segments: np.ndarray,
 def load_system(cfg, device: torch.device) -> Pix2PixHDSystem:
     """Build the system and load the generator of cfg's checkpoint tag; the
     weights are cast once to the compute dtype (the JAX package pre-casts
-    its param tree the same way for bf16 serving)."""
+    its param tree the same way for bf16 serving). --data_type 8 first
+    rounds every conv and deconv weight through int8 in f32, as the JAX
+    CLI does (pix2pixhdaudiosr_tpu/generate.py:152-158)."""
     system = Pix2PixHDSystem(cfg, device=device)
     load_generator(system.netG, cfg)
+    if cfg.data_type == 8:
+        qstate, scales = quantize_state_dict(system.netG.state_dict())
+        system.netG.load_state_dict(dequantize_state_dict(qstate, scales))
+        print("int8 weight quantization enabled")
     system.netG.to(dtype=system.dtype, memory_format=torch.channels_last)
     system.netG.eval()
     return system

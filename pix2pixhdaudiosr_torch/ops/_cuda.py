@@ -26,7 +26,7 @@ _LIB_NAME = "libp2p_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signature of every kernel entry point: (argtypes); all return int
 _SIGNATURES = {
     "p2p_mdct2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -37,6 +37,7 @@ _SIGNATURES = {
                        _I, _F, _I, _I, _I, _I, _P),
     "p2p_conv3x3_valid": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P),
+    "p2p_stochastic_quantize_2d": (_P, _P, _P, _P, _I, _I, _U, _P),
 }
 
 _lib = None

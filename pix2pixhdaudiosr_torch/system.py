@@ -6,8 +6,8 @@ lr side (:170-185) and `inference` (:371-383). The generator is an
 nn.Module that holds its weights (the JAX package passes a param tree);
 it runs in the compute dtype, on a channels_last view of the NHWC
 spectrogram. The port serves only, so one netG carries `--fused_enhancer`
-where the JAX package builds a separate `netG_infer` beside its training
-tree.
+and `--int8_trunk` where the JAX package builds a separate `netG_infer`
+beside its training tree.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ class Pix2PixHDSystem:
             cfg.n_downsample_global, cfg.n_blocks_global,
             cfg.n_local_enhancers, cfg.n_blocks_local,
             deconv_mode="torch" if cfg.torch_deconv else "same",
-            fused_enh_blocks=cfg.fused_enhancer,
+            fused_enh_blocks=cfg.fused_enhancer, int8_trunk=cfg.int8_trunk,
             device="meta").to_empty(device=self.device)
 
     # ------------------------------------------------------------------

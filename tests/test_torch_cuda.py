@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain twins, on the card.
+"""The port's CUDA kernels against their plain twins, and the int8 trunk
+conv against the CPU, on the card.
 
 These tests need an NVIDIA GPU (sm_90a build, nvcc): they skip without one.
 On the card, run them with `python -m pytest tests/test_torch_cuda.py`;
@@ -171,3 +172,50 @@ def test_fused_section_launches_and_refusals(cuda):
     with pytest.raises(ValueError, match="channels_last"):
         te.conv3x3_in(d.contiguous(), te.pack_weights(w), torch.zeros(16,
                                                                     device=cuda))
+
+
+@pytest.mark.parametrize("shape", [(13824, 1536), (1000, 136), (7, 3),
+                                   (5, 1)])
+def test_stochastic_quantize_kernel_matches_twin(cuda, shape):
+    """q and scale bit-identical to the twin on the card; the dequantized
+    values within one step of x. (7, 3) and (5, 1) take the scalar quantize
+    path (M * N not a multiple of 4)."""
+    from pix2pixhdaudiosr_torch.ops import quant
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(shape, generator=gen, device=cuda) * 0.02
+    n = quant.stochastic_quantize_2d.launches
+    q, s = quant.stochastic_quantize_2d(x, 1234)
+    assert quant.stochastic_quantize_2d.launches == n + 1
+    q_ref, s_ref = quant.stochastic_quantize_2d_ref(x, 1234)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and s.shape == (1, shape[1])
+    assert torch.equal(s, s_ref) and torch.equal(q, q_ref)
+    assert ((q.float() * s - x).abs() <= s).all()
+    with pytest.raises(ValueError, match="float32"):
+        quant.stochastic_quantize_2d(x.double(), 0)
+
+
+@pytest.mark.parametrize("shape,dtype", [((128, 1536, 16, 4), "bfloat16"),
+                                         ((2, 32, 8, 8), "float32"),
+                                         ((1, 16, 4, 2), "bfloat16")])
+def test_conv3x3_int8_on_card_matches_cpu(cuda, shape, dtype):
+    """The int32 accumulator of the int8 trunk conv on the card (cuBLASLt
+    through torch._int_mm) equals the CPU's exactly, and so does the
+    output; (1, 16, 4, 2) has 8 rows, padded to _int_mm's M > 16."""
+    from pix2pixhdaudiosr_torch.ops import quant
+    B, C, H, W = shape
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(shape, generator=gen).to(getattr(torch, dtype)).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn(C, C, 3, 3, generator=gen) * 0.02).to(x.dtype)
+    b = (torch.randn(C, generator=gen) * 0.05).to(x.dtype)
+    kq, sw = quant.quantize_conv_weight(w)
+    kq_c, sw_c = quant.quantize_conv_weight(w.to(cuda))
+    assert torch.equal(kq_c.cpu(), kq) and torch.equal(sw_c.cpu(), sw)
+    acc, sx = quant.conv3x3_int8_acc(x, kq)
+    acc_c, sx_c = quant.conv3x3_int8_acc(x.to(cuda), kq_c)
+    assert torch.equal(acc_c.cpu(), acc) and sx_c.item() == sx.item()
+    y = quant.conv3x3_int8(x, kq, sw, b)
+    y_c = quant.conv3x3_int8(x.to(cuda), kq_c, sw_c, b.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(y_c.cpu(), y)

@@ -1,7 +1,8 @@
 """The PyTorch port's serving slice against the JAX package (CPU, toy size):
-wav in, wav out through the chunked generate loop; the generate CLI, plain
-and with --fused_enhancer; the jax-free import guard; the checkpoint export
-tool; the metrics.
+wav in, wav out through the chunked generate loop; the generate CLI, plain,
+with --fused_enhancer and with the quantized serving flags (--data_type 8,
+--int8_trunk); the jax-free import guard; the checkpoint export tool; the
+metrics.
 
 Toy configuration: n_fft 64 / hop 32 / win 64, 480-sample segments (16
 frames), LocalEnhancer ngf 4 with 2 downsamples and 1 + 1 blocks, f32.
@@ -29,6 +30,7 @@ from pix2pixhdaudiosr_torch.convert import jax_to_torch_generator  # noqa: E402
 from pix2pixhdaudiosr_torch.data.dataset import AudioTestDataset  # noqa: E402
 from pix2pixhdaudiosr_torch.data.wavio import read_wav, write_wav  # noqa: E402
 from pix2pixhdaudiosr_torch.metrics import compute_metrics  # noqa: E402
+from pix2pixhdaudiosr_torch.ops import quant as tquant  # noqa: E402
 from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -161,9 +163,8 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--int8_trunk"], "A10"),
-    (["--data_type", "8"], "A10"),
     (["--cp_shards", "2"], "A11"),
+    (["--int8_trunk", "--cp_shards", "2"], "A11"),
     (["--tp_shards", "2"], "A11"),
     (["--instance_feat"], "A9"),
     ([], "A5"),            # without --no_html: the HTML gallery
@@ -175,6 +176,108 @@ def test_unported_options_raise(tmp_path, extra, item):
         argv.append("--no_html")
     with pytest.raises(SystemExit, match=item):
         generate.main(argv)
+
+
+@pytest.mark.parametrize("extra", [["--int8_trunk"], ["--data_type", "8"]])
+def test_quantized_options_accepted(extra):
+    """--int8_trunk and --data_type 8 pass the unported-option gate."""
+    cfg = parse_config(TOY + extra + ["--no_html"], is_train=False, save=False)
+    generate.check_supported(cfg)
+    assert cfg.int8_trunk or cfg.data_type == 8
+
+
+def _jax_quantized_params(jcfg, params):
+    """The generator params as the JAX generate CLI serves them
+    (generate.py:152-166): --data_type 8 rounds them through int8 in f32,
+    op by op; bf16 serving pre-casts them."""
+    from pix2pixhdaudiosr_tpu.ops.quant import (dequantize_params,
+                                                quantize_params)
+    if jcfg.data_type == 8:
+        params = dequantize_params(*quantize_params(params), jnp.float32)
+    if jcfg.compute_dtype == "bfloat16":
+        params = jax.tree.map(lambda a: a.astype(jnp.bfloat16), params)
+    return params
+
+
+@pytest.mark.parametrize("extra,dtype", [
+    (["--int8_trunk"], "float32"),
+    (["--data_type", "8"], "float32"),
+    (["--data_type", "8", "--int8_trunk"], "float32"),
+    (["--data_type", "8", "--int8_trunk"], "bfloat16"),
+])
+def test_quantized_inference_matches_jax(tmp_path, rng_np, capsys, extra,
+                                         dtype):
+    """The toy system loaded by generate.load_system with the quantized
+    serving flags against the JAX system's inference on the params the JAX
+    CLI serves (_jax_quantized_params), same mask noise, batch 2.
+    f32: --data_type 8 alone is a plain f32 forward on bit-identical
+    weights, so it keeps the plain slice's bound, 1e-4 max|want|. With
+    --int8_trunk, the JAX trunk quantizes its activations inside jit after
+    f32 layers that round differently from the port's at ~1e-6, and under
+    jit XLA may move a weight scale by an ulp: an int8 value on a rounding
+    boundary can land one step off, 1/127 of its tensor's max, so the bound
+    is 1/127 max|want| (6.5e-6 measured: no step flipped). bf16: the two
+    frameworks' plain bf16 layers already sit apart
+    (test_fused_enhancer_inference_matches_jax: flax rounds the avg-pool
+    sums and each bias add in bf16), so the bound is that plain gap plus
+    the same 1/127."""
+    argv = TOY + extra + ["--compute_dtype", dtype, "--load_pretrain",
+                          str(tmp_path)]
+    jcfg = jparse(argv, is_train=False, save=False)
+    tcfg = parse_config(argv, is_train=False, save=False)
+    jsys, params = _toy_params(jcfg)
+    assert (jsys.netG_infer is not jsys.netG) == tcfg.int8_trunk
+    lr = (rng_np.standard_normal((2, SEG)) * 0.2).astype(np.float32)
+    sr_want, *_ = jax.jit(jsys.inference)(_jax_quantized_params(jcfg, params),
+                                          jnp.asarray(lr),
+                                          jax.random.PRNGKey(tcfg.seed))
+    want = np.asarray(sr_want)
+
+    _write_toy_pth(str(tmp_path), argv)  # the same seeded params
+    system = generate.load_system(tcfg, torch.device("cpu"))
+    printed = "int8 weight quantization enabled" in capsys.readouterr().out
+    assert printed == (tcfg.data_type == 8)
+    b, f, t, c = system.spectro_shape(2)
+    noise = _jax_mask_noise(tcfg.seed)(0, (b, system.codec.mask_size(f), t, c))
+    n = tquant.conv3x3_int8.launches
+    sr = system.inference(torch.from_numpy(lr), noise=noise)[0].numpy()
+    assert tquant.conv3x3_int8.launches - n == (2 if tcfg.int8_trunk else 0)
+    scale = np.abs(want).max()
+    err = np.abs(sr - want).max()
+    print(f"{extra} {dtype}: max|sr - want| / max|want| = {err / scale:.2e}")
+    if dtype == "float32":
+        assert err <= (1 / 127 if tcfg.int8_trunk else 1e-4) * scale, \
+            err / scale
+    else:
+        plain_want = np.asarray(jax.jit(jsys.netG.apply)(
+            _jax_quantized_params(jcfg, params),
+            jsys.encode_input(jnp.asarray(lr), None, jax.random.PRNGKey(
+                tcfg.seed))[0].astype(jnp.bfloat16)).astype(jnp.float32))
+        getattr(system.netG, "global").int8_blocks = False
+        plain = system.inference(torch.from_numpy(lr), noise=noise)[0].numpy()
+        plain_err = np.abs(plain - plain_want).max()
+        print(f"plain bf16: max|plain - jax plain| / max|want| = "
+              f"{plain_err / scale:.2e}")
+        assert err <= plain_err + scale / 127, (err, plain_err, scale)
+
+
+def test_generate_cli_quantized_on_cpu(tmp_path, rng_np, capsys):
+    """The generate CLI with --data_type 8 --int8_trunk --device cpu prints
+    the quantization line, runs the int8 trunk and writes sr_audio.wav."""
+    wav = tmp_path / "in.wav"
+    write_wav(str(wav), (rng_np.standard_normal(1500) * 0.2).astype(np.float32),
+              48000)
+    _write_toy_pth(str(tmp_path / "run"), TOY)
+    n = tquant.conv3x3_int8.launches
+    audio = generate.main(TOY + [
+        "--data_type", "8", "--int8_trunk", "--name", "run",
+        "--checkpoints_dir", str(tmp_path), "--dataroot", str(wav),
+        "--batchSize", "2", "--no_html", "--device", "cpu"])
+    assert "int8 weight quantization enabled" in capsys.readouterr().out
+    assert tquant.conv3x3_int8.launches > n
+    assert np.isfinite(audio).all() and np.abs(audio).max() > 0
+    sr, rate = read_wav(str(tmp_path / "run" / "sr_audio.wav"))
+    assert rate == 48000 and sr.shape[1] >= 1500
 
 
 FUSED = ["--fused_enhancer", "--compute_dtype", "bfloat16"]
