@@ -7,17 +7,22 @@ Phases, each fatal on failure (exit code 1):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from pix2pixhdaudiosr_torch/csrc with nvcc;
   3. hold each kernel against its plain PyTorch twin at the flagship shapes
-     (MDCT2/IMDCT2 at atol 1e-5 in f32; InstanceNorm at every flagship
-     (H, W, C), within one bf16 ulp (+1e-6 near zero) in bf16 and at atol
-     1e-5 in f32; the fused conv3x3_in at [128, 96, 256, 64] bf16 for each
-     prologue, y within one bf16 ulp (+1e-6 max(1, max|y|) near zero) and
-     its mean and scale within 1e-4 of the channel's magnitude;
+     (MDCT2/IMDCT2 at atol 1e-5 in f32, on the tensor-core route at batch
+     128 and 1 (512/256) and on the FFMA route at 512/160; InstanceNorm at
+     every flagship (H, W, C), within one bf16 ulp (+1e-6 near zero) in
+     bf16 and at atol 1e-5 in f32; the fused conv3x3_in at
+     [128, 96, 256, 64] bf16 for each prologue, y within one bf16 ulp
+     (+1e-6 max(1, max|y|) near zero) and its mean and scale within 1e-4
+     of the channel's magnitude;
      conv3x3_valid at [64, 96, 258, 66] with and without ReLU, within one
      bf16 ulp (+ the same floor); the stochastic quantizer at [13824, 1536]
      (a flagship trunk conv weight as 2-D) and [1000, 136], q and scale
      bit-identical and q * scale within one step of x), and time both with
-     CUDA events; then the int8 trunk conv at [128, 1536, 16, 4] bf16: its
-     int32 accumulator on the card equal to the CPU's;
+     CUDA events, beside one PyTorch call computing the same function where
+     there is one (library_ms) and the kernel's bound (bound_ms: bytes over
+     HBM bandwidth or operations over their peak rate, the larger); then
+     the int8 trunk conv at [128, 1536, 16, 4] bf16: its int32 accumulator
+     on the card equal to the CPU's;
   4. write a 5 s synthetic 48 kHz wav;
   5. build the flagship generator (LocalEnhancer G3L2, ngf 48, 156,050,690
      parameters) with seeded N(0, 0.02) weights, saved and loaded as .pth;
@@ -26,18 +31,20 @@ Phases, each fatal on failure (exit code 1):
      --data_type 8 --int8_trunk at batch 16, every kernel launch counter
      set to 0 just before each run;
   7. check their outputs (finite, right lengths, 48 kHz), that every
-     kernel of each run was launched during it, and that the quantized run
-     printed "int8 weight quantization enabled"; hold the CUDA serve path
-     against the same path on the CPU in f32 on one segment, stage by
-     stage; hold the fused G output against the unfused one on the card
-     (bf16, one batch of 128, max|diff| <= 0.05 max|unfused|), and the
-     --int8_trunk and --data_type 8 G outputs against the plain one
-     (correlation >= 0.99);
+     kernel of each run was launched during it, that every MDCT2/IMDCT2
+     launch took the tensor-core route (the `launches_tc` counters), and
+     that the quantized run printed "int8 weight quantization enabled";
+     hold the CUDA serve path against the same path on the CPU in f32 on
+     one segment, stage by stage; hold the fused G output against the
+     unfused one on the card (bf16, one batch of 128, max|diff| <= 0.05
+     max|unfused|), and the --int8_trunk and --data_type 8 G outputs
+     against the plain one (correlation >= 0.99);
   8. time the batch-128 serve forward (encode + G + decode) in bf16, plain,
      --fused_enhancer and --int8_trunk in turns (plain, fused, int8, int8,
      fused, plain), and plain and int8 at batch 1 (plain, int8, int8,
      plain); trace one forward of each path with torch.profiler (device
-     time by kernel); print the flagship's int8 size against f32 and bf16.
+     time by kernel) and count each kernel's launches in one forward; print
+     the flagship's int8 size against f32 and bf16.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
@@ -91,6 +98,11 @@ QUANT = ["--data_type", "8", "--int8_trunk"]
 # weight [Co, Ci, 3, 3] seen as the flax kernel's 2-D view [9 Ci, Co]
 TRUNK_SHAPE = (128, 1536, 16, 4)
 TRUNK_W2D = (9 * 1536, 1536)
+# NVIDIA's published H100 SXM rates (dense) that a kernel's bound is reckoned
+# at: HBM bytes/s; TF32, bf16 tensor-core and f32 FFMA FLOP/s; int32 ops/s
+# outside the tensor cores (half the f32 issue rate)
+HBM_BPS = 3.35e12
+TF32_FLOPS, BF16_FLOPS, F32_FLOPS, INT32_OPS = 495e12, 989e12, 67e12, 33.5e12
 
 
 class SmokeFailure(Exception):
@@ -114,6 +126,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of the kernels fn() launches, in ms, from
+    torch.profiler: unlike cuda_ms, it leaves out the host time between
+    launches, which is most of a call where the kernel is short. The
+    first of two traced runs is a warm-up: a process's first trace can
+    come back without kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
+def bound(n_bytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes (each input read once, each output written once) over HBM
+    bandwidth and its operations over their peak rate."""
+    by_bytes, by_ops = n_bytes / HBM_BPS * 1e3, ops / rate * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def bf16_ulp(v):
@@ -142,6 +181,7 @@ def conv_floor(want) -> float:
 def phase_kernels(dev, batch: int = 128, in_batch: int = 16):
     """Each kernel against its twin; returns {name: record} and details."""
     import torch
+    import torch.nn.functional as F
     from pix2pixhdaudiosr_torch.ops import mdct_kernels as mk
     from pix2pixhdaudiosr_torch.ops.framing import pad_signal
     from pix2pixhdaudiosr_torch.ops.mdct import IMDCT2, MDCT2
@@ -151,33 +191,54 @@ def phase_kernels(dev, batch: int = 128, in_batch: int = 16):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rec, detail = {}, {}
-    for win, hop in ((512, 256), (512, 160)):
+    # the flagship codec on the tensor-core route at batch 128 and 1, and
+    # 512/160 (win % hop != 0) on the FFMA route
+    for win, hop, b in ((512, 256, batch), (512, 256, 1), (512, 160, 8)):
         w = kbdwin(win)
         fwd = MDCT2(n_fft=512, hop_length=hop, win_length=win, window=w,
                     device=dev)
         inv = IMDCT2(n_fft=512, hop_length=hop, win_length=win, window=w,
                      device=dev)
-        b = batch if hop == 256 else 8
         x = torch.randn(b, SEG, generator=gen, device=dev) * 0.3
         x_pad = pad_signal(x, hop, True).contiguous()
-        spec = mk.mdct2(x_pad, fwd.basis, hop)
+        n_tc = mk.mdct2.launches_tc, mk.imdct2.launches_tc
+        spec = mk.mdct2(x_pad, fwd.basis, hop, fwd.planes)
+        wav = mk.imdct2(spec, inv.basis, hop, inv.planes)
+        tc = (mk.mdct2.launches_tc - n_tc[0], mk.imdct2.launches_tc - n_tc[1])
         err_f = (spec - mk.mdct2_ref(x_pad, fwd.basis, hop)).abs().max().item()
-        wav = mk.imdct2(spec, inv.basis, hop)
         err_i = (wav - mk.imdct2_ref(spec, inv.basis, hop)).abs().max().item()
         torch.cuda.synchronize()
-        print(f"[kernels] {win}/{hop} B={b}: mdct2 max|err| {err_f:.3e}, "
-              f"imdct2 max|err| {err_i:.3e}")
-        check(err_f <= 1e-5, f"mdct2 {win}/{hop} disagrees: {err_f}")
-        check(err_i <= 1e-5, f"imdct2 {win}/{hop} disagrees: {err_i}")
-        if hop == 256:
-            rec["mdct2"] = dict(max_abs_err=err_f, ms=cuda_ms(
-                lambda: mk.mdct2(x_pad, fwd.basis, hop)), plain_ms=cuda_ms(
-                lambda: mk.mdct2_ref(x_pad, fwd.basis, hop)))
-            rec["imdct2"] = dict(max_abs_err=err_i, ms=cuda_ms(
-                lambda: mk.imdct2(spec, inv.basis, hop)), plain_ms=cuda_ms(
-                lambda: mk.imdct2_ref(spec, inv.basis, hop)))
-            for k in ("mdct2", "imdct2"):
-                detail[k] = dict(rec[k], shape=f"B={b} 512/256 f32")
+        route = "tensor-core" if fwd.tc else "FFMA"
+        print(f"[kernels] {win}/{hop} B={b} ({route} route): mdct2 max|err| "
+              f"{err_f:.3e}, imdct2 max|err| {err_i:.3e}")
+        check(tc == ((1, 1) if fwd.tc else (0, 0)), f"{win}/{hop}: "
+              f"tensor-core launches {tc}, expected the {route} route")
+        check(err_f <= 1e-5, f"mdct2 {win}/{hop} B={b} disagrees: {err_f}")
+        check(err_i <= 1e-5, f"imdct2 {win}/{hop} B={b} disagrees: {err_i}")
+        T, flop = spec.shape[1], 2 * spec.numel() * win
+        basis_bytes = 4 * win * 512 * (2 if fwd.tc else 1)
+        for name, err, run, plain, lib, io_bytes in (
+                ("mdct2", err_f,
+                 lambda: mk.mdct2(x_pad, fwd.basis, hop, fwd.planes),
+                 lambda: mk.mdct2_ref(x_pad, fwd.basis, hop),
+                 lambda: torch.matmul(x_pad.unfold(-1, win, hop), fwd.basis),
+                 4 * (x_pad.numel() + spec.numel())),
+                ("imdct2", err_i,
+                 lambda: mk.imdct2(spec, inv.basis, hop, inv.planes),
+                 lambda: mk.imdct2_ref(spec, inv.basis, hop),
+                 lambda: F.fold((spec @ inv.basis).transpose(1, 2),
+                                (1, wav.shape[1]), (1, win), stride=(1, hop)),
+                 4 * (spec.numel() + wav.numel()))):
+            r = dict(shape=f"B={b} T={T} {win}/{hop} f32", route=route,
+                     max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+                     library_ms=cuda_ms(lib), device_ms=device_ms(run),
+                     plain_device_ms=device_ms(plain),
+                     library_device_ms=device_ms(lib),
+                     **bound(io_bytes + basis_bytes, 3 * flop, TF32_FLOPS))
+            print(f"[kernels] {name} {r['shape']}: " + json.dumps(r))
+            detail[f"{name} {win}/{hop} B={b}"] = r
+            if (hop, b) == (256, batch):
+                rec[name] = r
 
     worst = 0.0
     for H, W, C in IN_SHAPES:
@@ -199,16 +260,20 @@ def phase_kernels(dev, batch: int = 128, in_batch: int = 16):
         xb = torch.randn(batch, C, H, W, generator=gen, device=dev,
                          dtype=torch.bfloat16).contiguous(
                              memory_format=torch.channels_last)
+        # act "none" is the function F.instance_norm computes; one read and
+        # one write of x, ~8 f32 operations an element
         detail[f"instance_norm_act {H}x{W}x{C}"] = dict(
-            shape=f"B={batch} bf16 relu", ms=cuda_ms(
+            shape=f"B={batch} bf16", relu_ms=cuda_ms(
                 lambda: instance_norm_act(xb, "relu"), iters=10),
-            plain_ms=cuda_ms(lambda: instance_norm_act_ref(xb, "relu"),
-                             iters=10))
+            ms=cuda_ms(lambda: instance_norm_act(xb, "none"), iters=10),
+            plain_ms=cuda_ms(lambda: instance_norm_act_ref(xb, "none"),
+                             iters=10),
+            library_ms=cuda_ms(lambda: F.instance_norm(xb), iters=10),
+            **bound(2 * 2 * xb.numel(), 8 * xb.numel(), F32_FLOPS))
         del xb
     big = detail[f"instance_norm_act {IN_SHAPES[0][0]}x{IN_SHAPES[0][1]}x"
                  f"{IN_SHAPES[0][2]}"]
-    rec["instance_norm_act"] = dict(max_abs_err=worst, ms=big["ms"],
-                                    plain_ms=big["plain_ms"])
+    rec["instance_norm_act"] = dict(big, max_abs_err=worst)
     return rec, detail
 
 
@@ -258,11 +323,10 @@ def phase_conv_kernels(dev):
             plain_ms=cuda_ms(lambda: te.conv3x3_in_ref(*args), iters=5))
         del y, y_ref
     main = detail["conv3x3_in in_relu"]
-    rec["conv3x3_in"] = dict(max_abs_err=worst, ms=main["ms"],
-                             plain_ms=main["plain_ms"])
-    # for scale, not a check: cuDNN's bf16 conv alone, on an already padded
-    # channels_last input (no pad, bias, prologue or statistics), with the
-    # algorithm search on as generate serves
+    # no single PyTorch call computes conv + prologue + IN partial sums: no
+    # library_ms. For scale, not a check: cuDNN's bf16 conv alone, on an
+    # already padded channels_last input (no pad, bias, prologue or
+    # statistics), with the algorithm search on as generate serves
     xp = F.pad(x, (1, 1, 1, 1), mode="reflect").contiguous(
         memory_format=torch.channels_last)
     wc = te.unpack_weights(w).contiguous(memory_format=torch.channels_last)
@@ -271,6 +335,9 @@ def phase_conv_kernels(dev):
     main["cudnn_bf16_conv_ms"] = cuda_ms(lambda: F.conv2d(xp, wc))
     torch.backends.cudnn.benchmark = searched
     del xp
+    # in_relu reads x (bf16) and writes y; 9 taps of C x C MACs a position
+    main.update(bound(2 * 2 * x.numel(), 2 * 9 * C * x.numel(), BF16_FLOPS))
+    rec["conv3x3_in"] = dict(main, max_abs_err=worst, library_ms=None)
 
     xp = act((64, C, H + 2, W + 2))
     wk = te.unpack_weights(w).contiguous()
@@ -288,9 +355,15 @@ def phase_conv_kernels(dev):
             shape=f"[64, {C}, {H + 2}, {W + 2}] bf16", max_abs_err=err,
             ms=cuda_ms(lambda: conv3x3_valid(xp, wk, relu)),
             plain_ms=cuda_ms(lambda: conv3x3_valid_ref(xp, wk, relu), iters=5))
-    rec["conv3x3_valid"] = dict(max_abs_err=worst,
-                                ms=detail["conv3x3_valid relu=False"]["ms"],
-                                plain_ms=detail["conv3x3_valid relu=False"]["plain_ms"])
+    # without ReLU the function is F.conv2d on the padded input
+    searched = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    main = detail["conv3x3_valid relu=False"]
+    main["library_ms"] = cuda_ms(lambda: F.conv2d(xp, wk))
+    torch.backends.cudnn.benchmark = searched
+    n_out = xp.shape[0] * C * H * W
+    main.update(bound(2 * (xp.numel() + n_out), 2 * 9 * C * n_out, BF16_FLOPS))
+    rec["conv3x3_valid"] = dict(main, max_abs_err=worst)
 
     m, s = instance_stats(x)
     m_ref, s_ref = instance_stats_ref(x)
@@ -338,9 +411,12 @@ def phase_quant_kernels(dev):
             plain_ms=cuda_ms(lambda: quant.stochastic_quantize_2d_ref(x, 1234),
                              iters=5))
     main = detail[f"stochastic_quantize_2d {list(TRUNK_W2D)}"]
-    rec["stochastic_quantize_2d"] = dict(max_abs_err=main["max_abs_err"],
-                                         ms=main["ms"],
-                                         plain_ms=main["plain_ms"])
+    # reads x (f32) and writes q (int8) and a scale a column; ~30 integer
+    # ops an element for the three hashes. No PyTorch call computes it.
+    n = TRUNK_W2D[0] * TRUNK_W2D[1]
+    rec["stochastic_quantize_2d"] = dict(
+        main, library_ms=None,
+        **bound(5 * n + 4 * TRUNK_W2D[1], 30 * n, INT32_OPS))
 
     B, C, H, W = TRUNK_SHAPE
     cpu = torch.Generator().manual_seed(10)
@@ -417,17 +493,26 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
             "16", "--no_html", "--device", dev, *FLAGSHIP, *extra]
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "launches_tc"):
+            fn.launches_tc = 0
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         audio = generate.main(argv)
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches_tc = {k: fn.launches_tc for k, fn in counters.items()
+                   if hasattr(fn, "launches_tc")}
     sys.stdout.write(out.getvalue())
     print(f"[generate{' ' + ' '.join(extra) if extra else ''}] "
-          f"{seconds:.1f} s, launches {launches}")
+          f"{seconds:.1f} s, launches {launches}, on the tensor-core route "
+          f"{launches_tc}")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched by the generate run")
+    # the flagship codec (512/256) takes the tensor-core MDCT kernels only
+    for k, n in launches_tc.items():
+        check(n == launches[k], f"{k}: {launches[k] - n} of {launches[k]} "
+              f"launches took the FFMA route, not the tensor-core route")
     for line in expect:
         check(line in out.getvalue().splitlines(),
               f"the generate run did not print {line!r}")
@@ -439,7 +524,8 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
     with open(os.path.join(WORK, "smoke", "metric.txt")) as f:
         vals = [float(v) for v in f.read().split("\n")[1].split(",")]
     check(all(np.isfinite(vals)), f"metric.txt not finite: {vals}")
-    return dict(launches=launches, seconds=seconds, metric=vals)
+    return dict(launches=launches, launches_tc=launches_tc, seconds=seconds,
+                metric=vals)
 
 
 def phase_reference(dev) -> dict:
@@ -587,12 +673,13 @@ def phase_quant_vs_plain(system, dq_system, lr, noise) -> dict:
     return res
 
 
-def phase_serve_timing(system, lr, noise) -> dict:
+def phase_serve_timing(system, lr, noise, counters) -> dict:
     """ms/batch, frames/s and peak GiB of the serve forward at batch 128,
     plain, fused and int8 trunk in turns (plain, fused, int8, int8, fused,
     plain), 5 forwards after 2 warm-ups each; plain and int8 at batch 1 in
     turns (plain, int8, int8, plain), 20 forwards after 3 warm-ups; then one
-    traced forward of each path at batch 128."""
+    traced forward of each path at batch 128, and the launches of each
+    kernel wrapper in `counters` during one untraced forward."""
     import torch
     t = system.n_frames
     paths = {"plain": {}, "fused_enhancer": dict(fused=True),
@@ -629,6 +716,12 @@ def phase_serve_timing(system, lr, noise) -> dict:
         set_path(system, **paths[name])
         res[name]["profile"] = profile_serve(serve)
         print(f"[profile {name}] " + json.dumps(res[name]["profile"]))
+        for fn in counters.values():
+            fn.launches = 0
+        serve()
+        res[name]["launches"] = {k: fn.launches for k, fn in counters.items()}
+        print(f"[launches {name} b{lr.shape[0]}] "
+              + json.dumps(res[name]["launches"]))
     set_path(system)
     return res
 
@@ -734,7 +827,9 @@ def main() -> int:
         fused_err = phase_fused_vs_plain(system, lr, noise)
         quant_err = phase_quant_vs_plain(
             system, flagship_system(dev, ["--data_type", "8"]), lr, noise)
-        serve = phase_serve_timing(system, lr, noise)
+        serve = phase_serve_timing(system, lr, noise, dict(
+            counters, conv3x3_in=conv3x3_in, conv3x3_valid=conv3x3_valid,
+            stochastic_quantize_2d=stochastic_quantize_2d))
         sizes = phase_sizes(pth)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -748,8 +843,9 @@ def main() -> int:
                     stochastic_quantize_2d=quant_launches)
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
-                    max_abs_err=rec[k]["max_abs_err"], ms=rec[k]["ms"],
-                    plain_ms=rec[k]["plain_ms"]) for k in KERNELS]
+                    **{f: rec[k][f] for f in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}) for k in KERNELS]
     print("[detail] " + json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         kernel_detail=detail, generate=gen_res, generate_fused=gen_fused,

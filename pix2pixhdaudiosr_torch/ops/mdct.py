@@ -4,6 +4,8 @@ Port of pix2pixhdaudiosr_tpu/ops/mdct.py:56-139 and `_fit_length`
 (:177-191). The window multiply, the zero-pad to n_fft and the DCT are
 folded into one precomputed float64 basis, cast to f32 on the codec's
 device; the transforms themselves run on the kernels of `mdct_kernels`.
+Where the codec takes the tensor-core route (`mdct_kernels.tc_route`), the
+basis is also split once here into the kernel's K-major tf32 planes.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch.nn.functional as F
 
 from . import framing
 from .dct import dct2_basis, dct3_basis
-from .mdct_kernels import imdct2, mdct2
+from .mdct_kernels import imdct2, imdct2_planes, mdct2, mdct2_planes, tc_route
 from .window import resolve_window
 
 
@@ -32,6 +34,7 @@ class _LappedBase:
         if not 0 < self.hop_length <= self.win_length <= self.n_fft:
             raise ValueError(f"need 0 < hop_length <= win_length <= n_fft, got "
                              f"{self.hop_length}, {self.win_length}, {self.n_fft}")
+        self.tc = tc_route(self.win_length, self.hop_length, self.n_fft)
 
 
 class MDCT2(_LappedBase):
@@ -44,12 +47,14 @@ class MDCT2(_LappedBase):
         basis = dct2_basis(self.n_fft)[: self.win_length, :] / self.n_fft
         self.basis = torch.tensor(self.window[:, None] * basis,
                                   dtype=torch.float32, device=device)
+        self.planes = mdct2_planes(self.basis) if self.tc else None
 
     def __call__(self, signal: torch.Tensor) -> torch.Tensor:
         x = framing.pad_signal(signal.float(), self.hop_length, self.center,
                                self.pad_mode)
         lead, L = x.shape[:-1], x.shape[-1]
-        out = mdct2(x.reshape(-1, L).contiguous(), self.basis, self.hop_length)
+        out = mdct2(x.reshape(-1, L).contiguous(), self.basis, self.hop_length,
+                    self.planes)
         return out.reshape(lead + out.shape[-2:])
 
 
@@ -65,6 +70,8 @@ class IMDCT2(_LappedBase):
         basis = dct3_basis(self.n_fft)[:, : self.win_length] \
             * self.window[None, :] / 2.0
         self.basis = torch.tensor(basis, dtype=torch.float32, device=device)
+        self.planes = (imdct2_planes(self.basis, self.hop_length) if self.tc
+                       else None)
 
     def __call__(self, spec: torch.Tensor) -> torch.Tensor:
         if spec.shape[-1] != self.n_fft:
@@ -72,7 +79,7 @@ class IMDCT2(_LappedBase):
                              f"codec {self.n_fft}")
         lead, T = spec.shape[:-2], spec.shape[-2]
         out = imdct2(spec.float().reshape(-1, T, self.n_fft).contiguous(),
-                     self.basis, self.hop_length)
+                     self.basis, self.hop_length, self.planes)
         out = out.reshape(lead + out.shape[-1:])
         if self.center:
             out = framing.center_crop(out, self.win_length)

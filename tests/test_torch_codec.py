@@ -106,6 +106,32 @@ def test_mdct2_imdct2_match_jax_xla(rng_np, win, hop):
     np.testing.assert_allclose(rec_t, rec_j, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_fft,win,hop,center,pad_mode,seg", [
+    (512, 512, 256, False, "constant", 4000),
+    (512, 400, 200, True, "reflect", 4001),
+    (512, 512, 128, True, "replicate", 3000),
+    (256, 256, 64, True, "constant", 2048),
+    (512, 512, 160, False, "constant", 3333),
+])
+def test_mdct2_imdct2_match_jax_on_more_codecs(rng_np, n_fft, win, hop,
+                                               center, pad_mode, seg):
+    """The codec options beside the flagship's (no centring, reflect and
+    replicate pads, win < n_fft, other hops, lengths that are no hop
+    multiple): the port's MDCT2 and IMDCT2 against the JAX package's,
+    atol 1e-5, with the same output lengths."""
+    x = (rng_np.standard_normal((2, seg)) * 0.3).astype(np.float32)
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=win,
+              window=twindow.kbdwin(win), center=center, pad_mode=pad_mode)
+    spec_j = np.asarray(JMDCT2(**kw)(jnp.asarray(x)))
+    spec_t = MDCT2(device="cpu", **kw)(_t(x)).numpy()
+    assert spec_t.shape == spec_j.shape
+    np.testing.assert_allclose(spec_t, spec_j, atol=1e-5)
+    rec_j = np.asarray(JIMDCT2(out_length=seg, **kw)(jnp.asarray(spec_j)))
+    rec_t = IMDCT2(device="cpu", out_length=seg, **kw)(_t(spec_j)).numpy()
+    assert rec_t.shape == rec_j.shape == (2, seg)
+    np.testing.assert_allclose(rec_t, rec_j, atol=1e-5)
+
+
 def test_twins_match_fused_pallas_kernels(rng_np, interpret_pallas):
     """Twins against fused_mdct2 / fused_imdct2 (interpret mode) at 512/256,
     atol 1e-5. The Pallas kernels require win % hop == 0, so 512/160 is

@@ -21,8 +21,14 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("B", [1, 3, 128])
 @pytest.mark.parametrize("win,hop", [(512, 256), (512, 160), (64, 32)])
-def test_mdct_kernels_match_twins(cuda, win, hop):
+def test_mdct_kernels_match_twins(cuda, win, hop, B):
+    """Both routes (512/256 and 64/32 on the tensor cores, 512/160 on FFMA)
+    within atol 1e-5 of their twins; T (36 or 38 frames) is no tile
+    multiple, and B = 3 leaves a partial row tile. Each call counts one
+    launch, on the tensor-core counter only where mdct_kernels.tc_route
+    admits the codec."""
     from pix2pixhdaudiosr_torch.ops import mdct_kernels as mk
     from pix2pixhdaudiosr_torch.ops.framing import pad_signal
     from pix2pixhdaudiosr_torch.ops.mdct import IMDCT2, MDCT2
@@ -30,17 +36,49 @@ def test_mdct_kernels_match_twins(cuda, win, hop):
     gen = torch.Generator(device=cuda).manual_seed(0)
     kw = dict(n_fft=win, hop_length=hop, win_length=win, window=kbdwin(win),
               device=cuda)
-    x = torch.randn(3, hop * 37, generator=gen, device=cuda) * 0.3
+    x = torch.randn(B, hop * 37, generator=gen, device=cuda) * 0.3
     x_pad = pad_signal(x, hop, True).contiguous()
-    basis_f, basis_i = MDCT2(**kw).basis, IMDCT2(**kw).basis
-    n = mk.mdct2.launches
-    spec = mk.mdct2(x_pad, basis_f, hop)
-    assert mk.mdct2.launches == n + 1
-    torch.testing.assert_close(spec, mk.mdct2_ref(x_pad, basis_f, hop),
+    fwd, inv = MDCT2(**kw), IMDCT2(**kw)
+    tc = int(mk.tc_route(win, hop, win))
+    counts = [(f.launches, f.launches_tc) for f in (mk.mdct2, mk.imdct2)]
+    spec = mk.mdct2(x_pad, fwd.basis, hop, fwd.planes)
+    wav = mk.imdct2(spec, inv.basis, hop, inv.planes)
+    assert [(f.launches, f.launches_tc) for f in (mk.mdct2, mk.imdct2)] == [
+        (n + 1, n_tc + tc) for n, n_tc in counts]
+    assert spec.shape == (B, (x_pad.shape[1] - win) // hop + 1, win)
+    torch.testing.assert_close(spec, mk.mdct2_ref(x_pad, fwd.basis, hop),
                                atol=1e-5, rtol=0)
-    torch.testing.assert_close(mk.imdct2(spec, basis_i, hop),
-                               mk.imdct2_ref(spec, basis_i, hop),
+    torch.testing.assert_close(wav, mk.imdct2_ref(spec, inv.basis, hop),
                                atol=1e-5, rtol=0)
+    # without planes the wrapper derives them: the same bits
+    assert torch.equal(mk.mdct2(x_pad, fwd.basis, hop), spec)
+    assert torch.equal(mk.imdct2(spec, inv.basis, hop), wav)
+
+
+def test_mdct_tc_kernels_take_views_and_propagate_nan(cuda):
+    """The tensor-core route on a signal whose data starts off the 16-byte
+    grid (a view into a larger tensor), and a NaN sample with CUDA's
+    canonical bits 0x7FFFFFFF, whose rounding to tf32 carries into the sign
+    bit: the frames that hold it come out NaN, the others finite."""
+    from pix2pixhdaudiosr_torch.ops import mdct_kernels as mk
+    from pix2pixhdaudiosr_torch.ops.mdct import IMDCT2, MDCT2
+    from pix2pixhdaudiosr_torch.ops.window import kbdwin
+    kw = dict(n_fft=512, hop_length=256, win_length=512, window=kbdwin(512),
+              device=cuda)
+    fwd, inv = MDCT2(**kw), IMDCT2(**kw)
+    big = torch.randn(2 * 256 * 12 + 1, device=cuda)
+    x_pad = big[1:].view(2, 256 * 12)
+    assert x_pad.data_ptr() % 16 != 0
+    spec = mk.mdct2(x_pad, fwd.basis, 256, fwd.planes)
+    torch.testing.assert_close(spec, mk.mdct2_ref(x_pad, fwd.basis, 256),
+                               atol=1e-5, rtol=0)
+    x_nan = x_pad.clone()
+    x_nan.view(torch.int32)[1, 256 * 5 + 7] = 0x7FFFFFFF
+    spec = mk.mdct2(x_nan, fwd.basis, 256, fwd.planes)
+    bad = spec.isnan().any(-1)
+    assert bad[1, 4] and bad[1, 5] and int(bad.sum()) == 2
+    wav = mk.imdct2(spec, inv.basis, 256, inv.planes)
+    assert wav[1].isnan().any() and torch.isfinite(wav[0]).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
