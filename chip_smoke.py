@@ -10,7 +10,9 @@ Phases, each fatal on failure (exit code 1):
      (MDCT2/IMDCT2 at atol 1e-5 in f32, on the tensor-core route at batch
      128 and 1 (512/256) and on the FFMA route at 512/160; InstanceNorm at
      every flagship (H, W, C), within one bf16 ulp (+1e-6 near zero) in
-     bf16 and at atol 1e-5 in f32; the fused conv3x3_in at
+     bf16 and at atol 1e-5 in f32, every call on the one-pass route and two
+     runs bit-identical, and on a same-mode deconv crop read in place
+     (timed per shape beside the two-pass kernels); the fused conv3x3_in at
      [128, 96, 256, 64] bf16 for each prologue, y within one bf16 ulp
      (+1e-6 max(1, max|y|) near zero) and its mean and scale within 1e-4
      of the channel's magnitude;
@@ -32,8 +34,9 @@ Phases, each fatal on failure (exit code 1):
      set to 0 just before each run;
   7. check their outputs (finite, right lengths, 48 kHz), that every
      kernel of each run was launched during it, that every MDCT2/IMDCT2
-     launch took the tensor-core route (the `launches_tc` counters), and
-     that the quantized run printed "int8 weight quantization enabled";
+     launch took the tensor-core route (the `launches_tc` counters), that
+     every InstanceNorm launch took the one-pass route (`launches_onepass`),
+     and that the quantized run printed "int8 weight quantization enabled";
      hold the CUDA serve path against the same path on the CPU in f32 on
      one segment, stage by stage; hold the fused G output against the
      unfused one on the card (bf16, one batch of 128, max|diff| <= 0.05
@@ -43,8 +46,10 @@ Phases, each fatal on failure (exit code 1):
      --fused_enhancer and --int8_trunk in turns (plain, fused, int8, int8,
      fused, plain), and plain and int8 at batch 1 (plain, int8, int8,
      plain); trace one forward of each path with torch.profiler (device
-     time by kernel) and count each kernel's launches in one forward; print
-     the flagship's int8 size against f32 and bf16.
+     time by kernel) and count each kernel's launches in one forward, every
+     InstanceNorm launch on the one-pass route (plain 22, fused 17, int8
+     22); print B3's time against its bound a shape, with its calls in a
+     plain forward, and the flagship's int8 size against f32 and bf16.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
@@ -105,6 +110,10 @@ HBM_BPS = 3.35e12
 TF32_FLOPS, BF16_FLOPS, F32_FLOPS, INT32_OPS = 495e12, 989e12, 67e12, 33.5e12
 
 
+# InstanceNorm launches in one batch-128 serve forward of each path
+IN_LAUNCHES = {"plain": 22, "fused_enhancer": 17, "int8_trunk": 22}
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -112,6 +121,16 @@ class SmokeFailure(Exception):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def reset_counts(fn) -> None:
+    """Set every launch count of a kernel wrapper to 0."""
+    fn.launches = 0
+    for attr in ("launches_tc", "launches_onepass"):
+        if hasattr(fn, attr):
+            setattr(fn, attr, 0)
+    if hasattr(fn, "launches_by_shape"):
+        fn.launches_by_shape.clear()
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -185,8 +204,6 @@ def phase_kernels(dev, batch: int = 128, in_batch: int = 16):
     from pix2pixhdaudiosr_torch.ops import mdct_kernels as mk
     from pix2pixhdaudiosr_torch.ops.framing import pad_signal
     from pix2pixhdaudiosr_torch.ops.mdct import IMDCT2, MDCT2
-    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
-                                                 instance_norm_act_ref)
     from pix2pixhdaudiosr_torch.ops.window import kbdwin
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -240,41 +257,94 @@ def phase_kernels(dev, batch: int = 128, in_batch: int = 16):
             if (hop, b) == (256, batch):
                 rec[name] = r
 
-    worst = 0.0
+    rec["instance_norm_act"], in_detail = phase_instance_norm(
+        dev, gen, batch, in_batch)
+    detail.update(in_detail)
+    return rec, detail
+
+
+def phase_instance_norm(dev, gen, batch: int, in_batch: int):
+    """B3 at every flagship (H, W, C): against its twin at batch `in_batch`
+    in f32 (atol 1e-5) and bf16 (one ulp), ReLU and none, every call on the
+    one-pass route and two runs bit-identical; then a same-mode deconv crop
+    read in place. Timed at batch `batch` in bf16 beside the two-pass
+    kernels, the twin, F.instance_norm and the bound. Returns the record
+    of the largest shape and one row a shape."""
+    import torch
+    import torch.nn.functional as F
+    from pix2pixhdaudiosr_torch.ops import norm
+
+    fn, worst, rows = norm.instance_norm_act, 0.0, {}
     for H, W, C in IN_SHAPES:
         x = (torch.randn(in_batch, C, H, W, generator=gen, device=dev) * 2 + 0.5
              ).contiguous(memory_format=torch.channels_last)
+        xb = x.to(torch.bfloat16)
+        n1 = fn.launches_onepass
         for act in ("relu", "none"):
-            got = instance_norm_act(x, act)
-            err32 = (got - instance_norm_act_ref(x, act)).abs().max().item()
-            xb = x.to(torch.bfloat16)
-            gb, wb = instance_norm_act(xb, act), instance_norm_act_ref(xb, act)
-            over = ulp_excess(gb, wb)
+            got = fn(x, act)
+            err32 = (got - norm.instance_norm_act_ref(x, act)).abs().max().item()
+            gb = fn(xb, act)
+            over = ulp_excess(gb, norm.instance_norm_act_ref(xb, act))
             check(got.is_contiguous(memory_format=torch.channels_last),
                   "instance_norm_act lost channels_last")
             check(err32 <= 1e-5, f"IN f32 {(H, W, C)} {act}: {err32}")
             check(over <= 0, f"IN bf16 {(H, W, C)} {act}: beyond 1 ulp by {over}")
+            check(torch.equal(fn(xb, act), gb),
+                  f"IN bf16 {(H, W, C)} {act}: two runs differ")
             worst = max(worst, err32)
+        check(fn.launches_onepass - n1 == 6,
+              f"IN {(H, W, C)}: {6 - fn.launches_onepass + n1} of 6 calls "
+              f"took the two-pass route")
         print(f"[kernels] IN B={in_batch} (H,W,C)={(H, W, C)}: f32 within "
-              f"1e-5, bf16 within 1 ulp")
+              f"1e-5, bf16 within 1 ulp, one-pass, bit-identical")
+        del x, xb, got, gb
         xb = torch.randn(batch, C, H, W, generator=gen, device=dev,
                          dtype=torch.bfloat16).contiguous(
                              memory_format=torch.channels_last)
+        plan = norm.plan_instance_norm(batch, H, W, C, xb.dtype)
+
+        def two_pass():
+            norm._launch_twopass(xb, torch.empty_like(xb), "none", 1e-5)
         # act "none" is the function F.instance_norm computes; one read and
         # one write of x, ~8 f32 operations an element
-        detail[f"instance_norm_act {H}x{W}x{C}"] = dict(
-            shape=f"B={batch} bf16", relu_ms=cuda_ms(
-                lambda: instance_norm_act(xb, "relu"), iters=10),
-            ms=cuda_ms(lambda: instance_norm_act(xb, "none"), iters=10),
-            plain_ms=cuda_ms(lambda: instance_norm_act_ref(xb, "none"),
-                             iters=10),
-            library_ms=cuda_ms(lambda: F.instance_norm(xb), iters=10),
-            **bound(2 * 2 * xb.numel(), 8 * xb.numel(), F32_FLOPS))
+        row = dict(shape=f"B={batch} bf16", route=plan.route,
+                   plan=plan._asdict(),
+                   ms=cuda_ms(lambda: fn(xb, "none"), iters=10),
+                   device_ms=device_ms(lambda: fn(xb, "none"), iters=10),
+                   relu_ms=cuda_ms(lambda: fn(xb, "relu"), iters=10),
+                   two_pass_ms=cuda_ms(two_pass, iters=10),
+                   two_pass_device_ms=device_ms(two_pass, iters=10),
+                   plain_ms=cuda_ms(lambda: norm.instance_norm_act_ref(
+                       xb, "none"), iters=5),
+                   library_ms=cuda_ms(lambda: F.instance_norm(xb), iters=10),
+                   **bound(2 * 2 * xb.numel(), 8 * xb.numel(), F32_FLOPS))
+        rows[(H, W, C)] = row
+        print(f"[kernels] instance_norm_act {H}x{W}x{C}: " + json.dumps(row))
         del xb
-    big = detail[f"instance_norm_act {IN_SHAPES[0][0]}x{IN_SHAPES[0][1]}x"
-                 f"{IN_SHAPES[0][2]}"]
-    rec["instance_norm_act"] = dict(big, max_abs_err=worst)
-    return rec, detail
+
+    # the enhancer's deconv output [B, 48, 513, 129] cropped to 512 x 128
+    for dtype in (torch.float32, torch.bfloat16):
+        full = (torch.randn(in_batch, 48, 513, 129, generator=gen, device=dev)
+                ).to(dtype).contiguous(memory_format=torch.channels_last)
+        crop = full[..., :512, :128]
+        n1 = fn.launches_onepass
+        got = fn(crop, "relu")
+        want = norm.instance_norm_act_ref(crop, "relu")
+        err = (got.float() - want.float()).abs().max().item()
+        ok = (err <= 1e-5 if dtype == torch.float32
+              else ulp_excess(got, want) <= 0)
+        same = torch.equal(fn(crop.contiguous(
+            memory_format=torch.channels_last), "relu"), got)
+        print(f"[kernels] IN cropped view {list(crop.shape)} strides "
+              f"{crop.stride()} {dtype}: max|err| {err:.3e}, equal to its "
+              f"contiguous copy: {same}")
+        check(fn.launches_onepass - n1 == 2, "IN cropped view: two-pass route")
+        check(ok, f"IN cropped view {dtype}: {err}")
+        check(same, f"IN cropped view {dtype}: differs from its copy")
+        del full, crop, got, want
+    big = rows[IN_SHAPES[0]]
+    return dict(big, max_abs_err=worst), {
+        f"instance_norm_act {H}x{W}x{C}": r for (H, W, C), r in rows.items()}
 
 
 def phase_conv_kernels(dev):
@@ -492,9 +562,7 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
             "--load_pretrain", os.path.join(WORK, "smoke"), "--batchSize",
             "16", "--no_html", "--device", dev, *FLAGSHIP, *extra]
     for fn in counters.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_tc"):
-            fn.launches_tc = 0
+        reset_counts(fn)
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -503,16 +571,22 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
     launches = {k: fn.launches for k, fn in counters.items()}
     launches_tc = {k: fn.launches_tc for k, fn in counters.items()
                    if hasattr(fn, "launches_tc")}
+    onepass = {k: fn.launches_onepass for k, fn in counters.items()
+               if hasattr(fn, "launches_onepass")}
     sys.stdout.write(out.getvalue())
     print(f"[generate{' ' + ' '.join(extra) if extra else ''}] "
           f"{seconds:.1f} s, launches {launches}, on the tensor-core route "
-          f"{launches_tc}")
+          f"{launches_tc}, on the one-pass route {onepass}")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched by the generate run")
     # the flagship codec (512/256) takes the tensor-core MDCT kernels only
     for k, n in launches_tc.items():
         check(n == launches[k], f"{k}: {launches[k] - n} of {launches[k]} "
               f"launches took the FFMA route, not the tensor-core route")
+    # every flagship InstanceNorm shape takes the one-pass route
+    for k, n in onepass.items():
+        check(n == launches[k], f"{k}: {launches[k] - n} of {launches[k]} "
+              f"launches took the two-pass route")
     for line in expect:
         check(line in out.getvalue().splitlines(),
               f"the generate run did not print {line!r}")
@@ -524,8 +598,8 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
     with open(os.path.join(WORK, "smoke", "metric.txt")) as f:
         vals = [float(v) for v in f.read().split("\n")[1].split(",")]
     check(all(np.isfinite(vals)), f"metric.txt not finite: {vals}")
-    return dict(launches=launches, launches_tc=launches_tc, seconds=seconds,
-                metric=vals)
+    return dict(launches=launches, launches_tc=launches_tc,
+                launches_onepass=onepass, seconds=seconds, metric=vals)
 
 
 def phase_reference(dev) -> dict:
@@ -717,11 +791,21 @@ def phase_serve_timing(system, lr, noise, counters) -> dict:
         res[name]["profile"] = profile_serve(serve)
         print(f"[profile {name}] " + json.dumps(res[name]["profile"]))
         for fn in counters.values():
-            fn.launches = 0
+            reset_counts(fn)
         serve()
         res[name]["launches"] = {k: fn.launches for k, fn in counters.items()}
+        inorm = counters["instance_norm_act"]
+        res[name]["in_launches_onepass"] = inorm.launches_onepass
+        res[name]["in_launches_by_shape"] = {
+            f"{h}x{w}x{c}": n for (h, w, c), n in inorm.launches_by_shape.items()}
         print(f"[launches {name} b{lr.shape[0]}] "
-              + json.dumps(res[name]["launches"]))
+              + json.dumps(res[name]["launches"]) + " InstanceNorm one-pass "
+              + json.dumps(res[name]["in_launches_onepass"]) + " by shape "
+              + json.dumps(res[name]["in_launches_by_shape"]))
+        check(inorm.launches == inorm.launches_onepass == IN_LAUNCHES[name],
+              f"{name}: {inorm.launches} InstanceNorm launches, "
+              f"{inorm.launches_onepass} one-pass; expected "
+              f"{IN_LAUNCHES[name]}, all one-pass")
     set_path(system)
     return res
 
@@ -763,6 +847,30 @@ def profile_serve(serve, top: int = 16) -> dict:
         e.self_device_time_total for e in kernels) / 1e3, top=[
         [e.key[:80], e.self_device_time_total / 1e3, e.count]
         for e in kernels[:top]])
+
+
+def b3_per_shape(detail: dict, calls: dict) -> dict:
+    """One row per flagship InstanceNorm shape: its calls in one plain
+    batch-128 forward; kernel ms by CUDA events (host time of the wrapper
+    included) and by the profiler (device time), the two-pass kernels'
+    device ms, library and bound ms; and calls x (device ms - bound), the
+    device time the forward loses to the kernel there."""
+    rows = {}
+    for H, W, C in IN_SHAPES:
+        d, key = detail[f"instance_norm_act {H}x{W}x{C}"], f"{H}x{W}x{C}"
+        n = calls.get(key, 0)
+        rows[key] = dict(calls=n, route=d["route"], ms=d["ms"],
+                         device_ms=d["device_ms"],
+                         two_pass_device_ms=d["two_pass_device_ms"],
+                         bound_ms=d["bound_ms"], library_ms=d["library_ms"],
+                         share_of_bound=d["bound_ms"] / d["device_ms"],
+                         lost_ms=n * (d["device_ms"] - d["bound_ms"]))
+        print(f"[B3 {key}] " + json.dumps(rows[key]))
+    total = {k: sum(r["calls"] * r[k] for r in rows.values())
+             for k in ("device_ms", "two_pass_device_ms", "bound_ms")}
+    total["calls"] = sum(r["calls"] for r in rows.values())
+    print("[B3 plain forward] " + json.dumps(total))
+    return dict(rows, total=total)
 
 
 def nvidia_smi() -> str:
@@ -837,6 +945,7 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
+    b3 = b3_per_shape(detail, serve["plain"]["in_launches_by_shape"])
     launches = dict(gen_res["launches"],
                     conv3x3_in=gen_fused["launches"]["conv3x3_in"],
                     conv3x3_valid=valid_launches,
@@ -851,7 +960,7 @@ def main() -> int:
         kernel_detail=detail, generate=gen_res, generate_fused=gen_fused,
         generate_quant=gen_quant, reference_max_abs_err=ref_err,
         fused_vs_plain=fused_err, quant_vs_plain=quant_err, serve=serve,
-        sizes=sizes)))
+        sizes=sizes, b3_per_shape=b3)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,51 @@
 // InstanceNorm2d(affine=False) + activation over channels_last activations,
 // f32 or bf16, for sm_90a.
 //
-// Replaces pix2pixhdaudiosr_tpu/ops/norm_pallas.py:fused_instance_norm and
-// computes what pix2pixhdaudiosr_tpu/models/layers.py:instance_norm does:
-// per (sample, channel) f32 mean and E[x^2] over H*W,
-// var = max(E[x^2] - mean^2, 0), y = (x - mean) * rsqrt(var + eps), then
-// none / relu / leaky(0.2), written in the input dtype.
+// Replaces pix2pixhdaudiosr_tpu/ops/norm_pallas.py:fused_instance_norm (B3,
+// the pallas_call at :49) and computes what
+// pix2pixhdaudiosr_tpu/models/layers.py:instance_norm does: per (sample,
+// channel) f32 mean and E[x^2] over H*W, var = max(E[x^2] - mean^2, 0),
+// y = (x - mean) * rsqrt(var + eps), then none / relu / leaky(0.2), written
+// in the input dtype.
 //
 // What bounds it on this card: device-memory bandwidth. It does a few
 // FLOPs per element, and the flagship tensors are up to 805 MB (bf16,
-// batch 128, [128, 48, 512, 128]), far beyond the 50 MB L2.
+// batch 128, [128, 48, 512, 128]), far beyond the 50 MB L2. The floor is
+// one read and one write of the tensor, which the TPU kernel reached by
+// holding one sample in VMEM.
 //
-// Design: two reads and one write of the tensor, the floor for a norm whose
-// statistics span the whole H*W plane. The TPU kernel held one sample in
-// VMEM; a Hopper block cannot (a full-resolution sample is 6.3 MB), and
-// one block per sample would leave most of the 132 SMs idle at serving
-// batch sizes. So:
+// One-pass route (p2p_instance_norm_onepass, in_onepass_kernel): the same
+// traffic, with each plane held in shared memory. A (sample, channel tile)
+// plane of H*W positions is split across a thread-block cluster of K <= 16
+// blocks (above 8 a non-portable size, which the H100 runs; the planner in
+// ops/norm.py picks the tile, K and the positions per block, ~64 KB staged
+// a block and at most 128 KB, and routes a shape here only if its plane
+// fits). Each block
+//   1. stages its positions' tile channels into shared memory with 16-byte
+//      cp.async copies, reading through the input's sample and row pitches
+//      (so a view cropped in H and W, the same-mode deconv output, is read
+//      in place);
+//   2. sums x and x^2 per channel from shared memory in f32, in a fixed
+//      order (thread, warp butterfly, warps in order);
+//   3. exchanges its sums with the other blocks of the cluster through
+//      distributed shared memory, each block adding the K partials in rank
+//      order, so all hold the same (mean, rstd) and the result is
+//      bit-identical from run to run (no atomics);
+//   4. normalizes its staged slice, applies the activation and writes
+//      16-byte vectors to a contiguous channels_last output.
+// One launch, one HBM read and one write. The cluster index runs over the
+// channel tiles fastest, so the tiles of one sample run side by side. A
+// tile spans at least a 32-byte sector of each position where the row
+// allows: at 512 x 128 x 48 bf16 a 16-byte tile (half a sector of each
+// 96-byte row) measured 1.8x slower than a 32-byte one, so L2 does not
+// serve the other half.
+// A block arrives on the cluster barrier once it has read the others'
+// sums, and waits on it only before it exits, so no block leaves while
+// another still reads its shared memory.
+//
+// Two-pass route (p2p_instance_norm_act), for planes too large for a
+// cluster's shared memory and rows that are no multiple of 16 bytes: two
+// reads and one write of a contiguous tensor, in three launches:
 //   1. in_stats: each block owns (sample b, a chunk of rows of H*W, a tile
 //      of up to 256 channels). Threads walk rows with neighbouring threads
 //      on neighbouring channels (NHWC: coalesced) and write f32 partial
@@ -25,14 +55,21 @@
 //      (mean, rstd).
 //   3. in_apply: an elementwise pass, 16 bytes per thread per access when
 //      C allows it, normalises, applies the activation and casts.
-// The chunk count P (chosen by the wrapper) keeps both regimes of the
-// flagship busy: H*W = 64 with C = 1536 splits over channel tiles, and
-// H*W = 65536 with C = 48 splits over row chunks. p2p_instance_stats runs
-// passes 1 and 2 alone, for a caller that folds the normalize into its own
-// next pass (ops/enhancer.py: the fused enhancer's entry prologue).
+// The chunk count P (chosen by the wrapper) keeps both regimes busy: H*W =
+// 64 with C = 1536 splits over channel tiles, and H*W = 65536 with C = 48
+// over row chunks. p2p_instance_stats runs passes 1 and 2 alone, for a
+// caller that folds the normalize into its own next pass (ops/enhancer.py:
+// the fused enhancer's entry prologue).
+#include <cooperative_groups.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include "in_finalize.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -154,13 +191,260 @@ int run(const void* x, void* y, float* partial, float* stats, int B, int HW,
   return cudaGetLastError();
 }
 
+// --------------------------------------------------------------------------
+// One-pass route: each (sample, channel tile) plane staged in the shared
+// memory of a cluster of K blocks.
+constexpr int kOnepassThreads = 512;
+constexpr int kOnepassWarps = kOnepassThreads / 32;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
+constexpr int kMaxCluster = 16;     // above 8 only as a non-portable size
+
+// Bytes of shared memory a block uses (ops/norm.py onepass_smem): the staged
+// [positions][tile] slice, then f32 [warps][2][tile] warp sums, [2][tile]
+// block sums (read by the cluster) and [2][tile] mean and rstd.
+inline size_t onepass_smem(int positions, int tile, int elem) {
+  return (size_t)positions * tile * elem +
+         (size_t)(2 * kOnepassWarps + 4) * tile * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+// The two halves of cluster.sync(), issued apart.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Grid (K * C / tile, B), cluster (K, 1, 1): cluster blockIdx.x / K owns
+// channels [c0, c0 + tile) of sample blockIdx.y, and its block of rank r the
+// positions [r * positions, (r + 1) * positions) of H*W. A thread owns the
+// 16-byte vector v = tid % V of each position it touches (V = 2^log2v
+// vectors a position; 512 % V == 0, so v is fixed for the thread).
+template <typename T>
+__global__ void __launch_bounds__(kOnepassThreads)
+    in_onepass_kernel(const T* __restrict__ x, T* __restrict__ y, int HW,
+                      int W, int C, long long sample_pitch,
+                      long long row_pitch, int tile, int log2v,
+                      int positions, int act, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using P = p2p::Pack<T, VEC>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned K = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int V = 1 << log2v;
+  const int v = tid & (V - 1);
+  const int b = blockIdx.y;
+  const int c0 = (int)(blockIdx.x / K) * tile;
+  const int p0 = (int)rank * positions;
+  const int np = max(0, min(positions, HW - p0));
+  const int n_vec = np << log2v;
+  P* stage = reinterpret_cast<P*>(smem);
+  float* ws = reinterpret_cast<float*>(smem + (size_t)positions * tile *
+                                                  sizeof(T));
+  float* part = ws + 2 * kOnepassWarps * tile;
+  float* mr = part + 2 * tile;
+
+  // 1. Stage the block's positions of the tile: vector i of the slice is
+  // position p0 + i / V, channels c0 + (i % V) * VEC onwards.
+  const T* xb = x + (size_t)b * sample_pitch + c0 + v * VEC;
+  for (int i = tid; i < n_vec; i += kOnepassThreads) {
+    const int p = p0 + (i >> log2v);
+    const int h = p / W;
+    cp_async16(stage + i, xb + h * row_pitch + (long long)(p - h * W) * C);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. The block's sums of x and x^2 per channel: each thread over the
+  // positions g, g + G, ... (g = tid / V, G = 512 / V), a butterfly over the
+  // lanes of a warp that share v, then the warps in order.
+  float s[VEC], q[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
+  const int groups = kOnepassThreads >> log2v;
+  for (int p = tid >> log2v; p < np; p += groups) {
+    const P in = stage[(p << log2v) + v];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float f = p2p::to_float(in.v[j]);
+      s[j] += f;
+      q[j] = fmaf(f, f, q[j]);
+    }
+  }
+  for (int o = 16; o >= V; o >>= 1) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+      q[j] += __shfl_xor_sync(0xffffffffu, q[j], o);
+    }
+  }
+  if (lane < V) {  // then v == lane
+    float* w_sum = ws + 2 * warp * tile + v * VEC;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      w_sum[j] = s[j];
+      w_sum[tile + j] = q[j];
+    }
+  }
+  __syncthreads();
+  if (tid < tile) {
+    float S = 0.f, Q = 0.f;
+    for (int w = 0; w < kOnepassWarps; ++w) {
+      S += ws[2 * w * tile + tid];
+      Q += ws[(2 * w + 1) * tile + tid];
+    }
+    part[tid] = S;
+    part[tile + tid] = Q;
+  }
+  cluster.sync();  // every block's sums are in its shared memory
+
+  // 3. The plane's sums: the K blocks' partials in rank order, read through
+  // distributed shared memory; the same bits in every block of the cluster.
+  if (tid < tile) {
+    float S = 0.f, Q = 0.f;
+    for (unsigned r = 0; r < K; ++r) {
+      const float* other = cluster.map_shared_rank(part, r);
+      S += other[tid];
+      Q += other[tile + tid];
+    }
+    const float m = S / (float)HW;
+    const float var = fmaxf(Q / (float)HW - m * m, 0.f);
+    mr[tid] = m;
+    mr[tile + tid] = rsqrtf(var + eps);
+  }
+  cluster_arrive_release();  // done reading the other blocks
+  __syncthreads();
+
+  // 4. Normalize the staged slice and write it, 16 bytes a thread.
+  float mean[VEC], rstd[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    mean[j] = mr[v * VEC + j];
+    rstd[j] = mr[tile + v * VEC + j];
+  }
+  T* yb = y + ((size_t)b * HW + p0) * C + c0 + v * VEC;
+  for (int i = tid; i < n_vec; i += kOnepassThreads) {
+    const P in = stage[i];
+    P out;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      out.v[j] = p2p::from_float<T>(
+          activate((p2p::to_float(in.v[j]) - mean[j]) * rstd[j], act));
+    *reinterpret_cast<P*>(yb + (size_t)(i >> log2v) * C) = out;
+  }
+  cluster_wait_acquire();  // no block leaves while another reads its sums
+}
+
+// cudaOccupancyMaxActiveClusters for a launch, asked once per (kernel,
+// device, K, shared memory): 0 means no GPC can hold one cluster.
+int max_active_clusters(const void* kernel, const cudaLaunchConfig_t& cfg,
+                        int* clusters) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, unsigned, size_t>, int> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return err;
+  const auto key =
+      std::make_tuple(kernel, dev, cfg.attrs[0].val.clusterDim.x,
+                      cfg.dynamicSmemBytes);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *clusters = it->second;
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (err) return err;
+  cache[key] = *clusters;
+  return cudaSuccess;
+}
+
+template <typename T>
+int onepass(const void* x, void* y, int B, int H, int W, int C,
+            long long sample_pitch, long long row_pitch, int tile, int K,
+            int positions, int act, float eps, cudaStream_t stream) {
+  const int HW = H * W;
+  const int tile_bytes = tile * (int)sizeof(T);
+  const int tile_vecs = tile_bytes / 16;
+  int log2v = 0;
+  while ((1 << log2v) < tile_vecs) ++log2v;
+  // a plan that ops/norm.py plan_instance_norm would not make
+  if (tile <= 0 || C % tile || tile_bytes % 16 || (1 << log2v) != tile_vecs ||
+      tile_vecs > 32 || K < 1 || K > kMaxCluster || positions < 1 ||
+      (long long)K * positions < HW || (long long)(K - 1) * positions >= HW)
+    return cudaErrorInvalidValue;
+  const size_t smem = onepass_smem(positions, tile, sizeof(T));
+  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  const auto kernel = in_onepass_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!err)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K * (C / tile), B, 1);
+  cfg.blockDim = dim3(kOnepassThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = (cudaError_t)max_active_clusters((const void*)kernel, cfg, &clusters);
+  if (err) return err;
+  if (clusters == 0) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const T*)x, (T*)y, HW, W, C,
+                           sample_pitch, row_pitch, tile, log2v, positions,
+                           act, eps);
+  if (err) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// x, y: [B, H*W, C] (channels_last [B, C, H, W]); dtype 0 = f32, 1 = bf16;
-// act 0 = none, 1 = relu, 2 = leaky(0.2); partial: f32 [B, P, C, 2];
-// stats: f32 [B, C, 2] (mean, rstd) on return.
+// The one-pass route. x: [B, C, H, W] whose rows of W*C elements are
+// contiguous, sample b and row h at x + b * sample_pitch + h * row_pitch
+// (elements; multiples of 16 bytes, x 16-byte aligned); y: contiguous
+// channels_last. dtype and act as below; the plan (tile channels, cluster
+// size, positions per block) is ops/norm.py plan_instance_norm's. Returns
+// cudaErrorInvalidValue for a plan it cannot run, and
+// cudaErrorInvalidConfiguration when no cluster of the plan fits the card.
+int p2p_instance_norm_onepass(const void* x, void* y, int B, int H, int W,
+                              int C, long long sample_pitch,
+                              long long row_pitch, int dtype, int act,
+                              float eps, int tile, int cluster, int positions,
+                              void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return onepass<__nv_bfloat16>(x, y, B, H, W, C, sample_pitch, row_pitch,
+                                  tile, cluster, positions, act, eps, s);
+  return onepass<float>(x, y, B, H, W, C, sample_pitch, row_pitch, tile,
+                        cluster, positions, act, eps, s);
+}
+
+// The two-pass route. x, y: [B, H*W, C] (channels_last [B, C, H, W]);
+// dtype 0 = f32, 1 = bf16; act 0 = none, 1 = relu, 2 = leaky(0.2);
+// partial: f32 [B, P, C, 2]; stats: f32 [B, C, 2] (mean, rstd) on return.
 int p2p_instance_norm_act(const void* x, void* y, void* partial, void* stats,
                           int B, int HW, int C, int dtype, int act, float eps,
                           int P, void* stream) {

@@ -23,8 +23,9 @@ DECONV_MODES = ("same", "torch")
 
 def instance_norm(x: torch.Tensor, act: str = "none") -> torch.Tensor:
     """InstanceNorm2d(affine=False), eps 1e-5, then `act`, on the kernel of
-    ops/norm.py (channels_last in, channels_last out)."""
-    return instance_norm_act(x.contiguous(memory_format=torch.channels_last), act)
+    ops/norm.py (channels_last out). On the card x is channels_last or the
+    same-mode deconv's crop of it, which the kernel reads in place."""
+    return instance_norm_act(x, act)
 
 
 def avg_pool_3s2(x: torch.Tensor) -> torch.Tensor:

@@ -27,12 +27,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every kernel entry point: (argtypes); all return int
 _SIGNATURES = {
     "p2p_mdct2_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "p2p_imdct2_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "p2p_mdct2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "p2p_imdct2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "p2p_instance_norm_onepass": (_P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _F,
+                                  _I, _I, _I, _P),
     "p2p_instance_norm_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "p2p_instance_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "p2p_conv3x3_in": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

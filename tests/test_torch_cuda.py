@@ -99,6 +99,93 @@ def test_instance_norm_kernel_matches_twin(cuda, dtype, shape):
         instance_norm_act(x.contiguous())
 
 
+# every distinct (H, W, C) an InstanceNorm of the flagship generator sees
+IN_SHAPES = [(512, 128, 48), (256, 64, 96), (128, 32, 192), (64, 16, 384),
+             (32, 8, 768), (16, 4, 1536)]
+
+
+def _in_input(cuda, shape, dtype, seed=8):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=cuda) * 2 + 0.5).to(
+        getattr(torch, dtype)).contiguous(memory_format=torch.channels_last)
+
+
+def _assert_in_close(got, want):
+    """f32 within 1e-5; bf16 within one ulp (+ the near-zero floor)."""
+    assert got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        assert _ulp_excess(got, want) <= 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hwc", IN_SHAPES)
+def test_instance_norm_onepass_at_flagship_shapes(cuda, hwc, dtype):
+    """Every flagship InstanceNorm shape at batch 3 takes the one-pass
+    route, for every activation within tolerance of the twin, and two runs
+    give the same bits."""
+    from pix2pixhdaudiosr_torch.ops.norm import (ACTS, instance_norm_act,
+                                                 instance_norm_act_ref)
+    H, W, C = hwc
+    x = _in_input(cuda, (3, C, H, W), dtype)
+    n, n1 = instance_norm_act.launches, instance_norm_act.launches_onepass
+    for act in ACTS:
+        got = instance_norm_act(x, act)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        _assert_in_close(got, instance_norm_act_ref(x, act))
+    assert instance_norm_act.launches == n + 3
+    assert instance_norm_act.launches_onepass == n1 + 3
+    assert torch.equal(instance_norm_act(x, "none"), instance_norm_act(x, "none"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_instance_norm_reads_cropped_view_in_place(cuda, dtype):
+    """The same-mode deconv crop [..., :2H, :2W] of a channels_last tensor
+    takes the one-pass route as it is (a cluster of 16 here), agrees with
+    the twin, and gives the bits of its contiguous copy, run after run."""
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_ref,
+                                                 plan_instance_norm)
+    x = _in_input(cuda, (2, 48, 257, 129), dtype)[..., :256, :128]
+    assert not x.is_contiguous(memory_format=torch.channels_last)
+    assert plan_instance_norm(2, 256, 128, 48, x.dtype).cluster == 16
+    n1 = instance_norm_act.launches_onepass
+    got = instance_norm_act(x, "relu")
+    assert instance_norm_act.launches_onepass == n1 + 1
+    _assert_in_close(got, instance_norm_act_ref(x, "relu"))
+    assert torch.equal(instance_norm_act(x, "relu"), got)
+    assert torch.equal(instance_norm_act(
+        x.contiguous(memory_format=torch.channels_last), "relu"), got)
+
+
+def test_instance_norm_two_pass_route_and_counters(cuda):
+    """A plane that no cluster holds (1024 x 1024 positions: 16 MB at a
+    16-byte tile) and rows of 5 channels take the two-pass route, counted in
+    `launches` and by shape, not in `launches_onepass`; a strided view there
+    is copied by the wrapper. A view whose row pitch is no multiple of 16
+    bytes, and an NCHW tensor, are refused."""
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_ref,
+                                                 plan_instance_norm)
+    for x in (_in_input(cuda, (1, 8, 1024, 1024), "bfloat16"),
+              _in_input(cuda, (1, 8, 1025, 1025), "bfloat16")[..., :1024, :1024],
+              _in_input(cuda, (2, 5, 7, 9), "float32")):
+        B, C, H, W = x.shape
+        assert plan_instance_norm(B, H, W, C, x.dtype).route == "twopass"
+        n, n1 = instance_norm_act.launches, instance_norm_act.launches_onepass
+        by_shape = instance_norm_act.launches_by_shape.get((H, W, C), 0)
+        got = instance_norm_act(x, "leaky")
+        assert instance_norm_act.launches == n + 1
+        assert instance_norm_act.launches_onepass == n1
+        assert instance_norm_act.launches_by_shape[(H, W, C)] == by_shape + 1
+        _assert_in_close(got, instance_norm_act_ref(x, "leaky"))
+    with pytest.raises(ValueError, match="16-byte"):
+        instance_norm_act(_in_input(cuda, (2, 4, 9, 11), "bfloat16")[..., :8, :10])
+    with pytest.raises(ValueError, match="channels_last"):
+        instance_norm_act(_in_input(cuda, (2, 48, 8, 8), "bfloat16").contiguous())
+
+
 def _ulp_excess(got, want):
     """max of |got - want| - one bf16 ulp (of the larger) - 1e-6 max(1,
     max|want|): <= 0 when every element agrees within one ulp. Near zero
