@@ -13,11 +13,15 @@ Phases, each fatal on failure (exit code 1):
      bf16 and at atol 1e-5 in f32, every call on the one-pass route and two
      runs bit-identical, and on a same-mode deconv crop read in place
      (timed per shape beside the two-pass kernels); the fused conv3x3_in at
-     [128, 96, 256, 64] bf16 for each prologue, y within one bf16 ulp
-     (+1e-6 max(1, max|y|) near zero) and its mean and scale within 1e-4
-     of the channel's magnitude;
-     conv3x3_valid at [64, 96, 258, 66] with and without ReLU, within one
-     bf16 ulp (+ the same floor); the stochastic quantizer at [13824, 1536]
+     [128, 96, 256, 64] bf16 for each prologue on both routes (wgmma, the
+     planner's choice, and mma.sync), y within one bf16 ulp (+1e-6
+     max(1, max|y|) near zero), its mean and scale within 1e-4 of the
+     channel's magnitude and bit-identical over two runs, each call
+     counted on its route;
+     conv3x3_valid at [64, 96, 258, 66] with and without ReLU on both
+     routes, within one bf16 ulp (+ the same floor), both routes timed
+     beside F.conv2d (B5) and cuDNN's bare conv (B4), with each entry's
+     bound and share of it; the stochastic quantizer at [13824, 1536]
      (a flagship trunk conv weight as 2-D) and [1000, 136], q and scale
      bit-identical and q * scale within one step of x), and time both with
      CUDA events, beside one PyTorch call computing the same function where
@@ -36,6 +40,7 @@ Phases, each fatal on failure (exit code 1):
      kernel of each run was launched during it, that every MDCT2/IMDCT2
      launch took the tensor-core route (the `launches_tc` counters), that
      every InstanceNorm launch took the one-pass route (`launches_onepass`),
+     that every conv3x3_in launch took the wgmma route (`launches_wgmma`),
      and that the quantized run printed "int8 weight quantization enabled";
      hold the CUDA serve path against the same path on the CPU in f32 on
      one segment, stage by stage; hold the fused G output against the
@@ -48,7 +53,8 @@ Phases, each fatal on failure (exit code 1):
      plain); trace one forward of each path with torch.profiler (device
      time by kernel) and count each kernel's launches in one forward, every
      InstanceNorm launch on the one-pass route (plain 22, fused 17, int8
-     22); print B3's time against its bound a shape, with its calls in a
+     22) and the fused forward's 4 conv3x3_in launches on the wgmma route;
+     print B3's time against its bound a shape, with its calls in a
      plain forward, and the flagship's int8 size against f32 and bf16.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -88,9 +94,9 @@ KERNELS = {
                "pix2pixhdaudiosr_tpu/ops/dct_pallas.py:134"),
     "instance_norm_act": ("pix2pixhdaudiosr_torch/csrc/instance_norm.cu",
                           "pix2pixhdaudiosr_tpu/ops/norm_pallas.py:49"),
-    "conv3x3_in": ("pix2pixhdaudiosr_torch/csrc/conv3x3_in.cu",
+    "conv3x3_in": ("pix2pixhdaudiosr_torch/csrc/conv3x3_wgmma.cu",
                    "pix2pixhdaudiosr_tpu/ops/enhancer_pallas.py:182"),
-    "conv3x3_valid": ("pix2pixhdaudiosr_torch/csrc/conv3x3_in.cu",
+    "conv3x3_valid": ("pix2pixhdaudiosr_torch/csrc/conv3x3_wgmma.cu",
                       "pix2pixhdaudiosr_tpu/ops/conv_pallas.py:78"),
     "stochastic_quantize_2d": ("pix2pixhdaudiosr_torch/csrc/quant.cu",
                                "pix2pixhdaudiosr_tpu/ops/quant.py:152"),
@@ -126,7 +132,7 @@ def check(ok: bool, what: str) -> None:
 def reset_counts(fn) -> None:
     """Set every launch count of a kernel wrapper to 0."""
     fn.launches = 0
-    for attr in ("launches_tc", "launches_onepass"):
+    for attr in ("launches_tc", "launches_onepass", "launches_wgmma"):
         if hasattr(fn, attr):
             setattr(fn, attr, 0)
     if hasattr(fn, "launches_by_shape"):
@@ -147,22 +153,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
     """Mean device time of the kernels fn() launches, in ms, from
     torch.profiler: unlike cuda_ms, it leaves out the host time between
     launches, which is most of a call where the kernel is short. The
-    first of two traced runs is a warm-up: a process's first trace can
-    come back without kernels."""
+    first traced run is a warm-up, and a trace that comes back without
+    kernels (a process's first often does, a later one now and then) is
+    taken again, up to `tries` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
+    for attempt in range(tries + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if attempt > 0 and total > 0:
+            return total / 1e3 / iters
+    raise SmokeFailure(f"{tries} profiler traces came back without kernels")
 
 
 def bound(n_bytes: float, ops: float, rate: float) -> dict:
@@ -348,9 +358,11 @@ def phase_instance_norm(dev, gen, batch: int, in_batch: int):
 
 
 def phase_conv_kernels(dev):
-    """conv3x3_in (every prologue), conv3x3_valid (ReLU off and on) and the
-    stats-only InstanceNorm entry against their twins at the flagship
-    enhancer shape, bf16; returns {name: record} and details."""
+    """conv3x3_in (every prologue), conv3x3_valid (ReLU off and on), each
+    on both routes, and the stats-only InstanceNorm entry against their
+    twins at the flagship enhancer shape, bf16; returns {name: record} and
+    details. The planner's route (wgmma) is the record's; the mma.sync
+    route is timed beside it in the same call."""
     import torch
     import torch.nn.functional as F
     from pix2pixhdaudiosr_torch.ops import enhancer as te
@@ -369,29 +381,55 @@ def phase_conv_kernels(dev):
     bias = torch.randn(C, generator=gen, device=dev) * .1
     mean = torch.randn(B, C, generator=gen, device=dev) * .3
     scale = torch.rand(B, C, generator=gen, device=dev) * 1.5 + .5
+    sms = te.device_sms(torch.cuda.current_device())
+    plans = {r: te.plan_conv(B, H, W, C, C, sms, route=r)
+             for r in ("wgmma", "mma_sync")}
+    check(te.plan_conv(B, H, W, C, C, sms) == plans["wgmma"],
+          f"conv3x3_in {list(ENH_SHAPE)}: the planner chose "
+          f"{te.plan_conv(B, H, W, C, C, sms).route}, not the wgmma route")
+    fn = te.conv3x3_in
     rec, detail, worst = {}, {}, 0.0
     for prologue in te.PROLOGUES:
         args = (x, w, bias, mean, scale, res, prologue)
-        y, (m, s) = te.conv3x3_in(*args)
         y_ref, (m_ref, s_ref) = te.conv3x3_in_ref(*args)
-        torch.cuda.synchronize()
-        over = ulp_excess(y, y_ref, conv_floor(y_ref))
-        # a one-ulp flip of y moves the mean by ulp / (H * W) however small
-        # the mean is, so mean is held against |mean| + std
-        m_rel = ((m - m_ref).abs() / (m_ref.abs() + 1 / s_ref)).max().item()
-        s_rel = ((s - s_ref).abs() / s_ref).max().item()
-        err = (y.float() - y_ref.float()).abs().max().item()
-        print(f"[kernels] conv3x3_in {prologue}: max|err| {err:.3e}, beyond "
-              f"1 ulp by {over:.3e}; mean rel {m_rel:.2e}, scale rel {s_rel:.2e}")
-        check(over <= 0, f"conv3x3_in {prologue}: beyond 1 ulp by {over}")
-        check(m_rel <= 1e-4 and s_rel <= 1e-4,
-              f"conv3x3_in {prologue} stats: mean {m_rel}, scale {s_rel}")
-        worst = max(worst, err)
-        detail[f"conv3x3_in {prologue}"] = dict(
-            shape=f"{list(ENH_SHAPE)} bf16", max_abs_err=err, mean_rel=m_rel,
-            scale_rel=s_rel, ms=cuda_ms(lambda: te.conv3x3_in(*args)),
-            plain_ms=cuda_ms(lambda: te.conv3x3_in_ref(*args), iters=5))
-        del y, y_ref
+        row = dict(shape=f"{list(ENH_SHAPE)} bf16")
+        for route, plan in plans.items():
+            n, n_wg = fn.launches, fn.launches_wgmma
+            y, (m, s) = fn(*args, plan=None if route == "wgmma" else plan)
+            y2, (m2, s2) = fn(*args, plan=None if route == "wgmma" else plan)
+            torch.cuda.synchronize()
+            check(fn.launches - n == 2 and fn.launches_wgmma - n_wg
+                  == 2 * (route == "wgmma"), f"conv3x3_in {prologue}: "
+                  f"{fn.launches_wgmma - n_wg} of 2 launches on the wgmma "
+                  f"route, {route} expected")
+            over = ulp_excess(y, y_ref, conv_floor(y_ref))
+            # a one-ulp flip of y moves the mean by ulp / (H * W) however
+            # small the mean is, so mean is held against |mean| + std
+            m_rel = ((m - m_ref).abs() / (m_ref.abs() + 1 / s_ref)).max().item()
+            s_rel = ((s - s_ref).abs() / s_ref).max().item()
+            err = (y.float() - y_ref.float()).abs().max().item()
+            same = (torch.equal(y, y2) and torch.equal(m, m2)
+                    and torch.equal(s, s2))
+            print(f"[kernels] conv3x3_in {prologue} ({route}): max|err| "
+                  f"{err:.3e}, beyond 1 ulp by {over:.3e}; mean rel "
+                  f"{m_rel:.2e}, scale rel {s_rel:.2e}; two runs "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            check(over <= 0, f"conv3x3_in {prologue} ({route}): beyond 1 ulp "
+                  f"by {over}")
+            check(m_rel <= 1e-4 and s_rel <= 1e-4, f"conv3x3_in {prologue} "
+                  f"({route}) stats: mean {m_rel}, scale {s_rel}")
+            check(same, f"conv3x3_in {prologue} ({route}): two runs differ")
+            key = "" if route == "wgmma" else "mma_sync_"
+            row.update({f"{key}max_abs_err": err, f"{key}mean_rel": m_rel,
+                        f"{key}scale_rel": s_rel})
+            if route == "wgmma":
+                worst = max(worst, err)
+            del y, y2
+        row["ms"] = cuda_ms(lambda: fn(*args))
+        row["mma_sync_ms"] = cuda_ms(lambda: fn(*args, plan=plans["mma_sync"]))
+        row["plain_ms"] = cuda_ms(lambda: te.conv3x3_in_ref(*args), iters=5)
+        detail[f"conv3x3_in {prologue}"] = row
+        del y_ref
     main = detail["conv3x3_in in_relu"]
     # no single PyTorch call computes conv + prologue + IN partial sums: no
     # library_ms. For scale, not a check: cuDNN's bf16 conv alone, on an
@@ -407,24 +445,46 @@ def phase_conv_kernels(dev):
     del xp
     # in_relu reads x (bf16) and writes y; 9 taps of C x C MACs a position
     main.update(bound(2 * 2 * x.numel(), 2 * 9 * C * x.numel(), BF16_FLOPS))
+    main.update(route="wgmma", plan=plans["wgmma"]._asdict(),
+                share_of_bound=main["bound_ms"] / main["ms"],
+                mma_sync_share_of_bound=main["bound_ms"] / main["mma_sync_ms"],
+                speedup_vs_mma_sync=main["mma_sync_ms"] / main["ms"])
+    print("[kernels] conv3x3_in in_relu: " + json.dumps(main))
     rec["conv3x3_in"] = dict(main, max_abs_err=worst, library_ms=None)
 
     xp = act((64, C, H + 2, W + 2))
     wk = te.unpack_weights(w).contiguous()
+    vplans = {r: te.plan_conv(64, H, W, C, C, sms, route=r)
+              for r in ("wgmma", "mma_sync")}
+    check(te.plan_conv(64, H, W, C, C, sms) == vplans["wgmma"],
+          "conv3x3_valid: the planner did not choose the wgmma route")
     worst = 0.0
     for relu in (False, True):
-        y = conv3x3_valid(xp, wk, relu)
         y_ref = conv3x3_valid_ref(xp, wk, relu)
-        torch.cuda.synchronize()
-        over = ulp_excess(y, y_ref, conv_floor(y_ref))
-        err = (y.float() - y_ref.float()).abs().max().item()
-        print(f"[kernels] conv3x3_valid relu={relu}: max|err| {err:.3e}")
-        check(over <= 0, f"conv3x3_valid relu={relu}: beyond 1 ulp by {over}")
-        worst = max(worst, err)
-        detail[f"conv3x3_valid relu={relu}"] = dict(
-            shape=f"[64, {C}, {H + 2}, {W + 2}] bf16", max_abs_err=err,
-            ms=cuda_ms(lambda: conv3x3_valid(xp, wk, relu)),
-            plain_ms=cuda_ms(lambda: conv3x3_valid_ref(xp, wk, relu), iters=5))
+        row = dict(shape=f"[64, {C}, {H + 2}, {W + 2}] bf16")
+        for route, plan in vplans.items():
+            n, n_wg = conv3x3_valid.launches, conv3x3_valid.launches_wgmma
+            y = conv3x3_valid(xp, wk, relu,
+                              plan=None if route == "wgmma" else plan)
+            torch.cuda.synchronize()
+            check(conv3x3_valid.launches - n == 1 and conv3x3_valid.launches_wgmma
+                  - n_wg == (route == "wgmma"), f"conv3x3_valid relu={relu}: "
+                  f"not on the {route} route")
+            over = ulp_excess(y, y_ref, conv_floor(y_ref))
+            err = (y.float() - y_ref.float()).abs().max().item()
+            print(f"[kernels] conv3x3_valid relu={relu} ({route}): max|err| "
+                  f"{err:.3e}, beyond 1 ulp by {over:.3e}")
+            check(over <= 0, f"conv3x3_valid relu={relu} ({route}): beyond 1 "
+                  f"ulp by {over}")
+            row["max_abs_err" if route == "wgmma" else "mma_sync_max_abs_err"] = err
+            if route == "wgmma":
+                worst = max(worst, err)
+        row["ms"] = cuda_ms(lambda: conv3x3_valid(xp, wk, relu))
+        row["mma_sync_ms"] = cuda_ms(lambda: conv3x3_valid(
+            xp, wk, relu, plan=vplans["mma_sync"]))
+        row["plain_ms"] = cuda_ms(lambda: conv3x3_valid_ref(xp, wk, relu),
+                                  iters=5)
+        detail[f"conv3x3_valid relu={relu}"] = row
     # without ReLU the function is F.conv2d on the padded input
     searched = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
@@ -433,6 +493,12 @@ def phase_conv_kernels(dev):
     torch.backends.cudnn.benchmark = searched
     n_out = xp.shape[0] * C * H * W
     main.update(bound(2 * (xp.numel() + n_out), 2 * 9 * C * n_out, BF16_FLOPS))
+    main.update(route="wgmma", plan=vplans["wgmma"]._asdict(),
+                share_of_bound=main["bound_ms"] / main["ms"],
+                mma_sync_share_of_bound=main["bound_ms"] / main["mma_sync_ms"],
+                speedup_vs_mma_sync=main["mma_sync_ms"] / main["ms"],
+                vs_library=main["library_ms"] / main["ms"])
+    print("[kernels] conv3x3_valid relu=False: " + json.dumps(main))
     rec["conv3x3_valid"] = dict(main, max_abs_err=worst)
 
     m, s = instance_stats(x)
@@ -573,10 +639,13 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
                    if hasattr(fn, "launches_tc")}
     onepass = {k: fn.launches_onepass for k, fn in counters.items()
                if hasattr(fn, "launches_onepass")}
+    wgmma = {k: fn.launches_wgmma for k, fn in counters.items()
+             if hasattr(fn, "launches_wgmma")}
     sys.stdout.write(out.getvalue())
     print(f"[generate{' ' + ' '.join(extra) if extra else ''}] "
           f"{seconds:.1f} s, launches {launches}, on the tensor-core route "
-          f"{launches_tc}, on the one-pass route {onepass}")
+          f"{launches_tc}, on the one-pass route {onepass}, on the wgmma "
+          f"route {wgmma}")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched by the generate run")
     # the flagship codec (512/256) takes the tensor-core MDCT kernels only
@@ -587,6 +656,10 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
     for k, n in onepass.items():
         check(n == launches[k], f"{k}: {launches[k] - n} of {launches[k]} "
               f"launches took the two-pass route")
+    # every flagship enhancer conv takes the wgmma route
+    for k, n in wgmma.items():
+        check(n == launches[k], f"{k}: {launches[k] - n} of {launches[k]} "
+              f"launches took the mma.sync route")
     for line in expect:
         check(line in out.getvalue().splitlines(),
               f"the generate run did not print {line!r}")
@@ -599,7 +672,8 @@ def phase_generate(dev, counters, wav: str, n_in: int, extra=(),
         vals = [float(v) for v in f.read().split("\n")[1].split(",")]
     check(all(np.isfinite(vals)), f"metric.txt not finite: {vals}")
     return dict(launches=launches, launches_tc=launches_tc,
-                launches_onepass=onepass, seconds=seconds, metric=vals)
+                launches_onepass=onepass, launches_wgmma=wgmma,
+                seconds=seconds, metric=vals)
 
 
 def phase_reference(dev) -> dict:
@@ -693,11 +767,15 @@ def phase_fused_vs_plain(system, lr, noise) -> dict:
     out = {}
     for fused in (False, True):
         set_path(system, fused=fused)
-        n = enhancer.conv3x3_in.launches
+        fn = enhancer.conv3x3_in
+        n, n_wg = fn.launches, fn.launches_wgmma
         with torch.no_grad():
             out[fused] = system.inference(lr, noise=noise)[0]
-        check((enhancer.conv3x3_in.launches > n) == fused,
-              f"fused={fused}: conv3x3_in launched {enhancer.conv3x3_in.launches - n}x")
+        check(fn.launches - n == 4 * fused,
+              f"fused={fused}: conv3x3_in launched {fn.launches - n}x")
+        check(fn.launches_wgmma - n_wg == fn.launches - n,
+              f"fused={fused}: {fn.launches - n - fn.launches_wgmma + n_wg} "
+              f"conv3x3_in launches took the mma.sync route")
     set_path(system)
     scale = out[False].abs().max().item()
     err = (out[True] - out[False]).abs().max().item()
@@ -806,6 +884,13 @@ def phase_serve_timing(system, lr, noise, counters) -> dict:
               f"{name}: {inorm.launches} InstanceNorm launches, "
               f"{inorm.launches_onepass} one-pass; expected "
               f"{IN_LAUNCHES[name]}, all one-pass")
+        conv = counters["conv3x3_in"]
+        res[name]["conv3x3_in_launches_wgmma"] = conv.launches_wgmma
+        want = 4 if name == "fused_enhancer" else 0
+        check(conv.launches == conv.launches_wgmma == want,
+              f"{name}: {conv.launches} conv3x3_in launches, "
+              f"{conv.launches_wgmma} on the wgmma route; expected {want}, "
+              f"all on the wgmma route")
     set_path(system)
     return res
 

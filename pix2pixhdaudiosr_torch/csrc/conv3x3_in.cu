@@ -40,13 +40,18 @@
 //     across the four M-warps in shared memory, in a fixed order, into a
 //     [B, P, C, 2] workspace (P = tiles per sample); in_finalize.cuh turns
 //     it into mean and rstd. Deterministic, no atomics.
-// Nothing here overlaps staging with the MMAs of the same block (no cp.async
-// pipeline, no wgmma or TMA): that is for a later, faster version.
+// Nothing here overlaps staging with the MMAs of the same block. The wgmma
+// route (conv3x3_wgmma.cu) does; this kernel stays the route for the shapes
+// that one does not take (ops/enhancer.plan_conv).
 #include <stdint.h>
 
+#include "conv_common.cuh"
 #include "in_finalize.cuh"
 
 namespace {
+
+using p2p::prologue8;
+using p2p::reflect_index;
 
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kTileM = 128;            // output positions per tile
@@ -82,15 +87,6 @@ __host__ inline size_t smem_bytes(int bn, int ci_pad, int th, int tw) {
          + (size_t)2 * ci_pad * sizeof(float);         // prologue mean, scale
 }
 
-// Index i of a padded axis of length n + 2 (or of a tile's halo beyond the
-// edge) -> the input index it reads, reflecting without the edge; indices
-// a masked output reads past the far edge are clamped into range.
-__device__ __forceinline__ int reflect_index(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * n - 2 - i;
-  return min(max(i, 0), n - 1);
-}
-
 // Byte offset of 16-byte chunk `chunk` of staged row `row`. The XOR keeps
 // any eight consecutive rows at one chunk in eight distinct bank groups for
 // every even S (S % 8 == 0: row & 7; S % 8 == 4: (row >> 1) & 3;
@@ -115,35 +111,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 8 channels of one staged position: the prologue in f32 with one rounding
-// per operation as the JAX kernel and the torch twin do (no contraction into
-// FMA), then one round to bf16. m, s: this sample's mean and scale.
-__device__ __forceinline__ uint4 prologue8(const ConvArgs& a, uint4 xv,
-                                           uint4 rv, const float* m,
-                                           const float* s) {
-  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
-  const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&rv);
-  uint4 out;
-  __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 v = __bfloat1622float2(xp[j]);
-    float t0 = __fmul_rn(__fsub_rn(v.x, m[2 * j]), s[2 * j]);
-    float t1 = __fmul_rn(__fsub_rn(v.y, m[2 * j + 1]), s[2 * j + 1]);
-    if (a.prologue <= 2) {  // in_relu, in_relu_add
-      t0 = fmaxf(t0, 0.f);
-      t1 = fmaxf(t1, 0.f);
-    }
-    if (a.prologue >= 2) {  // in_relu_add, in_add
-      const float2 r = __bfloat1622float2(rp[j]);
-      t0 = __fadd_rn(t0, r.x);
-      t1 = __fadd_rn(t1, r.y);
-    }
-    op[j] = __floats2bfloat162_rn(t0, t1);
-  }
-  return out;
 }
 
 // Element offset of staged position (sr, sc) of the tile at (b, h0, w0).
@@ -195,7 +162,7 @@ __device__ __forceinline__ void stage_tile(const ConvArgs& a, char* act,
       if (idx >= n_chunks) continue;
       uint4 v = xv[u];
       if (a.prologue && chunk * 8 < a.Ci)
-        v = prologue8(a, v, rv[u], ms + chunk * 8, ms + ci_pad + chunk * 8);
+        v = prologue8(a.prologue, v, rv[u], ms + chunk * 8, ms + ci_pad + chunk * 8);
       *reinterpret_cast<uint4*>(act + chunk_offset(a, q, chunk)) = v;
     }
   }

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-The sources are compiled by `nvcc` for sm_90a into ONE shared library with a
-plain C interface and loaded with ctypes. The build happens at first use,
+The sources are compiled by `nvcc` for sm_90a, one process a source, all
+started together, and linked into ONE shared library with a plain C
+interface, loaded with ctypes. The build happens at first use,
 from the package's own sources, into `pix2pixhdaudiosr_torch/_build/<hash>/`
 (keyed on a hash of the sources and flags, so an edit rebuilds). Nothing
 here runs at import time: a CPU-only machine imports every module and never
@@ -42,6 +43,9 @@ _SIGNATURES = {
                        _I, _F, _I, _I, _I, _I, _P),
     "p2p_conv3x3_valid": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P),
+    "p2p_conv3x3_in_wg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _F, _I, _I, _I, _P),
+    "p2p_conv3x3_valid_wg": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "p2p_stochastic_quantize_2d": (_P, _P, _P, _P, _I, _I, _U, _P),
 }
 
@@ -73,21 +77,43 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into _build/<hash>/libp2p_kernels.so unless that
-    file exists. The compiler's output (with -Xptxas -v: registers, shared
-    memory and spills per kernel) is kept beside it in build.log."""
+    file exists: one nvcc a source, all at once, then one link. The
+    compilers' output (with -Xptxas -v: registers, shared memory and spills
+    per kernel) is kept beside it in build.log."""
     out_dir = _BUILD / source_hash()
     lib = out_dir / _LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}"
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout
-                                       + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    tag = f".{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for cu in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{cu.stem}{tag}.o"
+        cmd = [_nvcc(), *compile_flags, "-c", "-I", str(_CSRC), "-o",
+               str(obj), str(cu)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = out_dir / f".{_LIB_NAME}{tag}"
+    if not failed:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 

@@ -11,8 +11,12 @@ that no normalized activation except the residual stream is materialized.
 The TPU's batch-minor [H, W, C, B] layout and its `to_wcb`/`from_wcb`
 bitcasts are not ported: channels_last is physically NHWC.
 
-A CPU tensor runs the twin; a CUDA tensor launches the kernel (counted in
-`conv3x3_in.launches`) or raises. Numerics follow the JAX kernel: the
+A CPU tensor runs the twin; a CUDA tensor launches a kernel (counted in
+`conv3x3_in.launches`) or raises. The kernel has two routes, chosen by
+`plan_conv`: the wgmma kernel (csrc/conv3x3_wgmma.cu, also counted in
+`conv3x3_in.launches_wgmma`) at the shapes it takes, every flagship shape
+among them, and the mma.sync kernel (csrc/conv3x3_in.cu) for the rest.
+Numerics follow the JAX kernel: the
 prologue in f32 rounded once to bf16, f32 accumulation, bias added in f32
 before the bf16 round, statistics of the rounded output,
 var = max(E[y^2] - mean^2, 0). Inference only (no backward), as in JAX.
@@ -20,7 +24,8 @@ var = max(E[y^2] - mean^2, 0). Inference only (no backward), as in JAX.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +38,14 @@ PROLOGUES = {None: 0, "in_relu": 1, "in_relu_add": 2, "in_add": 3}
 _TILE_M = 128            # csrc/conv3x3_in.cu kTileM: output positions a tile
 _SMEM_LIMIT = 232_448    # csrc/conv3x3_in.cu kMaxSmem
 _CHANNEL_TILES = (96, 64, 32)
+# csrc/conv3x3_wgmma.cu: output channels a block, the input channels and
+# width it takes (the flagship enhancer's rows); the ring slots of its plan,
+# the most that fit beside the weights; the H100's SMs, for plans made
+# without a card
+_WG_BN = 96
+_WG_CI, _WG_W = 96, 64
+WG_SLOTS = 5
+H100_SMS = 132
 
 Stats = Tuple[torch.Tensor, torch.Tensor]
 Block = Tuple[Tuple[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -61,6 +74,12 @@ def unpack_weights(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(3, 3, *w.shape[1:]).permute(2, 3, 0, 1)
 
 
+def _mma_sync_smem(th: int, tw: int, bn: int, ci_pad: int) -> int:
+    """conv3x3_in.cu smem_bytes: weights, staged tile, sums, mean/scale."""
+    return (9 * bn * ci_pad * 2 + (th + 2) * (tw + 2) * ci_pad * 2
+            + 8 * bn * 4 + 2 * ci_pad * 4)
+
+
 def conv_tiling(H: int, W: int, Ci: int, Co: int) -> Tuple[int, int, int, int]:
     """(th, tw, bn, P) of csrc/conv3x3_in.cu for an H x W output: tiles of
     th rows x tw columns (at most 128 positions; the tile stages th + 2 rows
@@ -75,12 +94,98 @@ def conv_tiling(H: int, W: int, Ci: int, Co: int) -> Tuple[int, int, int, int]:
     for bn in _CHANNEL_TILES:
         if bn > cover:
             continue
-        smem = (9 * bn * ci_pad * 2 + (th + 2) * (tw + 2) * ci_pad * 2
-                + 8 * bn * 4 + 2 * ci_pad * 4)  # conv3x3_in.cu smem_bytes
-        if smem <= _SMEM_LIMIT:
+        if _mma_sync_smem(th, tw, bn, ci_pad) <= _SMEM_LIMIT:
             return th, tw, bn, -(-H // th) * -(-W // tw)
     raise ValueError(f"conv3x3: {Ci} input channels at width {W} do not fit "
                      f"the kernel's shared memory")
+
+
+class ConvPlan(NamedTuple):
+    """How `conv3x3_in` and `conv3x3_valid` run a shape on the card.
+
+    route "wgmma" (csrc/conv3x3_wgmma.cu): persistent blocks walk units of
+    `strip` output rows of one sample (`strips` a sample) through a ring of
+    `slots` staged input rows. route "mma_sync" (csrc/conv3x3_in.cu): tiles
+    of th x tw positions and bn channels.
+    smem: shared memory a block, bytes; P: rows a sample of the statistics
+    workspace [B, P, Co, 2]."""
+    route: str
+    smem: int
+    P: int
+    strip: int = 0
+    strips: int = 0
+    slots: int = 0
+    th: int = 0
+    tw: int = 0
+    bn: int = 0
+
+
+def wgmma_smem_bytes(W: int, Ci: int, slots: int) -> int:
+    """Shared memory of a wgmma-route block (conv3x3_wgmma.cu `layout`):
+    the 9 taps' weights of 96 output channels, `slots` staged rows of
+    W + 2 positions, the bias, the prologue's mean and scale, 2 mbarriers
+    a slot."""
+    return (9 * _WG_BN * Ci * 2 + slots * (W + 2) * Ci * 2 + _WG_BN * 4
+            + 2 * Ci * 4 + 2 * slots * 8)
+
+
+def _wgmma_refusal(W: int, Ci: int, Co: int) -> Optional[str]:
+    if (Ci, W) != (_WG_CI, _WG_W):
+        return (f"it takes {_WG_CI} input channels at width {_WG_W}, not "
+                f"{Ci} at {W}")
+    if Co % _WG_BN:
+        return f"{Co} output channels are no multiple of {_WG_BN}"
+    if wgmma_smem_bytes(W, Ci, WG_SLOTS) > _SMEM_LIMIT:
+        return (f"{WG_SLOTS} ring slots of {W + 2} x {Ci} beside the weights "
+                f"take {wgmma_smem_bytes(W, Ci, WG_SLOTS)} B of shared "
+                f"memory, more than {_SMEM_LIMIT}")
+    return None
+
+
+def _strip_rows(B: int, H: int, sms: int) -> int:
+    """Output rows a unit: the strip that minimises the rows of the busiest
+    block (ceil(units / blocks) waves x (strip + 1), the +1 for the halo
+    rows a unit stages before its first output row), the longest on a tie."""
+    def cost(L):
+        units = B * -(-H // L)
+        return -(-units // min(units, sms)) * (L + 1)
+    return min(range(H, 0, -1), key=cost)
+
+
+def plan_conv(B: int, H: int, W: int, Ci: int, Co: int, sms: int = H100_SMS,
+              route: Optional[str] = None) -> ConvPlan:
+    """The plan of a 3x3 conv of [B, Ci, H, W] -> [B, Co, H, W] (the output
+    shape; a VALID input is 2 larger) on a card with `sms` SMs: the wgmma
+    route, with `WG_SLOTS` ring slots and strips that fill the SMs, where it
+    takes the shape, else the mma.sync route (`conv_tiling`). `route`
+    forces one; a forced route that does not take the shape raises
+    ValueError."""
+    if route not in (None, "wgmma", "mma_sync"):
+        raise ValueError(f"unknown conv route {route!r}")
+    if route != "mma_sync":
+        why = _wgmma_refusal(W, Ci, Co)
+        if why is None:
+            L = _strip_rows(B, H, sms)
+            strips = -(-H // L)
+            return ConvPlan("wgmma", wgmma_smem_bytes(W, Ci, WG_SLOTS),
+                            strips * 8, L, strips, WG_SLOTS)
+        if route == "wgmma":
+            raise ValueError(f"conv3x3: the wgmma route does not take "
+                             f"{Ci} -> {Co} at {H}x{W}: {why}")
+    th, tw, bn, P = conv_tiling(H, W, Ci, Co)
+    return ConvPlan("mma_sync", _mma_sync_smem(th, tw, bn, -(-Ci // 16) * 16),
+                    P, th=th, tw=tw, bn=bn)
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(index: int) -> int:
+    """The SMs of CUDA device `index`, which the planner fills."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_plan(x: torch.Tensor, H: int, W: int, Ci: int,
+                 Co: int) -> ConvPlan:
+    return plan_conv(x.shape[0], H, W, Ci, Co, device_sms(x.device.index))
 
 
 def _bcast(v: torch.Tensor) -> torch.Tensor:
@@ -159,12 +264,14 @@ def conv3x3_in(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                scale: Optional[torch.Tensor] = None,
                res: Optional[torch.Tensor] = None,
                prologue: Optional[str] = None,
-               eps: float = 1e-5) -> Tuple[torch.Tensor, Stats]:
+               eps: float = 1e-5,
+               plan: Optional[ConvPlan] = None) -> Tuple[torch.Tensor, Stats]:
     """Reflect-padded 3x3 conv of x [B, Ci, H, W] with w [9, Co, Ci]
     (`pack_weights`) and bias [Co], after the prologue (None, "in_relu",
     "in_relu_add", "in_add"; mean and scale [B, Ci] f32, res like x).
     Returns (y [B, Co, H, W] bf16 channels_last, (mean, scale) of y, each
-    [B, Co] f32). On CUDA x and res are channels_last bf16."""
+    [B, Co] f32). On CUDA x and res are channels_last bf16; `plan`
+    (`plan_conv`) overrides the route chosen for the shape."""
     if prologue not in PROLOGUES:
         raise ValueError(f"unknown prologue {prologue!r}")
     if prologue is not None and (mean is None or scale is None):
@@ -192,23 +299,32 @@ def conv3x3_in(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         mean, scale = (t.float().contiguous() for t in (mean, scale))
         if mean.shape != (B, Ci) or scale.shape != (B, Ci):
             raise ValueError(f"conv3x3_in: mean and scale must be [{B}, {Ci}]")
-    th, tw, bn, P = conv_tiling(H, W, Ci, Co)
+    if plan is None:
+        plan = _device_plan(x, H, W, Ci, Co)
     y = torch.empty((B, Co, H, W), dtype=torch.bfloat16, device=x.device,
                     memory_format=torch.channels_last)
-    partial = torch.empty(B, P, Co, 2, dtype=torch.float32, device=x.device)
+    partial = torch.empty(B, plan.P, Co, 2, dtype=torch.float32,
+                          device=x.device)
     stats = torch.empty(2, B, Co, dtype=torch.float32, device=x.device)
     stats_in = ((mean.data_ptr(), scale.data_ptr()) if prologue is not None
                 else (None, None))
-    _cuda.launch("p2p_conv3x3_in", x.device, x.data_ptr(),
-                 res.data_ptr() if with_res else None, w.data_ptr(),
-                 bias.data_ptr(), *stats_in, y.data_ptr(), partial.data_ptr(),
-                 stats.data_ptr(), B, H, W, Ci, Co, PROLOGUES[prologue],
-                 float(eps), th, tw, bn, P)
+    args = (x.data_ptr(), res.data_ptr() if with_res else None, w.data_ptr(),
+            bias.data_ptr(), *stats_in, y.data_ptr(), partial.data_ptr(),
+            stats.data_ptr(), B, H, W, Ci, Co, PROLOGUES[prologue],
+            float(eps))
+    if plan.route == "wgmma":
+        _cuda.launch("p2p_conv3x3_in_wg", x.device, *args, plan.strip,
+                     plan.slots, plan.P)
+        conv3x3_in.launches_wgmma += 1
+    else:
+        _cuda.launch("p2p_conv3x3_in", x.device, *args, plan.th, plan.tw,
+                     plan.bn, plan.P)
     conv3x3_in.launches += 1
     return y, (stats[0], stats[1])
 
 
 conv3x3_in.launches = 0
+conv3x3_in.launches_wgmma = 0
 
 
 def conv_s2_raw(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -233,6 +233,131 @@ def test_conv3x3_in_kernel_matches_twin(cuda, shape, prologue):
     assert ((s - s_ref).abs() <= 1e-4 * s_ref).all()
 
 
+def _conv_in_case(cuda, shape, seed=2):
+    from pix2pixhdaudiosr_torch.ops import enhancer as te
+    B, C, H, W = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def act():
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    x, res = act(), act()
+    w = te.pack_weights(torch.randn(C, C, 3, 3, generator=gen, device=cuda) * .05)
+    bias = torch.randn(C, generator=gen, device=cuda) * .1
+    mean = torch.randn(B, C, generator=gen, device=cuda) * .3
+    scale = torch.rand(B, C, generator=gen, device=cuda) * 1.5 + .5
+    return x, w, bias, mean, scale, res
+
+
+def _assert_conv_in_close(got, want):
+    """y within one bf16 ulp; mean and scale within 1e-4 of the channel's
+    magnitude (see test_conv3x3_in_kernel_matches_twin)."""
+    y, (m, s) = got
+    y_ref, (m_ref, s_ref) = want
+    assert y.dtype == torch.bfloat16 and y.shape == y_ref.shape
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert _ulp_excess(y, y_ref) <= 0
+    assert ((m - m_ref).abs() <= 1e-4 * (m_ref.abs() + 1 / s_ref)).all()
+    assert ((s - s_ref).abs() <= 1e-4 * s_ref).all()
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("prologue", [None, "in_relu", "in_relu_add", "in_add"])
+@pytest.mark.parametrize("shape", [(2, 96, 16, 64), (128, 96, 256, 64)])
+def test_conv3x3_in_routes_match_twin(cuda, shape, prologue, route):
+    """Both routes of B4 at a small shape and the flagship enhancer shape:
+    the planner's choice is the wgmma route there; each launch counts in
+    `launches`, and in `launches_wgmma` on that route only; the statistics
+    are bit-identical over two runs."""
+    from pix2pixhdaudiosr_torch.ops import enhancer as te
+    B, C, H, W = shape
+    args = (*_conv_in_case(cuda, shape), prologue)
+    assert te.plan_conv(B, H, W, C, C).route == "wgmma"
+    plan = te.plan_conv(B, H, W, C, C, te.device_sms(cuda.index or 0),
+                        route=route)
+    n, n_wg = te.conv3x3_in.launches, te.conv3x3_in.launches_wgmma
+    got = te.conv3x3_in(*args, plan=plan)
+    again = te.conv3x3_in(*args, plan=plan)
+    assert te.conv3x3_in.launches == n + 2
+    assert te.conv3x3_in.launches_wgmma == n_wg + 2 * (route == "wgmma")
+    _assert_conv_in_close(got, te.conv3x3_in_ref(*args))
+    assert torch.equal(got[0], again[0])
+    assert torch.equal(got[1][0], again[1][0])
+    assert torch.equal(got[1][1], again[1][1])
+    if route == "wgmma" and shape[0] == 2:   # the planner's own choice
+        n_wg = te.conv3x3_in.launches_wgmma
+        _assert_conv_in_close(te.conv3x3_in(*args), te.conv3x3_in_ref(*args))
+        assert te.conv3x3_in.launches_wgmma == n_wg + 1
+
+
+@pytest.mark.parametrize("B,H", [(3, 16), (1, 255), (3, 256), (264, 16),
+                                 (133, 16)])
+def test_conv3x3_in_wgmma_plans_match_twin(cuda, B, H):
+    """The planner's wgmma plans at shapes that give the kernel other walks
+    than the flagship's (on 132 SMs): strips of 1 row (3, 16); units of
+    unequal length (1, 255: strips of 2, the last of 1; 3, 256: strips of
+    6, the last of 4); more units than blocks, so that a block carries its
+    ring from one unit to the next (264, 16: two whole samples a block;
+    133, 16: strips of 4, 532 units). The prologue with a residual: y within
+    one bf16 ulp of the twin, and the statistics those of the kernel's own
+    output within 1e-5; bit-identical run to run. The statistics are not
+    held to the twin's here: on planes this small (1024 positions) a few
+    1-ulp differences of y from the twin move a channel's mean or scale by
+    more than 1e-4 on either route, as the flagship plane (16384) does
+    not; test_conv3x3_in_routes_match_twin holds them there."""
+    from pix2pixhdaudiosr_torch.ops import enhancer as te
+    args = (*_conv_in_case(cuda, (B, 96, H, 64), seed=4), "in_relu_add")
+    plan = te.plan_conv(B, H, 64, 96, 96, te.device_sms(cuda.index or 0))
+    assert plan.route == "wgmma"
+    got = te.conv3x3_in(*args, plan=plan)
+    y, (m, s) = got
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert _ulp_excess(y, te.conv3x3_in_ref(*args)[0]) <= 0
+    yd = y.double()
+    m_own = yd.mean((2, 3))
+    s_own = ((yd * yd).mean((2, 3)) - m_own ** 2).clamp(min=0).add(1e-5).rsqrt()
+    assert ((m - m_own).abs() <= 1e-5 * (m_own.abs() + 1 / s_own)).all()
+    assert ((s - s_own).abs() <= 1e-5 * s_own).all()
+    again = te.conv3x3_in(*args, plan=plan)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (got[0], *got[1]), (again[0], *again[1])))
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape,co", [
+    ((2, 96, 18, 66), 96), ((64, 96, 258, 66), 96), ((2, 96, 10, 66), 192),
+    ((140, 96, 4, 66), 96), ((1, 96, 257, 66), 96)])
+def test_conv3x3_valid_routes_match_twin(cuda, shape, co, relu, route):
+    """Both routes of B5, the flagship shape [64, 96, 258, 66] among them;
+    (2, 96, 10, 66) -> 192 takes two N tiles; on the wgmma route
+    (140, 96, 4, 66) has more units than blocks and (1, 96, 257, 66) units
+    of unequal length. Each launch counts in `launches`, and in
+    `launches_wgmma` on the wgmma route only."""
+    from pix2pixhdaudiosr_torch.ops import enhancer as te
+    from pix2pixhdaudiosr_torch.ops.conv import conv3x3_valid, conv3x3_valid_ref
+    B, C, Hp, Wp = shape
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = (torch.randn(co, C, 3, 3, generator=gen, device=cuda) * .1
+         ).to(torch.bfloat16)
+    assert te.plan_conv(B, Hp - 2, Wp - 2, C, co).route == "wgmma"
+    plan = te.plan_conv(B, Hp - 2, Wp - 2, C, co,
+                        te.device_sms(cuda.index or 0), route=route)
+    n, n_wg = conv3x3_valid.launches, conv3x3_valid.launches_wgmma
+    y = conv3x3_valid(x, w, relu, plan=plan)
+    assert conv3x3_valid.launches == n + 1
+    assert conv3x3_valid.launches_wgmma == n_wg + (route == "wgmma")
+    want = conv3x3_valid_ref(x, w, relu)
+    torch.cuda.synchronize()
+    assert y.shape == (B, co, Hp - 2, Wp - 2)
+    assert _ulp_excess(y, want) <= 0
+    if relu:
+        assert (y >= 0).all()
+
+
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("shape,co", [((2, 96, 18, 66), 96), ((3, 16, 7, 9), 24),
                                       ((1, 16, 7, 9), 136)])
