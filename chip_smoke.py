@@ -55,9 +55,37 @@ Phases, each fatal on failure (exit code 1):
      InstanceNorm launch on the one-pass route (plain 22, fused 17, int8
      22) and the fused forward's 4 conv3x3_in launches on the wgmma route;
      print B3's time against its bound a shape, with its calls in a
-     plain forward, and the flagship's int8 size against f32 and bf16.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without CUDA, or without the package beside
+     plain forward, and the flagship's int8 size against f32 and bf16;
+  9. B3 with its gradient (models/layers.InstanceNormAct: the kernel forward,
+     the closed-form backward in plain PyTorch) at the 6 generator and the
+     6 discriminator InstanceNorm shapes at batch 64, f32 and bf16: y
+     against the twin (1e-5 in f32, one bf16 ulp in bf16) and dx against
+     autograd through the twin (1e-4 max|dx| in f32, one bf16 ulp + that
+     floor in bf16); the backward timed a shape;
+ 10. one train step of a toy config (n_fft 64, LocalEnhancer ngf 4,
+     PatchGAN ndf 4), CUDA against CPU in f32: every loss within
+     rtol 1e-4; B3's output at each of the step's InstanceNorm inputs
+     within 4x the twin's distance (+ 1e-5) of a float64 InstanceNorm;
+     against a CPU step that takes the card's InstanceNorm outputs, and
+     one that takes the twin's at the card's inputs, every grad leaf
+     within 1e-3 max|g| (a conv bias feeding an InstanceNorm, whose exact
+     grad is 0, within 1e-3 of its net's max) and every updated weight
+     within 2 lr (two opposite Adam steps); against the independent CPU
+     step, D's grads within the same bound and G's within 40x it;
+ 11. the flagship train step (G and the 2-scale PatchGAN at ndf 64, bf16
+     compute, f32 params and Adam moments) at batch 64 through
+     trainer.make_train_step: 2 warm-up and 5 timed steps (ms/step,
+     segments/s, peak GiB), B3 launches a step (40, all one-pass) and B1
+     tensor-core launches a step (2), every loss finite and every parameter
+     moved, and a torch.profiler trace of one step split into forward,
+     backward and optimizer, with the InstanceNorm backward's share;
+ 12. the training CLI (python -m pix2pixhdaudiosr_torch.train_loop) at
+     flagship width on a synthetic wav corpus: 2 steps at batch 2, then the
+     generate CLI on the latest_net_G.pth it saved.
+Each phase prints its seconds ([phase] lines).
+The line before the last is {"kernels": [...]} (`launches` from one
+serve forward, `train_launches_per_step` from one flagship train step);
+the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
 with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False).
@@ -118,6 +146,29 @@ TF32_FLOPS, BF16_FLOPS, F32_FLOPS, INT32_OPS = 495e12, 989e12, 67e12, 33.5e12
 
 # InstanceNorm launches in one batch-128 serve forward of each path
 IN_LAUNCHES = {"plain": 22, "fused_enhancer": 17, "int8_trunk": 22}
+# every distinct (H, W, C) an InstanceNorm of the flagship discriminator sees
+# on a [B, 512, 128, 4] pair: scale 1, then scale 0
+D_IN_SHAPES = [(129, 33, 128), (65, 17, 256), (66, 18, 512), (65, 17, 128),
+               (33, 9, 256), (34, 10, 512)]
+TRAIN_BATCH = 64
+# a train step's InstanceNorm launches: 22 in G and 6 in each of 3 D
+# forwards; its MDCT2 launches: the lr and the hr encode
+TRAIN_IN_LAUNCHES, TRAIN_MDCT_LAUNCHES = 40, 2
+# the CUDA-vs-CPU train step: tests/test_torch_train_step.py's toy config
+# (n_fft 64, 480-sample segments, LocalEnhancer ngf 4, PatchGAN ndf 4), f32
+TOY_SEG = 480
+# the CUDA-vs-CPU train step's G grads, card against an independent CPU
+# step, within this many times 1e-3 max|g| a leaf: 2x the 20.1 read on an
+# H100, where the two steps' InstanceNorm outputs were 1.67e-4 apart
+INDEPENDENT_G_LIMIT = 40
+TOY_TRAIN = ["--netG", "local", "--ngf", "4", "--n_downsample_global", "2",
+             "--n_blocks_global", "1", "--n_local_enhancers", "1",
+             "--n_blocks_local", "1", "--input_nc", "2", "--output_nc", "2",
+             "--label_nc", "0", "--no_instance", "--explicit_encoding",
+             "--mask_mode", "mode2", "--compute_dtype", "float32",
+             "--n_fft", "64", "--hop_length", "32", "--win_length", "64",
+             "--segment_length", str(TOY_SEG), "--ndf", "4",
+             "--n_layers_D", "3", "--batchSize", "2"]
 
 
 class SmokeFailure(Exception):
@@ -958,6 +1009,498 @@ def b3_per_shape(detail: dict, calls: dict) -> dict:
     return dict(rows, total=total)
 
 
+# ---------------------------------------------------------------------------
+def in_grad_check(x, act: str, dy) -> dict:
+    """B3's Function (kernel forward, closed-form backward) at x against
+    the twin on the same values: y within 1e-5 of the twin's in f32 and
+    one bf16 ulp in bf16 (as phase 3), and dx against autograd through the
+    twin in f32, with the activation's slope read off the kernel's output
+    as the backward reads it. Returns the errors, `ok`, and the count of
+    elements whose activation side differs between the kernel's and the
+    twin's output (a value within rounding of 0)."""
+    import torch
+    from pix2pixhdaudiosr_torch.models.layers import InstanceNormAct
+    from pix2pixhdaudiosr_torch.ops import norm
+    xk = x.detach().requires_grad_(True)
+    y = InstanceNormAct.apply(xk, act)
+    (dx,) = torch.autograd.grad(y, xk, dy)
+    g = dy.float()
+    if act == "relu":
+        g = g * (y > 0)
+    elif act == "leaky":
+        g = torch.where(y >= 0, g, 0.2 * g)
+    xr = x.detach().float().requires_grad_(True)
+    (want,) = torch.autograd.grad(norm.instance_norm_act_ref(xr, "none"), xr, g)
+    y_twin = norm.instance_norm_act_ref(x.detach(), act)
+    flips = int(((y > 0) != (y_twin > 0)).sum()) if act != "none" else 0
+    scale = want.abs().max().item()
+    err = (dx.float() - want).abs().max().item()
+    y_err = (y.float() - y_twin.float()).abs().max().item()
+    res = dict(y_max_abs_err=y_err, max_abs_err=err, max_abs_dx=scale,
+               side_flips=flips)
+    if x.dtype == torch.float32:
+        res["ok"] = y_err <= 1e-5 and err <= 1e-4 * scale
+    else:
+        res["y_ulp_excess"] = ulp_excess(y, y_twin)
+        res["ulp_excess"] = ulp_excess(dx, want, 1e-4 * scale)
+        res["ok"] = res["y_ulp_excess"] <= 0 and res["ulp_excess"] <= 0
+    check(dx.dtype == x.dtype and dx.shape == x.shape,
+          f"dx {dx.dtype} {tuple(dx.shape)} for x {x.dtype} {tuple(x.shape)}")
+    return res
+
+
+def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
+    """B3 with its gradient at every training InstanceNorm shape (the
+    generator's with relu and none, the discriminator's with leaky), batch
+    `batch`, f32 and bf16: y against the twin and dx against autograd
+    through the twin (in_grad_check); every forward on the one-pass route. The closed-form backward is timed in bf16 a
+    shape (CUDA events), beside autograd through the twin."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import norm
+    gen = torch.Generator(device=dev).manual_seed(12)
+    fn, rows = norm.instance_norm_act, {}
+    for shapes, acts in ((IN_SHAPES, ("relu", "none")), (D_IN_SHAPES, ("leaky",))):
+        for H, W, C in shapes:
+            row = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn(batch, C, H, W, generator=gen, device=dev) * 2
+                     + 0.5).to(dtype).contiguous(memory_format=torch.channels_last)
+                dy = torch.randn(x.shape, generator=gen, device=dev).to(
+                    dtype).contiguous(memory_format=torch.channels_last)
+                for act in acts:
+                    n1 = fn.launches_onepass
+                    r = in_grad_check(x, act, dy)
+                    check(fn.launches_onepass - n1 == 1,
+                          f"IN grad {(H, W, C)}: the two-pass route")
+                    row[f"{str(dtype)[6:]} {act}"] = r
+                    check(r["ok"], f"IN grad {(H, W, C)} {dtype} {act}: {r}")
+                if dtype == torch.bfloat16:
+                    y = fn(x, acts[0])
+                    row["backward_ms"] = cuda_ms(
+                        lambda: norm.instance_norm_act_backward(x, y, dy, acts[0]),
+                        iters=5, warmup=1)
+                    xr = x.detach().requires_grad_(True)
+                    yr = norm.instance_norm_act_ref(xr, acts[0])
+                    row["twin_autograd_ms"] = cuda_ms(
+                        lambda: torch.autograd.grad(yr, xr, dy, retain_graph=True),
+                        iters=5, warmup=1)
+                    # reads x, y and dy, writes dx; ~20 f32 operations an element
+                    row.update(bound(4 * 2 * x.numel(), 20 * x.numel(), F32_FLOPS))
+                    del y, xr, yr
+                del x, dy
+            rows[f"{H}x{W}x{C}"] = row
+            print(f"[in grad] {H}x{W}x{C} B={batch}: " + json.dumps(row))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def norm_fed_biases(net, prefix: str = "") -> set:
+    """Names of the conv biases that feed an InstanceNorm (a ConvIN with
+    norm, every ConvTransposeIN): the norm cancels a per-channel shift, so
+    their exact grad is 0 and what a step computes there is rounding."""
+    from pix2pixhdaudiosr_torch.models.layers import ConvIN, ConvTransposeIN
+    names = set()
+    for name, m in net.named_modules():
+        if isinstance(m, ConvTransposeIN):
+            names.add(f"{prefix}{name}.ConvTranspose_0.bias")
+        elif isinstance(m, ConvIN) and m.norm:
+            names.add(f"{prefix}{name}.Conv_0.bias")
+    return names
+
+
+def grad_worst_of_bound(got: dict, want: dict, void: set, rel: float = 1e-3):
+    """(worst err / bound, its leaf name) over the leaves of one net: every
+    leaf within rel of its own max|g|, a leaf in `void` (norm_fed_biases)
+    within rel of the net's max|g|."""
+    net_max = max(v.abs().max().item() for v in want.values())
+    worst = (0.0, "")
+    for name, w in want.items():
+        scale = net_max if name in void else w.abs().max().item()
+        err = (got[name].cpu() - w.cpu()).abs().max().item()
+        worst = max(worst, (err / (rel * scale), name))
+    return worst
+
+
+def in_f64(x, act: str):
+    """act(InstanceNorm(x)), eps 1e-5, in float64 with a two-pass variance:
+    the witness that the kernel's and the twin's f32 rounding is read
+    against."""
+    from pix2pixhdaudiosr_torch.ops.norm import activate
+    xd = x.double()
+    mean = xd.mean(dim=(2, 3), keepdim=True)
+    var = ((xd - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    return activate((xd - mean) / (var + 1e-5).sqrt(), act)
+
+
+def in_witness(calls) -> dict:
+    """At each InstanceNorm input of a recorded step, (x, kernel y, act),
+    the distance of the kernel's y and of the f32 twin's (on the CPU) from
+    in_f64, and the plane's worst conditioning: max |mean| / std, which
+    E[x^2] - mean^2 in f32 loses precision to as its square."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops.norm import instance_norm_act_ref
+    rows = []
+    for x, y, act in calls:
+        xc = x.cpu()
+        want = in_f64(xc, act)
+        xd = xc.double()
+        cond = (xd.mean(dim=(2, 3)).abs()
+                / xd.std(dim=(2, 3), correction=0).clamp_min(1e-30))
+        rows.append(dict(
+            shape=list(x.shape), act=act,
+            kernel_f64=(y.cpu().double() - want).abs().max().item(),
+            twin_f64=(instance_norm_act_ref(xc, act).double() - want
+                      ).abs().max().item(),
+            cond=cond.max().item()))
+    worst = max(rows, key=lambda r: max(r["kernel_f64"], r["twin_f64"]))
+    return dict(worst=worst, calls=rows,
+                kernel_f64=max(r["kernel_f64"] for r in rows),
+                twin_f64=max(r["twin_f64"] for r in rows))
+
+
+def phase_train_reference(dev) -> dict:
+    """One make_train_step step of TOY_TRAIN on the card against the same
+    step on the CPU (kernel twins), f32 with TF32 off, from the same
+    weights, batch and mask noise. Losses within rtol 1e-4 of the CPU
+    step's. At each InstanceNorm input of the card's step the kernel's
+    output sits within 4x the f32 twin's distance (+ 1e-5) of a float64
+    InstanceNorm (in_witness). The card step's grads are read against three
+    CPU steps:
+      one that takes each InstanceNorm output from the card's step (call by
+      call, in forward order), the arithmetic of every other layer its own,
+      and one that takes the twin's output at the card step's InstanceNorm
+      input: every grad leaf within 1e-3 max|g| (grad_worst_of_bound) of
+      each, and every updated parameter within 2 lr (two opposite steps
+      where a grad is rounding) of the first;
+      the independent CPU step: D's within the same bound, G's within
+      INDEPENDENT_G_LIMIT of it. The two steps' InstanceNorm inputs differ
+      already (in_in_max_abs_err), by the rounding of the layers before
+      them, and G's grads at this toy size amplify that.
+    Also the card step's B3 and B1 launches."""
+    import torch
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.models import layers
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import mdct2
+    from pix2pixhdaudiosr_torch.ops.norm import instance_norm_act
+    from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
+    from pix2pixhdaudiosr_torch.trainer import init_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = parse_config(TOY_TRAIN, is_train=True, save=False)
+    cpu = torch.Generator().manual_seed(2)
+    batch = {k: torch.randn(2, TOY_SEG, generator=cpu) * 0.2
+             for k in ("label", "image")}
+    init = Pix2PixHDSystem(cfg, device="cpu")
+    init_state(init, 0)
+    b, f, t, c = init.spectro_shape(2)
+    noise = torch.randn(b, init.codec.mask_size(f), t, c,
+                        generator=torch.Generator().manual_seed(3))
+
+    def run(d, in_fn):
+        """One step on device d, InstanceNorm outputs through in_fn (the
+        forward of layers.InstanceNormAct, which the train step runs)."""
+        system = Pix2PixHDSystem(cfg, device=d)
+        state = init_state(system, 0)
+        system.netG_train.load_state_dict(init.netG_train.state_dict())
+        system.netD.load_state_dict(init.netD.state_dict())
+        layers.instance_norm_act = in_fn
+        try:
+            losses, _ = make_train_step(system)(
+                state, {k: v.to(d) for k, v in batch.items()}, noise.to(d))
+        finally:
+            layers.instance_norm_act = instance_norm_act
+        named = {"G.": system.netG_train, "D.": system.netD}
+        return dict(losses={k: float(v) for k, v in losses.items()},
+                    grads={p + n: w.grad.detach().cpu() for p, net in
+                           named.items() for n, w in net.named_parameters()},
+                    params={p + n: w.detach().cpu() for p, net in
+                            named.items() for n, w in net.named_parameters()})
+
+    def recorder(calls):
+        def fn(x, act):
+            y = instance_norm_act(x, act)
+            calls.append((x.detach(), y.detach(), act))
+            return y
+        return fn
+
+    card_in, cpu_in = [], []
+    reset_counts(instance_norm_act)
+    reset_counts(mdct2)
+    got = run(dev, recorder(card_in))
+    res = dict(in_launches=instance_norm_act.launches,
+               in_launches_onepass=instance_norm_act.launches_onepass,
+               mdct2_launches_tc=mdct2.launches_tc)
+    want = run("cpu", recorder(cpu_in))
+
+    def replay(out):
+        """An InstanceNorm forward for a CPU step that returns, call by
+        call, out(x, y, act) of the card step's input x and output y."""
+        calls = iter(card_in)
+
+        def fn(x, act):
+            xk, yk, act_k = next(calls)
+            check(act_k == act and yk.shape == x.shape, "the CPU step's "
+                  "InstanceNorm calls differ from the card step's")
+            return out(xk.cpu(), yk.cpu(), act)
+        return fn
+    same = run("cpu", replay(lambda x, y, act: y))
+    twin = run("cpu", replay(lambda x, y, act: instance_norm_act(x, act)))
+    res["sign_flips"] = sum(int(((a.cpu() > 0) != (b > 0)).sum())
+                            for (_, a, act), (_, b, _) in zip(card_in, cpu_in)
+                            if act != "none")
+    # the two independent steps' InstanceNorm inputs and outputs, call by call
+    res["in_in_max_abs_err"] = max((a.cpu() - b).abs().max().item()
+                                   for (a, _, _), (b, _, _) in zip(card_in, cpu_in))
+    res["in_out_max_abs_err"] = max((a.cpu() - b).abs().max().item()
+                                    for (_, a, _), (_, b, _) in zip(card_in, cpu_in))
+    witness = in_witness(card_in)
+    res["in_f64"] = {k: witness[k] for k in ("kernel_f64", "twin_f64", "worst")}
+    res["loss_rel_err"] = {k: abs(got["losses"][k] - v) / abs(v)
+                           for k, v in want["losses"].items()}
+    void = (norm_fed_biases(init.netG_train, "G.")
+            | norm_fed_biases(init.netD, "D."))
+    res["grad_worst_of_bound"] = {
+        net: grad_worst_of_bound(
+            {k: v for k, v in got["grads"].items() if k[0] == net},
+            {k: v for k, v in same["grads"].items() if k[0] == net}, void)
+        for net in ("G", "D")}
+    res["grad_worst_of_bound_twin_at_card_inputs"] = {
+        net: grad_worst_of_bound(
+            {k: v for k, v in got["grads"].items() if k[0] == net},
+            {k: v for k, v in twin["grads"].items() if k[0] == net}, void)
+        for net in ("G", "D")}
+    res["grad_worst_of_bound_independent"] = {
+        net: grad_worst_of_bound(
+            {k: v for k, v in got["grads"].items() if k[0] == net},
+            {k: v for k, v in want["grads"].items() if k[0] == net}, void)
+        for net in ("G", "D")}
+    res["param_max_abs_err"] = max((got["params"][k] - v).abs().max().item()
+                                   for k, v in same["params"].items())
+    res["losses"] = got["losses"]
+    print("[train reference] CUDA vs CPU, f32: " + json.dumps(res))
+    print("[train reference] InstanceNorm against float64, call by call: "
+          + json.dumps(witness["calls"]))
+    check(all(e <= 1e-4 for e in res["loss_rel_err"].values()),
+          f"train step losses off the CPU's: {res['loss_rel_err']}")
+    for r in witness["calls"]:
+        check(r["kernel_f64"] <= 4 * r["twin_f64"] + 1e-5,
+              f"B3 off float64 by more than 4x the twin's distance: {r}")
+    for key in ("grad_worst_of_bound", "grad_worst_of_bound_twin_at_card_inputs"):
+        check(all(w <= 1 for w, _ in res[key].values()),
+              f"train step grads off the CPU's: {key} {res[key]}")
+    indep = res["grad_worst_of_bound_independent"]
+    check(indep["D"][0] <= 1 and indep["G"][0] <= INDEPENDENT_G_LIMIT,
+          f"train step grads off the independent CPU step's: {indep}")
+    # two Adam steps of lr in opposite directions, and the weights' rounding
+    check(res["param_max_abs_err"] <= 2 * cfg.lr * (1 + 1e-3),
+          f"updated params off the CPU's by {res['param_max_abs_err']}")
+    check(res["in_launches"] == res["in_launches_onepass"] > 0
+          and res["mdct2_launches_tc"] == TRAIN_MDCT_LAUNCHES,
+          f"toy train step launches: {res}")
+    return res
+
+
+def _phase_of(event) -> str:
+    """forward, backward or optimizer: the part of a train step that a
+    profiler event belongs to, by its outermost enclosing event."""
+    while event.cpu_parent is not None:
+        event = event.cpu_parent
+    if event.name.startswith("autograd::engine::evaluate_function"):
+        return "backward"
+    if event.name.startswith("Optimizer."):
+        return "optimizer"
+    return "forward"
+
+
+def _is_annotation(event) -> bool:
+    """A user range mirrored on the device timeline (record_function, as
+    torch.optim wraps step in): it spans kernels, so it is not one."""
+    return (getattr(event, "is_user_annotation", False)
+            or event.key.startswith("Optimizer."))
+
+
+def profile_train_step(run_step, top: int = 16) -> dict:
+    """One traced train step: the device time of its kernels by part
+    (forward, backward, optimizer: each kernel counted once, under the
+    outermost event that launched it, _phase_of), the InstanceNorm
+    backward's device time and share, and the `top` kernels by device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):  # a trace may come back without kernels (device_ms)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and not _is_annotation(e)),
+                         key=lambda e: -e.self_device_time_total)
+        if kernels:
+            break
+    else:
+        raise SmokeFailure("3 profiler traces of a train step came back "
+                           "without kernels")
+    parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    in_bwd = 0.0
+    for e in prof.events():
+        ms = e.self_device_time_total / 1e3
+        if ms <= 0 or e.device_type == DeviceType.CUDA:
+            continue
+        parts[_phase_of(e)] += ms
+        outer = e
+        while outer.cpu_parent is not None:
+            outer = outer.cpu_parent
+        if "InstanceNormAct" in outer.name:
+            in_bwd += ms
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    return dict(host_wall_ms=wall, device_ms=total, parts_ms=parts,
+                in_backward_ms=in_bwd, in_backward_share=in_bwd / total,
+                top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                     for e in kernels[:top]])
+
+
+def phase_train_step(dev, counters) -> dict:
+    """The flagship train step at batch TRAIN_BATCH through
+    trainer.make_train_step: seeded N(0, 0.02) weights, a seeded batch of
+    lr and hr waveforms, a mask-noise generator a step. 2 warm-up and 5
+    timed steps (CUDA events around each), every kernel counter set to 0
+    just before the warm-up and read just after the last step; then one
+    traced step. Checks: every loss finite each step, every parameter moved,
+    40 InstanceNorm launches a step all one-pass, 2 MDCT2 launches a step
+    on the tensor-core route, no launch of the serving-only kernels."""
+    import torch
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
+    from pix2pixhdaudiosr_torch.trainer import init_state, make_train_step
+
+    torch.backends.cudnn.benchmark = True
+    cfg = parse_config([*FLAGSHIP, "--batchSize", str(TRAIN_BATCH)],
+                       is_train=True, save=False)
+    system = Pix2PixHDSystem(cfg, device=dev)
+    state = init_state(system, 0)
+    n_g = sum(p.numel() for p in system.netG_train.parameters())
+    n_d = sum(p.numel() for p in system.netD.parameters())
+    check((n_g, n_d) == (156_050_690, 5_531_522), f"G, D parameters {n_g}, {n_d}")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    t = torch.arange(SEG, device=dev) / 48000
+    f0 = 100 + 400 * torch.rand(TRAIN_BATCH, 1, generator=gen, device=dev)
+    hr = 0.3 * torch.sin(2 * torch.pi * f0 * t) + 0.01 * torch.randn(
+        TRAIN_BATCH, SEG, generator=gen, device=dev)
+    batch = {"image": hr, "label": hr + 0.05 * torch.randn(
+        TRAIN_BATCH, SEG, generator=gen, device=dev)}
+    step = make_train_step(system)
+    before = [p.detach().clone() for p in (*system.netG_train.parameters(),
+                                           *system.netD.parameters())]
+    seeds = iter(range(1000))
+
+    def run_step():
+        noise_gen = torch.Generator(device=dev).manual_seed(next(seeds))
+        return step(state, batch, noise_gen)[0]
+
+    for fn in counters.values():
+        reset_counts(fn)
+    losses = [run_step() for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses.append(run_step())
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_steps = len(losses)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    inorm, mdct = counters["instance_norm_act"], counters["mdct2"]
+    res = dict(batch=TRAIN_BATCH, params_g=n_g, params_d=n_d, steps=n_steps,
+               ms_per_step=sum(ms) / len(ms), ms_runs=ms,
+               segments_per_s=TRAIN_BATCH / (sum(ms) / len(ms) / 1e3),
+               peak_gib=peak, launches=launches,
+               in_launches_per_step=inorm.launches / n_steps,
+               in_onepass_per_step=inorm.launches_onepass / n_steps,
+               in_by_shape_per_step={f"{h}x{w}x{c}": n / n_steps for (h, w, c), n
+                                     in inorm.launches_by_shape.items()},
+               mdct2_tc_per_step=mdct.launches_tc / n_steps,
+               losses=[{k: float(v) for k, v in l.items()} for l in losses])
+    moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(
+        before, (*system.netG_train.parameters(), *system.netD.parameters())))
+    res["params_moved"], res["param_tensors"] = moved, len(before)
+    del before
+    counts = (inorm.launches, inorm.launches_onepass, mdct.launches,
+              mdct.launches_tc)
+    res["profile"] = profile_train_step(run_step)
+    print("[train step] " + json.dumps(res))
+    check(all(all(map(lambda v: v == v and abs(v) != float("inf"), l.values()))
+              for l in res["losses"]), "a train-step loss is not finite")
+    check(moved == res["param_tensors"], f"{res['param_tensors'] - moved} "
+          f"parameter tensors did not move")
+    check(counts[0] == counts[1] == TRAIN_IN_LAUNCHES * n_steps,
+          f"InstanceNorm: {counts[0]} launches, {counts[1]} one-pass in "
+          f"{n_steps} steps; expected {TRAIN_IN_LAUNCHES} a step, all "
+          f"one-pass")
+    check(counts[2] == counts[3] == TRAIN_MDCT_LAUNCHES * n_steps,
+          f"MDCT2: {counts[2]} launches, {counts[3]} on the tensor-core "
+          f"route in {n_steps} steps")
+    for k, n in launches.items():
+        if k not in ("instance_norm_act", "mdct2"):
+            check(n == 0, f"the train step launched {k} {n}x")
+    del system, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_cli(dev, counters, wav: str, n_in: int) -> dict:
+    """The training CLI at flagship width: 2 steps at batch 2 over a corpus
+    of 4 synthetic wavs, saving `latest` once; then the generate CLI serves
+    the latest_net_G.pth it wrote. B3 and B1 must launch in the training
+    run (counters set to 0 just before it)."""
+    from pix2pixhdaudiosr_torch import train_loop
+
+    corpus = os.path.join(WORK, "corpus")
+    os.makedirs(corpus, exist_ok=True)
+    for i in range(4):
+        write_synthetic_wav(os.path.join(corpus, f"c{i}.wav"), seconds=1.0 + 0.1 * i)
+    argv = ["--name", "train", "--checkpoints_dir", WORK, "--dataroot", corpus,
+            "--device", dev, *FLAGSHIP, "--batchSize", "2", "--niter", "1",
+            "--niter_decay", "0", "--no_html", "--validation_split", "0",
+            "--print_freq", "2", "--save_latest_freq", "4",
+            "--save_epoch_freq", "0"]
+    for fn in counters.values():
+        reset_counts(fn)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train_loop.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("(epoch")
+             or ln.startswith("saving") or ln.startswith("training on")]
+    print("[train cli] " + "\n[train cli] ".join(lines))
+    expr = os.path.join(WORK, "train")
+    check(state.step == 2, f"the training CLI took {state.step} steps")
+    check(launches["instance_norm_act"] == 2 * TRAIN_IN_LAUNCHES
+          and launches["mdct2"] == 2 * TRAIN_MDCT_LAUNCHES,
+          f"training CLI launches {launches}")
+    for part in ("net_G", "net_D", "optim"):
+        check(os.path.exists(os.path.join(expr, f"latest_{part}.pth")),
+              f"the training CLI saved no latest_{part}.pth")
+    gen = phase_generate(dev, {k: counters[k] for k in ("mdct2", "imdct2",
+                                                        "instance_norm_act")},
+                         wav, n_in, ["--load_pretrain", expr])
+    res = dict(seconds=seconds, launches=launches, generate=gen,
+               log=lines)
+    print("[train cli] " + json.dumps(dict(seconds=seconds, launches=launches,
+                                           generate_metric=gen["metric"])))
+    return res
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -991,9 +1534,18 @@ def main() -> int:
         print(f"[build] {lib} in {time.perf_counter() - t0:.1f} s")
         print(open(lib.parent / "build.log").read()[-3000:])
 
-        rec, detail = phase_kernels(dev)
+        phase_s = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            phase_s[name] = time.perf_counter() - t0
+            print(f"[phase] {name}: {phase_s[name]:.1f} s")
+            return out
+
+        rec, detail = timed("kernels", phase_kernels, dev)
         for phase in (phase_conv_kernels, phase_quant_kernels):
-            rec_p, detail_p = phase(dev)
+            rec_p, detail_p = timed(phase.__name__[6:], phase, dev)
             rec.update(rec_p)
             detail.update(detail_p)
         # no path calls B5 or B6: their launches are phase 3's
@@ -1006,24 +1558,33 @@ def main() -> int:
         pth = flagship_generator_pth(os.path.join(WORK, "smoke"))
         counters = {"mdct2": mdct2, "imdct2": imdct2,
                     "instance_norm_act": instance_norm_act}
-        gen_res = phase_generate(dev, counters, wav, n_in)
-        gen_fused = phase_generate(dev, dict(
+        gen_res = timed("generate", phase_generate, dev, counters, wav, n_in)
+        gen_fused = timed("generate fused", phase_generate, dev, dict(
             counters, conv3x3_in=conv3x3_in, instance_stats=instance_stats),
             wav, n_in, FUSED)
-        gen_quant = phase_generate(dev, dict(counters,
-                                             conv3x3_int8=conv3x3_int8),
-                                   wav, n_in, QUANT,
-                                   expect=["int8 weight quantization enabled"])
-        ref_err = phase_reference(dev)
+        gen_quant = timed("generate int8", phase_generate, dev, dict(
+            counters, conv3x3_int8=conv3x3_int8), wav, n_in, QUANT,
+            ["int8 weight quantization enabled"])
+        ref_err = timed("reference", phase_reference, dev)
         system = flagship_system(dev, ["--fused_enhancer"])
         lr, noise = seeded_batch(system, dev, 128)
-        fused_err = phase_fused_vs_plain(system, lr, noise)
-        quant_err = phase_quant_vs_plain(
-            system, flagship_system(dev, ["--data_type", "8"]), lr, noise)
-        serve = phase_serve_timing(system, lr, noise, dict(
-            counters, conv3x3_in=conv3x3_in, conv3x3_valid=conv3x3_valid,
-            stochastic_quantize_2d=stochastic_quantize_2d))
+        fused_err = timed("fused vs plain", phase_fused_vs_plain, system, lr,
+                          noise)
+        quant_err = timed("quant vs plain", phase_quant_vs_plain, system,
+                          flagship_system(dev, ["--data_type", "8"]), lr, noise)
+        all_counters = dict(counters, conv3x3_in=conv3x3_in,
+                            conv3x3_valid=conv3x3_valid,
+                            stochastic_quantize_2d=stochastic_quantize_2d)
+        serve = timed("serve timing", phase_serve_timing, system, lr, noise,
+                      all_counters)
         sizes = phase_sizes(pth)
+        del system, lr, noise
+        torch.cuda.empty_cache()
+        in_grad = timed("in grad", phase_in_grad, dev)
+        train_ref = timed("train reference", phase_train_reference, dev)
+        train = timed("train step", phase_train_step, dev, all_counters)
+        train_cli = timed("train cli", phase_train_cli, dev, counters, wav,
+                          n_in)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -1037,15 +1598,21 @@ def main() -> int:
                     stochastic_quantize_2d=quant_launches)
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
+                    train_launches_per_step=train["launches"].get(k, 0)
+                    / train["steps"],
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}) for k in KERNELS]
+    kernels[[k["name"] for k in kernels].index("instance_norm_act")][
+        "backward"] = "plain PyTorch (ops/norm.instance_norm_act_backward)"
     print("[detail] " + json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         kernel_detail=detail, generate=gen_res, generate_fused=gen_fused,
         generate_quant=gen_quant, reference_max_abs_err=ref_err,
         fused_vs_plain=fused_err, quant_vs_plain=quant_err, serve=serve,
-        sizes=sizes, b3_per_shape=b3)))
+        sizes=sizes, b3_per_shape=b3, in_grad=in_grad,
+        train_reference=train_ref, train_step=train, train_cli=train_cli,
+        phase_seconds=phase_s)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

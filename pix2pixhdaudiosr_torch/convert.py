@@ -1,9 +1,11 @@
-"""JAX (flax) generator params -> this package's state_dict.
+"""JAX (flax) params and optax Adam state -> this package's state_dicts.
 
 The torch modules are named after the flax param tree (models/layers.py),
 so the conversion is a walk over that tree: every `Conv_0` or
 `ConvTranspose_0` node holding {kernel, bias} becomes `<path>.weight` and
-`<path>.bias`.
+`<path>.bias`. The walk serves the generator and the discriminator alike
+(`jax_to_torch_discriminator`), and the Adam moments, which are trees of
+the params' shape (`load_adam_state`).
 
 * Conv kernels: flax HWIO [kh, kw, ci, co] -> torch OIHW [co, ci, kh, kw].
 * Deconv kernels: flip_hw(k) then permute(2, 3, 0, 1) -> [ci, co, kh, kw],
@@ -18,6 +20,8 @@ is served with --torch_deconv.
 from __future__ import annotations
 
 from typing import Dict, Mapping
+
+import torch.nn as nn
 
 import numpy as np
 import torch
@@ -55,3 +59,21 @@ def jax_to_torch_generator(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+jax_to_torch_discriminator = jax_to_torch_generator
+
+
+@torch.no_grad()
+def load_adam_state(opt: torch.optim.Adam, net: nn.Module, mu: Mapping,
+                    nu: Mapping, count) -> None:
+    """Install an optax Adam state (moments `mu`, `nu` as param trees of
+    `net`, step `count`) as `opt`'s state for the parameters of `net`. The
+    two updates agree: optax's mu_hat / (sqrt(nu_hat) + eps) is torch's
+    exp_avg / bias1 / (sqrt(exp_avg_sq / bias2) + eps)."""
+    moments = [jax_to_torch_generator(t) for t in (mu, nu)]
+    for name, p in net.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(np.asarray(count))),
+            "exp_avg": torch.empty_like(p).copy_(moments[0][name]),
+            "exp_avg_sq": torch.empty_like(p).copy_(moments[1][name])}

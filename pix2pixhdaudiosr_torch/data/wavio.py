@@ -11,7 +11,7 @@ import os
 import struct
 import wave
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -77,8 +77,11 @@ def _decode(raw: bytes, info: WavInfo) -> np.ndarray:
     return x.reshape(-1, info.num_channels).T  # [C, T]
 
 
-def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """Returns ([channels, frames] float32 in [-1, 1], sample_rate)."""
+def read_wav(path: str, frame_offset: int = 0,
+             num_frames: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """Returns ([channels, frames] float32 in [-1, 1], sample_rate). Reads
+    only the frames asked for: `num_frames` (all if None) from
+    `frame_offset`, clipped to the file."""
     ext = os.path.splitext(path)[1].lower()
     if ext != ".wav":
         raise ValueError(f"{ext} input is not supported by the torch port yet "
@@ -86,9 +89,12 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
                          f"convert {path} to .wav")
     info = wav_info(path)
     bpf = info.num_channels * (info.bits_per_sample // 8)
+    start = min(max(frame_offset, 0), info.num_frames)
+    n = info.num_frames - start if num_frames is None \
+        else min(num_frames, info.num_frames - start)
     with open(path, "rb") as f:
-        f.seek(info.data_offset)
-        raw = f.read(info.num_frames * bpf)
+        f.seek(info.data_offset + start * bpf)
+        raw = f.read(n * bpf)
     return _decode(raw, info), info.sample_rate
 
 

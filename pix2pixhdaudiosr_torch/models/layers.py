@@ -16,20 +16,53 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.norm import activate, instance_norm_act
+from ..ops.norm import activate, instance_norm_act, instance_norm_act_backward
 
 DECONV_MODES = ("same", "torch")
+
+
+class InstanceNormAct(torch.autograd.Function):
+    """`instance_norm_act` with a gradient (eps 1e-5): the kernel (or, on the
+    CPU, its twin) forward, ops/norm.instance_norm_act_backward backward. It
+    saves x and y, and y is the next layer's input, which autograd keeps
+    anyway."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+        y = instance_norm_act(x, act)
+        ctx.save_for_backward(x, y)
+        ctx.act = act
+        return y
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, y = ctx.saved_tensors
+        return instance_norm_act_backward(x, y, dy, ctx.act), None
 
 
 def instance_norm(x: torch.Tensor, act: str = "none") -> torch.Tensor:
     """InstanceNorm2d(affine=False), eps 1e-5, then `act`, on the kernel of
     ops/norm.py (channels_last out). On the card x is channels_last or the
-    same-mode deconv's crop of it, which the kernel reads in place."""
+    same-mode deconv's crop of it, which the kernel reads in place. Where
+    autograd records (grad enabled and x requires grad) it runs through
+    `InstanceNormAct`; otherwise nothing is saved for a backward."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return InstanceNormAct.apply(x, act)
     return instance_norm_act(x, act)
 
 
 def avg_pool_3s2(x: torch.Tensor) -> torch.Tensor:
-    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False)."""
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False). Where
+    autograd records through a CUDA tensor (the discriminator's pyramid
+    under the G losses), the pool runs on an NCHW copy and returns
+    channels_last: PyTorch's channels_last avg_pool2d backward on CUDA
+    returns a wrong dx for C >= 2 (off by about max|dx| with torch
+    2.11+cu128 on an H100, tests/test_torch_cuda.py), while its NCHW
+    backward is right."""
+    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
+        return F.avg_pool2d(x.contiguous(), 3, 2, 1,
+                            count_include_pad=False).contiguous(
+                                memory_format=torch.channels_last)
     return F.avg_pool2d(x, 3, 2, 1, count_include_pad=False)
 
 

@@ -16,7 +16,9 @@ See csrc/instance_norm.cu for what bounds it on the card and how each route
 answers it. A CPU tensor runs the twin; a CUDA tensor launches a kernel
 (counted in `instance_norm_act.launches`, the one-pass ones also in
 `.launches_onepass`, and by (H, W, C) in `.launches_by_shape`) or raises.
-Inference only: the backward comes with training. `instance_stats` runs the
+`instance_norm_act_backward` is the closed form of what JAX differentiates
+(plain PyTorch in f32; the JAX package has no backward kernel either), the
+backward of models/layers.InstanceNormAct. `instance_stats` runs the
 statistics passes alone (the fused enhancer folds the normalize into its
 next conv).
 """
@@ -270,3 +272,32 @@ def instance_stats(x: torch.Tensor, eps: float = 1e-5):
 
 
 instance_stats.launches = 0
+
+
+def instance_norm_act_backward(x: torch.Tensor, y: torch.Tensor,
+                               dy: torch.Tensor, act: str = "none",
+                               eps: float = 1e-5) -> torch.Tensor:
+    """dL/dx of y = act(instance_norm(x)) given dL/dy, in f32 from the saved
+    input: x^ = (x - mean) rstd, g = dy act'(y), and
+    dx = rstd (g - mean(g) - x^ mean(g x^)), the means over H, W; where
+    E[x^2] - mean^2 was clamped to 0 the variance passes no gradient. The
+    activation's slope is read off the forward's own output y (relu: y > 0,
+    leaky: 1 where y >= 0, else 0.2), as JAX differentiates the activation
+    of the rounded output. Returns x's dtype and shape."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = (xf * xf).mean(dim=(2, 3), keepdim=True) - mean * mean
+    rstd = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+    xhat = (xf - mean) * rstd
+    del xf
+    g = dy.float()
+    if act == "relu":
+        g = g * (y > 0)
+    elif act == "leaky":
+        g = torch.where(y >= 0, g, 0.2 * g)
+    elif act != "none":
+        raise ValueError(f"unknown activation {act!r}")
+    g_mean = g.mean(dim=(2, 3), keepdim=True)
+    gx_mean = torch.where(var > 0, (g * xhat).mean(dim=(2, 3), keepdim=True),
+                          0.0)
+    return ((g - g_mean - xhat * gx_mean) * rstd).to(x.dtype)

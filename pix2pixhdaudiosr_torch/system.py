@@ -1,23 +1,64 @@
-"""The serving half of the Pix2PixHD audio-SR system.
+"""The Pix2PixHD audio-SR system: serving and the GAN train step.
 
-Port of the serving subset of pix2pixhdaudiosr_tpu/system.py:
-`frames_for`, `n_frames`, `spectro_shape` (:51-138), `encode_input` for the
-lr side (:170-185) and `inference` (:371-383). The generator is an
-nn.Module that holds its weights (the JAX package passes a param tree);
-it runs in the compute dtype, on a channels_last view of the NHWC
-spectrogram. The port serves only, so one netG carries `--fused_enhancer`
-and `--int8_trunk` where the JAX package builds a separate `netG_infer`
-beside its training tree.
+Port of pix2pixhdaudiosr_tpu/system.py: `frames_for`, `n_frames`,
+`spectro_shape` (:51-138), `encode_input` (:170-185), `losses_and_grads`
+(:208-369) for the flagship's losses (LSGAN and feature matching) and
+`inference` (:371-383). Nets are nn.Modules that hold their weights (the
+JAX package passes param trees); they run in the compute dtype, on a
+channels_last view of the NHWC spectrogram.
+
+`netG` is the generator `inference` serves: it carries `--fused_enhancer`
+and `--int8_trunk`, whose kernels have no backward. A training system
+(cfg.is_train) adds `netG_train`, the plain generator the train step
+differentiates, sharing netG's parameter tensors (netG itself when neither
+flag is set), and `netD`; the JAX package's pair is netG / netG_infer.
+Training keeps f32 parameters and computes in the compute dtype under
+autocast, as flax's dtype=bf16 modules do from f32 params.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from .losses import (LOSS_NAMES, feature_matching_loss, filter_losses,
+                     gan_loss, loss_filter_flags)
+from .models.discriminator import build_discriminator
 from .models.generator import build_generator
 from .ops.encoding import CodecConfig, SpectroCodec
+
+# (condition on the config, what it asks for, the ROADMAP item that brings it)
+NOT_YET_TRAIN = (
+    (lambda c: c.use_match_loss, "--use_match_loss", "optional nets, ROADMAP A9"),
+    (lambda c: c.use_time_d, "--use_time_D", "optional nets, ROADMAP A9"),
+    (lambda c: c.use_hifigan_d, "--use_hifigan_D", "optional nets, ROADMAP A9"),
+    (lambda c: c.use_features or c.net_g == "encoder",
+     "feature-encoder configs (netE)", "optional nets, ROADMAP A9"),
+    (lambda c: bool(c.remat_g), "--remat_g", "memory knobs, ROADMAP A12"),
+    (lambda c: c.adam_mu_bf16, "--adam_mu_bf16", "memory knobs, ROADMAP A12"),
+    (lambda c: c.pool_size > 0, "--pool_size > 0 (the fake pool)",
+     "the rest of the train loop, ROADMAP A8"),
+)
+
+
+def check_trainable(cfg) -> None:
+    """Raise NotImplementedError for a training option the port lacks."""
+    for cond, what, where in NOT_YET_TRAIN:
+        if cond(cfg):
+            raise NotImplementedError(
+                f"{what} is not ported to pix2pixhdaudiosr_torch training "
+                f"yet; it comes with {where}")
+
+
+def _share_parameters(dst: torch.nn.Module, src: torch.nn.Module) -> None:
+    """Make every parameter of dst the very Parameter of src under its
+    name (the two nets have one param tree)."""
+    params = dict(src.named_parameters())
+    for prefix, module in dst.named_modules():
+        for key in module._parameters:
+            module._parameters[key] = params[f"{prefix}.{key}" if prefix else key]
 
 
 class Pix2PixHDSystem:
@@ -32,13 +73,35 @@ class Pix2PixHDSystem:
             explicit_encoding=cfg.explicit_encoding, mask_mode=cfg.mask_mode,
             phase_encoding_mode=cfg.phase_encoding_mode), device=device)
         self.dtype = getattr(torch, cfg.compute_dtype)
+        if cfg.is_train:
+            check_trainable(cfg)
         # built unallocated; fill with load_state_dict / init_normal_
-        self.netG = build_generator(
+        self.netG = self._generator(cfg.fused_enhancer, cfg.int8_trunk)
+        if not cfg.is_train:
+            return
+        self.netG.to(memory_format=torch.channels_last)
+        self.netG_train = self.netG
+        if cfg.fused_enhancer or cfg.int8_trunk:
+            self.netG_train = self._generator(False, False)
+            _share_parameters(self.netG_train, self.netG)
+        self.netD = build_discriminator(
+            cfg.netd_input_nc, cfg.ndf, cfg.n_layers_d,
+            use_sigmoid=cfg.no_lsgan, num_d=cfg.num_d,
+            get_interm_feat=not cfg.no_gan_feat_loss, device="meta"
+        ).to_empty(device=self.device).to(memory_format=torch.channels_last)
+        self.flags = loss_filter_flags(not cfg.no_gan_feat_loss,
+                                       not cfg.no_vgg_loss, cfg.use_match_loss,
+                                       cfg.use_hifigan_d or cfg.use_time_d)
+        self.loss_names = [n for n, f in zip(LOSS_NAMES, self.flags) if f]
+
+    def _generator(self, fused: bool, int8: bool) -> torch.nn.Module:
+        cfg = self.cfg
+        return build_generator(
             cfg.net_g, cfg.netg_input_nc, cfg.output_nc, cfg.ngf,
             cfg.n_downsample_global, cfg.n_blocks_global,
             cfg.n_local_enhancers, cfg.n_blocks_local,
             deconv_mode="torch" if cfg.torch_deconv else "same",
-            fused_enh_blocks=cfg.fused_enhancer, int8_trunk=cfg.int8_trunk,
+            fused_enh_blocks=fused, int8_trunk=int8,
             device="meta").to_empty(device=self.device)
 
     # ------------------------------------------------------------------
@@ -77,6 +140,10 @@ class Pix2PixHDSystem:
         return self.codec.to_spectro(lr_audio, mask=True, noise=noise,
                                      generator=generator)
 
+    def encode_target(self, hr_audio: torch.Tensor):
+        """The hr side of the reference encode: never masked."""
+        return self.codec.to_spectro(hr_audio, mask=False)
+
     @torch.no_grad()
     def inference(self, lr_audio: torch.Tensor,
                   noise: Optional[torch.Tensor] = None,
@@ -88,3 +155,72 @@ class Pix2PixHDSystem:
         g_in = lr_spec.to(self.dtype).permute(0, 3, 1, 2)  # channels_last view
         sr = self.netG(g_in).permute(0, 2, 3, 1).float()
         return sr, lr_pha, lr_norm, lr_spec
+
+    # ------------------------------------------------------------------
+    def _autocast(self):
+        if self.dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(self.device.type, dtype=self.dtype)
+
+    def d_apply(self, label_spec: torch.Tensor, image_spec: torch.Tensor):
+        """netD on the NHWC pair concat(label, image) in the compute dtype."""
+        x = torch.cat([label_spec, image_spec], dim=-1).to(self.dtype)
+        return self.netD(x.permute(0, 3, 1, 2))
+
+    def losses_and_grads(self, batch: Dict[str, torch.Tensor],
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+        """One GAN step's losses, with its grads left in the .grad of every
+        netG_train and netD parameter (set anew, not accumulated).
+        batch: {"label": lr [B, S], "image": hr [B, S]}; the lr mask noise
+        is `noise` or drawn from `generator`.
+
+        G runs forward once. The G losses are differentiated w.r.t. a
+        detached leaf of the G output (torch.autograd.grad, so netD's .grad
+        takes nothing from them) and pulled back through G; the D losses
+        see the detached output. D's forward on the real pair runs once: its
+        detached features are the feature-matching target, and it carries
+        the grad of D_real. So a step runs 1 G and 3 D forwards.
+        Returns (the filtered losses, detached f32 scalars;
+        {"sr": G output [B,F,T,C] f32, "fake_pair": the D input pair})."""
+        cfg = self.cfg
+        use_lsgan = not cfg.no_lsgan
+        with torch.no_grad():
+            lr_spec, _, _ = self.encode_input(batch["label"], noise, generator)
+            hr_spec, _, _ = self.encode_target(batch["image"])
+        for p in (*self.netG_train.parameters(), *self.netD.parameters()):
+            p.grad = None
+        zero = torch.zeros((), device=self.device)
+
+        with self._autocast():
+            g_in = lr_spec.to(self.dtype).permute(0, 3, 1, 2)
+            sr = self.netG_train(g_in).permute(0, 2, 3, 1).float()
+            sr_leaf = sr.detach().requires_grad_(True)
+            pred_real = self.d_apply(lr_spec, hr_spec)
+            pred_fake = self.d_apply(lr_spec, sr_leaf)
+            parts = {"G_GAN": gan_loss(pred_fake, True, use_lsgan),
+                     "G_GAN_Feat": zero, "G_VGG": zero, "G_mat": zero,
+                     "G_GAN_t": zero}
+            if not cfg.no_gan_feat_loss:
+                target = [[f.detach() for f in scale] for scale in pred_real]
+                parts["G_GAN_Feat"] = feature_matching_loss(
+                    pred_fake, target, cfg.n_layers_d, cfg.num_d,
+                    cfg.lambda_feat)
+        g_total = sum(parts[k] for k in ("G_GAN", "G_mat", "G_GAN_Feat",
+                                         "G_VGG", "G_GAN_t"))
+        (sr_bar,) = torch.autograd.grad(g_total, sr_leaf)
+        sr.backward(sr_bar)
+
+        sr_d = sr.detach()
+        with self._autocast():
+            pred_fake = self.d_apply(lr_spec, sr_d)
+            parts["D_fake"] = gan_loss(pred_fake, False, use_lsgan)
+            parts["D_real"] = gan_loss(pred_real, True, use_lsgan)
+            parts["D_fake_t"] = parts["D_real_t"] = zero
+        ((parts["D_fake"] + parts["D_real"]) * 0.5).backward()
+
+        losses = filter_losses({k: v.detach() for k, v in parts.items()},
+                               self.flags)
+        aux = {"sr": sr_d, "fake_pair": torch.cat([lr_spec, sr_d], dim=-1)}
+        return losses, aux

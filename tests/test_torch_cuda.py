@@ -186,6 +186,68 @@ def test_instance_norm_two_pass_route_and_counters(cuda):
         instance_norm_act(_in_input(cuda, (2, 48, 8, 8), "bfloat16").contiguous())
 
 
+# the discriminator's InstanceNorm shapes on a [B, 512, 128, 4] pair
+D_IN_SHAPES = [(129, 33, 128), (65, 17, 256), (66, 18, 512), (65, 17, 128),
+               (33, 9, 256), (34, 10, 512)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hwc,act", [(s, "relu") for s in IN_SHAPES]
+                         + [(s, "leaky") for s in D_IN_SHAPES])
+def test_instance_norm_function_matches_twin_autograd(cuda, hwc, act, dtype):
+    """InstanceNormAct (the kernel forward, the closed-form backward) at
+    every training InstanceNorm shape, batch 2, against the twin
+    (chip_smoke.in_grad_check): y within 1e-5 in f32 and one bf16 ulp in
+    bf16; dx against autograd through the twin within 1e-4 max|dx| in f32,
+    one bf16 ulp (+ that floor) in bf16, in x's dtype and shape; the
+    forward on the one-pass route."""
+    import chip_smoke
+    from pix2pixhdaudiosr_torch.ops.norm import instance_norm_act
+    H, W, C = hwc
+    x = _in_input(cuda, (2, C, H, W), dtype)
+    dy = _in_input(cuda, (2, C, H, W), dtype, seed=9)
+    n1 = instance_norm_act.launches_onepass
+    res = chip_smoke.in_grad_check(x, act, dy)
+    assert instance_norm_act.launches_onepass == n1 + 1
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("C", [2, 4, 64])
+def test_avg_pool_3s2_grad_on_card_matches_cpu(cuda, C):
+    """models/layers.avg_pool_3s2 on a channels_last tensor that requires
+    grad: its output channels_last, and its forward and dx on the card
+    within 1e-6 of the CPU's, for a grad in either layout (PyTorch's own
+    channels_last avg_pool2d backward on CUDA is off by ~max|dx| here)."""
+    from pix2pixhdaudiosr_torch.models.layers import avg_pool_3s2
+    gen = torch.Generator().manual_seed(C)
+    x = torch.randn(2, C, 63, 31, generator=gen)
+    dy = torch.randn(2, C, 32, 16, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda):
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            xx = x.to(dev).contiguous(memory_format=torch.channels_last)
+            xx.requires_grad_(True)
+            y = avg_pool_3s2(xx)
+            assert y.is_contiguous(memory_format=torch.channels_last)
+            y.backward(dy.to(dev).contiguous(memory_format=fmt))
+            out[(str(dev), fmt)] = (y.detach().cpu(), xx.grad.cpu())
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        (y0, g0), (y1, g1) = out[("cpu", fmt)], out[("cuda", fmt)]
+        torch.testing.assert_close(y1, y0, atol=1e-6, rtol=0)
+        torch.testing.assert_close(g1, g0, atol=1e-6, rtol=0)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One make_train_step step of chip_smoke.TOY_TRAIN on the card against
+    the CPU's, f32 with TF32 off (chip_smoke.phase_train_reference: losses
+    within rtol 1e-4, grads within 1e-3 max|g| a leaf, params within
+    2 lr; every InstanceNorm launch one-pass, and 2 MDCT2 launches on the
+    tensor-core route). It raises chip_smoke.SmokeFailure on a miss."""
+    import chip_smoke
+    res = chip_smoke.phase_train_reference("cuda")
+    assert res["in_launches"] == res["in_launches_onepass"] > 0
+
+
 def _ulp_excess(got, want):
     """max of |got - want| - one bf16 ulp (of the larger) - 1e-6 max(1,
     max|want|): <= 0 when every element agrees within one ulp. Near zero

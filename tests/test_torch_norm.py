@@ -43,6 +43,33 @@ def test_plan_takes_every_flagship_shape_one_pass(hwc, B, dtype):
     assert plan.smem_bytes <= norm.SMEM_LIMIT
 
 
+# every distinct (H, W, C) an InstanceNorm of the flagship discriminator sees
+# (scale 1, then scale 0, at a [B, 512, 128, 4] pair): odd planes
+D_IN_SHAPES = [(129, 33, 128), (65, 17, 256), (66, 18, 512), (65, 17, 128),
+               (33, 9, 256), (34, 10, 512)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("hwc", D_IN_SHAPES)
+def test_plan_takes_every_discriminator_shape_one_pass(hwc, B, dtype):
+    """The discriminator's planes (odd H and W, H * W no multiple of any
+    tile or cluster) take the one-pass route under the same rules as the
+    generator's: a cluster of at most 16, a tile of at least one sector
+    that divides C, every block with positions and the last one partial at
+    most, shared memory within the limit."""
+    H, W, C = hwc
+    elem = torch.empty((), dtype=DTYPES[dtype]).element_size()
+    plan = norm.plan_instance_norm(B, H, W, C, DTYPES[dtype])
+    assert plan.route == "onepass"
+    assert 1 <= plan.cluster <= norm.MAX_CLUSTER
+    assert 32 <= plan.tile * elem <= 512 and C % plan.tile == 0
+    assert (plan.cluster - 1) * plan.positions < H * W <= \
+        plan.cluster * plan.positions
+    assert plan.smem_bytes == norm.onepass_smem(plan.positions, plan.tile, elem)
+    assert plan.smem_bytes <= norm.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("shape,dtype", [
     ((1, 1024, 1024, 8), "bfloat16"),   # 16 MB a 16-byte tile: no cluster
     ((2, 512, 512, 48), "float32"),     # 4 MB a 16-byte tile

@@ -367,7 +367,8 @@ def test_jax_free_imports():
         "for m in ('jax', 'flax', 'optax', 'orbax'):\n"
         "    sys.modules[m] = None\n"
         "import pix2pixhdaudiosr_torch as p\n"
-        "import pix2pixhdaudiosr_torch.generate, chip_smoke\n"
+        "import pix2pixhdaudiosr_torch.generate, pix2pixhdaudiosr_torch.train_loop\n"
+        "import chip_smoke\n"
         "for info in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(info.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
