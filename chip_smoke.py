@@ -61,7 +61,8 @@ Phases, each fatal on failure (exit code 1):
      6 discriminator InstanceNorm shapes at batch 64, f32 and bf16: y
      against the twin (1e-5 in f32, one bf16 ulp in bf16) and dx against
      autograd through the twin (1e-4 max|dx| in f32, one bf16 ulp + that
-     floor in bf16); the backward timed a shape;
+     floor in bf16); the backward timed a shape, beside autograd through
+     the twin and through F.instance_norm (the library yardstick);
  10. one train step of a toy config (n_fft 64, LocalEnhancer ngf 4,
      PatchGAN ndf 4), CUDA against CPU in f32: every loss within
      rtol 1e-4; B3's output at each of the step's InstanceNorm inputs
@@ -81,7 +82,29 @@ Phases, each fatal on failure (exit code 1):
      backward and optimizer, with the InstanceNorm backward's share;
  12. the training CLI (python -m pix2pixhdaudiosr_torch.train_loop) at
      flagship width on a synthetic wav corpus: 2 steps at batch 2, then the
-     generate CLI on the latest_net_G.pth it saved.
+     generate CLI on the latest_net_G.pth it saved;
+ 13. the CLIs at their default behaviours, flagship width, on 8 one-second
+     files, FLAC (written by the port's write_flac) and wav: where
+     matplotlib or PIL is missing, the training and generate CLIs without
+     --no_html stop before any work, naming the package and --no_html
+     (checked, and the runs below take --no_html); the training CLI with
+     --validation_split 0.25 --eval_freq 2 --eval_size 0 --display_freq 2
+     --tf_log (3 steps, an eval of one batch after each): eval.csv's 3
+     rows finite, IMDCT2 launched once an eval batch and all on the
+     tensor-core route, InstanceNorm 40 a step + 22 an eval batch (all
+     one-pass), MDCT2 2 a step + 1 an eval batch, an event file, and with
+     the gallery web/index.html; one eval pass and a flagship train state's
+     save and restore timed; a run in a process of its own sent SIGINT
+     after its first loss line (latest and epoch-1 files, iter.txt
+     "2,0"), then --continue_train from it ("Resuming from epoch 2", G
+     equal to the saved one before the first step, the step count going
+     on); 2 steps with --pool_size 2 (InstanceNorm 80 a step) and the
+     pool's host round trip at batch 64; the evaluate CLI on the training
+     run's latest (B1, B2, B3 launches an eval batch); generate without
+     --no_html (the gallery's lable_* images, or the stop);
+ 14. FLAC input's host time: one decode of a 5 s 48 kHz file, a batch of
+     64 segments from one-second FLAC files without the resample cache,
+     with it cold and warm.
 Each phase prints its seconds ([phase] lines).
 The line before the last is {"kernels": [...]} (`launches` from one
 serve forward, `train_launches_per_step` from one flagship train step);
@@ -154,6 +177,17 @@ TRAIN_BATCH = 64
 # a train step's InstanceNorm launches: 22 in G and 6 in each of 3 D
 # forwards; its MDCT2 launches: the lr and the hr encode
 TRAIN_IN_LAUNCHES, TRAIN_MDCT_LAUNCHES = 40, 2
+# the in-training eval's launches a validation batch (trainer.make_eval_step):
+# B3 in G's forward (as a plain serve forward), B1 for the lr encode, B2 for
+# the inverse
+EVAL_IN_LAUNCHES = IN_LAUNCHES["plain"]
+EVAL_MDCT_LAUNCHES, EVAL_IMDCT_LAUNCHES = 1, 1
+# a fake-pool step: g_step and d_step each run 1 G and 3 D forwards
+# (trainer.make_pool_steps, every loss computed by both)
+POOL_IN_LAUNCHES = 2 * TRAIN_IN_LAUNCHES
+# phase 13's corpus: 8 files; a 0.25 validation split keeps 2 for the eval
+# (one batch of 2) and leaves 6, 3 steps at batch 2
+CLI_FILES, CLI_STEPS = 8, 3
 # the CUDA-vs-CPU train step: tests/test_torch_train_step.py's toy config
 # (n_fft 64, 480-sample segments, LocalEnhancer ngf 4, PatchGAN ndf 4), f32
 TOY_SEG = 480
@@ -1053,9 +1087,12 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
     """B3 with its gradient at every training InstanceNorm shape (the
     generator's with relu and none, the discriminator's with leaky), batch
     `batch`, f32 and bf16: y against the twin and dx against autograd
-    through the twin (in_grad_check); every forward on the one-pass route. The closed-form backward is timed in bf16 a
-    shape (CUDA events), beside autograd through the twin."""
+    through the twin (in_grad_check); every forward on the one-pass route.
+    The closed-form backward is timed in bf16 a shape (CUDA events), beside
+    autograd through the twin and, as the library yardstick, autograd
+    through F.instance_norm and the activation."""
     import torch
+    import torch.nn.functional as F
     from pix2pixhdaudiosr_torch.ops import norm
     gen = torch.Generator(device=dev).manual_seed(12)
     fn, rows = norm.instance_norm_act, {}
@@ -1084,14 +1121,35 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
                     row["twin_autograd_ms"] = cuda_ms(
                         lambda: torch.autograd.grad(yr, xr, dy, retain_graph=True),
                         iters=5, warmup=1)
+                    # the library yardstick: autograd through F.instance_norm
+                    # and the activation
+                    yl = norm.activate(F.instance_norm(xr), acts[0])
+                    row["library_backward_ms"] = cuda_ms(
+                        lambda: torch.autograd.grad(yl, xr, dy, retain_graph=True),
+                        iters=5, warmup=1)
                     # reads x, y and dy, writes dx; ~20 f32 operations an element
                     row.update(bound(4 * 2 * x.numel(), 20 * x.numel(), F32_FLOPS))
-                    del y, xr, yr
+                    del y, xr, yr, yl
                 del x, dy
             rows[f"{H}x{W}x{C}"] = row
             print(f"[in grad] {H}x{W}x{C} B={batch}: " + json.dumps(row))
     torch.cuda.empty_cache()
     return rows
+
+
+def in_backward_per_step(in_grad: dict, train: dict) -> dict:
+    """The InstanceNorm backward's times (phase 9, bf16, a shape) summed
+    over one flagship train step's calls (phase 11's launches by shape):
+    the port's plain backward, autograd through F.instance_norm (the
+    library yardstick) and the bound."""
+    out = dict(plain_ms=0.0, library_ms=0.0, bound_ms=0.0, calls=0.0)
+    for shape, calls in train["in_by_shape_per_step"].items():
+        row = in_grad[shape]
+        out["plain_ms"] += calls * row["backward_ms"]
+        out["library_ms"] += calls * row["library_backward_ms"]
+        out["bound_ms"] += calls * row["bound_ms"]
+        out["calls"] += calls
+    return out
 
 
 def norm_fed_biases(net, prefix: str = "") -> set:
@@ -1501,6 +1559,357 @@ def phase_train_cli(dev, counters, wav: str, n_in: int) -> dict:
     return res
 
 
+def synthetic_audio(seconds: float, f0: float, seed: int, rate: int = 48000):
+    """A seeded harmonic tone with noise, f32 in [-1, 1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    x = sum(0.2 / k * np.sin(2 * np.pi * f0 * k * t) for k in range(1, 6))
+    return (x + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def write_cli_corpus(corpus: str, n: int) -> list:
+    """n one-second 48 kHz files, alternately FLAC (the port's write_flac)
+    and wav; returns their paths."""
+    from pix2pixhdaudiosr_torch.data.flac import write_flac
+    from pix2pixhdaudiosr_torch.data.wavio import write_wav
+    os.makedirs(corpus, exist_ok=True)
+    paths = []
+    for i in range(n):
+        x = synthetic_audio(1.0, 150 + 40 * i, i)
+        path = os.path.join(corpus, f"c{i}.{'flac' if i % 2 == 0 else 'wav'}")
+        (write_flac if path.endswith(".flac") else write_wav)(path, x, 48000)
+        paths.append(path)
+    return paths
+
+
+def gallery_missing() -> list:
+    """The HTML gallery's packages that do not import here."""
+    import importlib.util
+    return [m for m in ("matplotlib", "PIL")
+            if importlib.util.find_spec(m) is None]
+
+
+def run_cli(main, argv, counters=None):
+    """main(argv) with its stdout captured (and echoed); every counter in
+    `counters` set to 0 just before. Returns (result, stdout, seconds)."""
+    for fn in (counters or {}).values():
+        reset_counts(fn)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = main(argv)
+    seconds = time.perf_counter() - t0
+    sys.stdout.write(out.getvalue())
+    return res, out.getvalue(), seconds
+
+
+def check_gallery_stop(main, argv, missing) -> str:
+    """A run that wants the gallery stops before any work, naming the
+    missing package and --no_html."""
+    try:
+        main(argv)
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        raise SmokeFailure("a run that wants the gallery did not stop")
+    check(missing[0] in msg and "--no_html" in msg,
+          f"the gallery stop does not name {missing[0]} and --no_html: {msg}")
+    return msg
+
+
+def check_finite_csv(path: str, n_rows: int) -> list:
+    import csv
+    import numpy as np
+    with open(path) as f:
+        rows = [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+    check(len(rows) == n_rows, f"{path}: {len(rows)} rows, expected {n_rows}")
+    check(all(np.isfinite(list(r.values())).all() for r in rows),
+          f"{path}: a row is not finite: {rows}")
+    return rows
+
+
+def sigint_run(argv, expr: str) -> dict:
+    """The training CLI in a process of its own: SIGINT once its first loss
+    line is out, as Ctrl+C would. It must save `latest` and the epoch tag,
+    set iter.txt to the next epoch, and exit 0."""
+    import signal
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "pix2pixhdaudiosr_torch.train_loop",
+         *argv], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    timer = threading.Timer(300, proc.kill)
+    timer.start()
+    lines, sent = [], False
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if not sent and line.startswith("(epoch"):
+                proc.send_signal(signal.SIGINT)
+                sent = True
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        proc.kill()
+    tail = "\n".join(lines[-20:])
+    check(sent and rc == 0, f"the interrupted run: rc {rc}, SIGINT sent "
+          f"{sent}; its output ends:\n{tail}")
+    check("You pressed Ctrl+C!" in lines and any(
+        ln.startswith("exiting and saving the model at epoch 1") for ln in lines),
+        f"the interrupted run printed no save:\n{tail}")
+    for tag in ("latest", "1"):
+        for part in ("net_G", "net_D", "optim"):
+            check(os.path.exists(os.path.join(expr, f"{tag}_{part}.pth")),
+                  f"the interrupted run saved no {tag}_{part}.pth")
+    with open(os.path.join(expr, "iter.txt")) as f:
+        cursor = f.read().strip()
+    check(cursor == "2,0", f"iter.txt after Ctrl+C is {cursor!r}, not '2,0'")
+    return dict(lines=[ln for ln in lines if ln.startswith(("(epoch", "You",
+                                                            "exiting"))],
+                iter_txt=cursor)
+
+
+def phase_cli(dev, counters) -> dict:
+    """The CLIs at their default behaviours, flagship width, on a corpus of
+    FLAC and wav files (write_cli_corpus): see the module docstring, phase
+    13. Every launch count checked is of one run, its counters set to 0
+    just before it."""
+    import numpy as np
+    import torch
+    from pix2pixhdaudiosr_torch import evaluate, generate, train_loop
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+
+    corpus = os.path.join(WORK, "cli_corpus")
+    write_cli_corpus(corpus, CLI_FILES)
+    missing = gallery_missing()
+    res = dict(gallery_missing=missing)
+    common = ["--checkpoints_dir", WORK, "--dataroot", corpus, "--device",
+              dev, *FLAGSHIP, "--batchSize", "2", "--print_freq", "2",
+              "--niter_decay", "0"]
+    one_epoch, two_epochs = ["--niter", "1"], ["--niter", "2"]
+    cadence = ["--validation_split", "0.25", "--eval_freq", "2",
+               "--eval_size", "0", "--display_freq", "2", "--tf_log",
+               "--save_latest_freq", "0", "--save_epoch_freq", "1"]
+    if missing:
+        res["train_stop"] = check_gallery_stop(
+            train_loop.main, ["--name", "nogallery", *common, *one_epoch,
+                              *cadence], missing)
+        print(f"[cli] the gallery's packages are absent here ({missing}): "
+              f"the training run without --no_html stopped with: "
+              f"{res['train_stop']}")
+    html = ["--no_html"] if missing else []
+
+    # training with the eval, display and event cadences every step
+    expr = os.path.join(WORK, "cli")
+    state, out, secs = run_cli(train_loop.main, [
+        "--name", "cli", *common, *one_epoch, *cadence, *html], counters)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    inorm, mdct, imdct = (counters[k] for k in ("instance_norm_act", "mdct2",
+                                                "imdct2"))
+    steps, n_eval = state.step, CLI_STEPS   # one eval batch a step
+    check(steps == CLI_STEPS, f"the training CLI took {steps} steps")
+    rows = check_finite_csv(os.path.join(expr, "eval.csv"), n_eval)
+    check(imdct.launches == imdct.launches_tc == n_eval * EVAL_IMDCT_LAUNCHES,
+          f"IMDCT2: {imdct.launches} launches, {imdct.launches_tc} on the "
+          f"tensor-core route, for {n_eval} eval batches")
+    want_in = steps * TRAIN_IN_LAUNCHES + n_eval * EVAL_IN_LAUNCHES
+    check(inorm.launches == inorm.launches_onepass == want_in,
+          f"InstanceNorm: {inorm.launches} launches ({inorm.launches_onepass}"
+          f" one-pass), expected {want_in}")
+    want_mdct = steps * TRAIN_MDCT_LAUNCHES + n_eval * EVAL_MDCT_LAUNCHES
+    check(mdct.launches == mdct.launches_tc == want_mdct,
+          f"MDCT2: {mdct.launches} launches ({mdct.launches_tc} tensor-core)"
+          f", expected {want_mdct}")
+    events = os.listdir(os.path.join(expr, "logs"))
+    check(any(e.startswith("events.out.tfevents") for e in events),
+          f"--tf_log wrote no event file: {events}")
+    if not missing:
+        check(os.path.exists(os.path.join(expr, "web", "index.html")),
+              "the training run wrote no web/index.html")
+    res["train"] = dict(seconds=secs, steps=steps, launches=launches,
+                        eval_rows=rows)
+
+    # host times: one eval pass, and a flagship train state saved and
+    # restored
+    from pix2pixhdaudiosr_torch.data.dataset import AudioDataset, Loader
+    from pix2pixhdaudiosr_torch.data.filelist import discover_files
+    from pix2pixhdaudiosr_torch.generate import seeded_noise
+    from pix2pixhdaudiosr_torch.trainer import make_eval_step
+    system = state.system
+    files = discover_files(corpus)
+    val = AudioDataset(corpus, 8000, 48000, SEG, files=files[:2])
+    eval_step = make_eval_step(system)
+    noise = seeded_noise(system, 0)
+    t0 = time.perf_counter()
+    train_loop.eval_model(system, eval_step, Loader(val, [0, 1], 2,
+                          shuffle=False, drop_last=False), noise)
+    torch.cuda.synchronize()
+    res["eval_pass_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save_train_state(state, expr, "timing")
+    res["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ckpt.load_train_state(state, "timing", expr)
+    torch.cuda.synchronize()
+    res["restore_s"] = time.perf_counter() - t0
+    want = ({f"G.{k}" for k in system.netG_train.state_dict()}
+            | {f"D.{k}" for k in system.netD.state_dict()} | {"step"})
+    check(want <= loaded, f"the restore missed {sorted(want - loaded)[:5]}")
+    del state, system, eval_step
+    torch.cuda.empty_cache()
+
+    # Ctrl+C, then --continue_train from what it saved
+    iexpr = os.path.join(WORK, "interrupted")
+    plain = ["--validation_split", "0", "--save_latest_freq", "0",
+             "--save_epoch_freq", "0", "--no_html"]
+    res["sigint"] = sigint_run(["--name", "interrupted", *common, *two_epochs,
+                                *plain], iexpr)
+    saved_g = torch.load(os.path.join(iexpr, "latest_net_G.pth"),
+                         weights_only=True)
+    saved_step = torch.load(os.path.join(iexpr, "latest_optim.pth"),
+                            weights_only=True)["step"]
+    first = {}
+    make_step = train_loop.make_train_step
+
+    def hooked(system):
+        step = make_step(system)
+
+        def first_step(state, *args, **kw):
+            if not first:
+                first["equal"] = all(
+                    torch.equal(v.cpu(), saved_g[k]) for k, v in
+                    system.netG_train.state_dict().items())
+                first["step"] = state.step
+            return step(state, *args, **kw)
+        return first_step
+
+    train_loop.make_train_step = hooked
+    try:
+        state, out, secs = run_cli(train_loop.main, [
+            "--name", "interrupted", *common, *two_epochs, *plain,
+            "--continue_train"])
+    finally:
+        train_loop.make_train_step = make_step
+    lines = out.splitlines()
+    check("Resuming from epoch 2 at iteration 0" in lines
+          and "restored checkpoint 'latest'" in lines,
+          "the resumed run did not resume from epoch 2")
+    check(first.get("equal") and first.get("step") == saved_step,
+          f"before its first step the resumed run holds G equal to the saved "
+          f"one: {first.get('equal')}, step {first.get('step')} (saved "
+          f"{saved_step})")
+    per_epoch = CLI_FILES // 2
+    check(state.step == saved_step + per_epoch,
+          f"the resumed run ended at step {state.step}, not {saved_step} + "
+          f"{per_epoch}")
+    res["resume"] = dict(seconds=secs, saved_step=saved_step,
+                         final_step=state.step)
+    del state
+    torch.cuda.empty_cache()
+
+    # the fake pool: 2 steps, each a G step and a D step on the pooled pair
+    state, out, secs = run_cli(train_loop.main, [
+        "--name", "pool", *common, *one_epoch, *plain, "--pool_size", "2",
+        "--max_dataset_size", "4"], counters)
+    check(state.step == 2, f"the pool run took {state.step} steps")
+    check(inorm.launches == inorm.launches_onepass == 2 * POOL_IN_LAUNCHES,
+          f"pool run: {inorm.launches} InstanceNorm launches, expected "
+          f"{2 * POOL_IN_LAUNCHES}")
+    res["pool"] = dict(seconds=secs, launches={k: fn.launches for k, fn
+                                               in counters.items()})
+    del state
+    torch.cuda.empty_cache()
+    res["pool_round_trip_ms"] = pool_round_trip_ms(dev)
+
+    # the evaluate CLI on the training run's latest
+    rows, out, secs = run_cli(evaluate.main, [
+        "--name", "evaluate", "--checkpoints_dir", WORK, "--dataroot", corpus,
+        "--load_pretrain", expr, "--device", dev, *FLAGSHIP, "--batchSize",
+        "2", "--niter", "1"], counters)
+    n_batches = CLI_FILES // 2
+    check(len(rows) == 1 and np.isfinite(list(rows[0].values())).all(),
+          f"evaluate rows {rows}")
+    check_finite_csv(os.path.join(WORK, "evaluate", "eval.csv"), 1)
+    check(imdct.launches == imdct.launches_tc == n_batches * EVAL_IMDCT_LAUNCHES
+          and mdct.launches == mdct.launches_tc == n_batches * EVAL_MDCT_LAUNCHES
+          and inorm.launches == inorm.launches_onepass
+          == n_batches * EVAL_IN_LAUNCHES,
+          f"evaluate launches {[(fn.launches, getattr(fn, 'launches_tc', getattr(fn, 'launches_onepass', None))) for fn in counters.values()]} for {n_batches} batches")
+    res["evaluate"] = dict(seconds=secs, rows=rows, launches={
+        k: fn.launches for k, fn in counters.items()})
+
+    # generate without --no_html
+    wav = os.path.join(corpus, "c1.wav")
+    gen_argv = ["--name", "gallery", "--checkpoints_dir", WORK, "--dataroot",
+                wav, "--load_pretrain", expr, "--batchSize", "16",
+                "--device", dev, *FLAGSHIP]
+    if missing:
+        res["generate_stop"] = check_gallery_stop(generate.main, gen_argv,
+                                                  missing)
+        print(f"[cli] the gallery's packages are absent here ({missing}): "
+              f"generate without --no_html stopped with: "
+              f"{res['generate_stop']}")
+    else:
+        run_cli(generate.main, gen_argv)
+        imgs = os.listdir(os.path.join(WORK, "gallery", "web", "images"))
+        check({"epoch001_lable_spectro.jpg", "epoch001_lable_hist.jpg"}
+              <= set(imgs), f"generate's gallery holds {imgs}")
+    print("[cli] " + json.dumps(res))
+    return res
+
+
+def pool_round_trip_ms(dev, batch: int = TRAIN_BATCH) -> float:
+    """The fake pool's host round trip at the flagship pair [batch, 512, 128,
+    4] f32: device -> host, ImagePool.query (full pool), host -> device."""
+    import torch
+    from pix2pixhdaudiosr_torch.utils.image_pool import ImagePool
+    pair = torch.randn(batch, 512, 128, 4, device=dev)
+    pool = ImagePool(batch, 0)
+    pool.query(pair.cpu().numpy())           # fills the pool
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = torch.from_numpy(pool.query(pair.cpu().numpy())).to(dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del pair, back
+    return min(times)
+
+
+def phase_flac() -> dict:
+    """Host time of FLAC input (data/flac.py, pure Python): one decode of a
+    5 s 48 kHz file, and one flagship batch (TRAIN_BATCH segments) from a
+    corpus of one-second FLAC files, without the resample cache, with it
+    cold and with it warm."""
+    from pix2pixhdaudiosr_torch.data.dataset import AudioDataset, Loader
+    from pix2pixhdaudiosr_torch.data.flac import read_flac, write_flac
+    corpus = os.path.join(WORK, "flac_corpus")
+    os.makedirs(corpus)
+    five = os.path.join(WORK, "five.flac")
+    write_flac(five, synthetic_audio(5.0, 220, 0), 48000)
+    t0 = time.perf_counter()
+    wav, rate = read_flac(five)
+    res = dict(decode_5s_s=time.perf_counter() - t0)
+    check(rate == 48000 and wav.shape == (1, 240000), f"{wav.shape} at {rate}")
+    one = os.path.join(corpus, "f0.flac")
+    write_flac(one, synthetic_audio(1.0, 330, 1), 48000)
+    for i in range(1, TRAIN_BATCH):    # the same bytes, TRAIN_BATCH files
+        shutil.copy(one, os.path.join(corpus, f"f{i}.flac"))
+    for name, cache in (("batch_no_cache_s", None),
+                        ("batch_cold_cache_s", os.path.join(WORK, "cache")),
+                        ("batch_warm_cache_s", os.path.join(WORK, "cache"))):
+        ds = AudioDataset(corpus, 8000, 48000, SEG, cache_dir=cache)
+        loader = Loader(ds, range(len(ds)), TRAIN_BATCH, shuffle=False)
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        res[name] = time.perf_counter() - t0
+        check(batch["image"].shape == (TRAIN_BATCH, SEG), "FLAC batch shape")
+    print("[flac] " + json.dumps(res))
+    return res
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1585,6 +1994,10 @@ def main() -> int:
         train = timed("train step", phase_train_step, dev, all_counters)
         train_cli = timed("train cli", phase_train_cli, dev, counters, wav,
                           n_in)
+        in_bwd = in_backward_per_step(in_grad, train)
+        print("[in grad] a train step's calls: " + json.dumps(in_bwd))
+        cli = timed("cli", phase_cli, dev, counters)
+        flac = timed("flac", phase_flac)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -1612,6 +2025,7 @@ def main() -> int:
         fused_vs_plain=fused_err, quant_vs_plain=quant_err, serve=serve,
         sizes=sizes, b3_per_shape=b3, in_grad=in_grad,
         train_reference=train_ref, train_step=train, train_cli=train_cli,
+        in_backward_per_step=in_bwd, cli=cli, flac=flac,
         phase_seconds=phase_s)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

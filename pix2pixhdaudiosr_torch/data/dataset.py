@@ -13,7 +13,8 @@ imports jax):
   * Loader: batches of dataset indices, decoded by a few threads, prefetched
     and delivered in order.
 Resampling is the numpy polyphase `resample_np`; the JAX package's native
-resampler (runtime/native_audio.py) is not ported (ROADMAP A8).
+resampler (runtime/native_audio.py) is not ported: PERF.md §3 has the
+input pipeline's host times.
 """
 
 from __future__ import annotations

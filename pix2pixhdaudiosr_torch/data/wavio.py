@@ -2,7 +2,7 @@
 
 Copied from pix2pixhdaudiosr_tpu/data/wavio.py (that package's `data`
 imports jax): a RIFF/WAVE parser for PCM 8/16/24/32 and float32/64, and a
-PCM16 writer. FLAC input comes with the rest of serving (ROADMAP A5).
+PCM16 writer. `.flac` files decode through data/flac.py.
 """
 
 from __future__ import annotations
@@ -27,6 +27,11 @@ class WavInfo:
 
 
 def wav_info(path: str) -> WavInfo:
+    if os.path.splitext(path)[1].lower() == ".flac":
+        from .flac import flac_info
+        fi = flac_info(path)
+        return WavInfo(fi.sample_rate, fi.num_frames, fi.num_channels,
+                       fi.bits_per_sample, 1, fi.data_offset)
     with open(path, "rb") as f:
         riff = f.read(12)
         if len(riff) < 12 or riff[:4] != b"RIFF" or riff[8:12] != b"WAVE":
@@ -83,10 +88,13 @@ def read_wav(path: str, frame_offset: int = 0,
     only the frames asked for: `num_frames` (all if None) from
     `frame_offset`, clipped to the file."""
     ext = os.path.splitext(path)[1].lower()
+    if ext == ".flac":
+        from .flac import read_flac
+        return read_flac(path, frame_offset=frame_offset,
+                         num_frames=num_frames)
     if ext != ".wav":
-        raise ValueError(f"{ext} input is not supported by the torch port yet "
-                         f"(FLAC comes with the rest of serving, ROADMAP A5); "
-                         f"convert {path} to .wav")
+        raise ValueError(f"{ext} input is not supported; convert {path} to "
+                         f".wav or .flac")
     info = wav_info(path)
     bpf = info.num_channels * (info.bits_per_sample // 8)
     start = min(max(frame_offset, 0), info.num_frames)

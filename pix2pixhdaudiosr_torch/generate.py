@@ -4,7 +4,8 @@ Port of the chunked path of pix2pixhdaudiosr_tpu/generate.py:112-247: load
 ONE wav, resample down and up (or only up with --is_lr_input), chop it into
 segments, run batches through encode + generator + the eval IMDCT, scale by
 sqrt(up_ratio - 1), score MSE/SNR/LSD/SSNR against the raw input, and write
-metric.txt and the sr/lr/hr wavs into checkpoints_dir/name/.
+metric.txt, the sr/lr/hr wavs and, unless --no_html, the gallery of the lr
+and sr spectrograms (web/index.html) into checkpoints_dir/name/.
 
     python -m pix2pixhdaudiosr_torch.generate <the JAX CLI's flags> \
         [--device cuda|cpu]
@@ -29,6 +30,8 @@ from .metrics import compute_metrics, segmental_snr
 from .ops.quant import dequantize_state_dict, quantize_state_dict
 from .system import Pix2PixHDSystem
 from .utils.checkpoint import generator_path, load_generator
+from .utils.spectro_img import compute_visuals
+from .utils.visualizer import Visualizer
 
 # (condition on the config, what it asks for, the ROADMAP item that brings it)
 _NOT_YET = (
@@ -36,8 +39,6 @@ _NOT_YET = (
     (lambda c: c.tp_shards > 1, "--tp_shards > 1", "parallel modes, ROADMAP A11"),
     (lambda c: c.use_features or c.net_g == "encoder",
      "feature-encoder configs", "optional nets, ROADMAP A9"),
-    (lambda c: not c.no_html, "the HTML gallery (pass --no_html)",
-     "the rest of serving, ROADMAP A5"),
 )
 
 
@@ -97,6 +98,29 @@ def generate_segments(system: Pix2PixHDSystem, segments: np.ndarray,
     return np.sqrt(cfg.up_ratio - 1) * np.concatenate(outs, 0).reshape(-1)
 
 
+@torch.no_grad()
+def write_gallery(system: Pix2PixHDSystem, visualizer: Visualizer,
+                  lr_audio: np.ndarray, sr_audio: np.ndarray) -> None:
+    """The lr input (masked, mask noise seeded with cfg.seed) and the sr
+    output re-encoded whole, their channel-mean magnitudes rendered with
+    abs=True, written as the gallery's epoch 1 under the JAX package's
+    labels (`lable_*` included, pix2pixhdaudiosr_tpu/generate.py:223-236)."""
+    dev = system.device
+    gen = torch.Generator(device=dev).manual_seed(system.cfg.seed)
+    wav = [torch.from_numpy(np.asarray(a, np.float32)[None]).to(dev)
+           for a in (lr_audio, sr_audio)]
+    specs = (system.encode_input(wav[0], generator=gen)[0],
+             system.encode_target(wav[1])[0])
+    mags = [(0.5 * (s[0, :, :, 0] + s[0, :, :, 1])
+             if system.cfg.explicit_encoding else s[0, :, :, 0]).cpu().numpy()
+            for s in specs]
+    lr_img, lr_hist, _ = compute_visuals(sp=mags[0], abs=True)
+    sr_img, sr_hist, _ = compute_visuals(sp=mags[1], abs=True)
+    visualizer.display_current_results(
+        {"lable_spectro": lr_img, "generated_spectro": sr_img,
+         "lable_hist": lr_hist, "generated_hist": sr_hist}, 1, 1)
+
+
 def load_system(cfg, device: torch.device) -> Pix2PixHDSystem:
     """Build the system and load the generator of cfg's checkpoint tag; the
     weights are cast once to the compute dtype (the JAX package pre-casts
@@ -128,6 +152,9 @@ def main(argv=None) -> np.ndarray:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.benchmark = True
+    # the gallery is on unless --no_html; stops here if its packages are
+    # missing
+    visualizer = Visualizer(cfg.replace(is_train=True))
 
     ds = AudioTestDataset(cfg.dataroot, cfg.lr_sampling_rate,
                           cfg.hr_sampling_rate, cfg.segment_length,
@@ -154,7 +181,9 @@ def main(argv=None) -> np.ndarray:
     print("LSD: %.4f" % lsd)
     print("SSNR: %.4f" % segmental_snr(ds.raw_audio[:n], audio[:n]))
 
-    os.makedirs(cfg.expr_dir, exist_ok=True)
+    if visualizer.use_html:
+        write_gallery(system, visualizer, ds.lr_audio, audio)
+
     with open(os.path.join(cfg.expr_dir, "metric.txt"), "w") as f:
         f.write("MSE,SNR_SR,LSD\n")
         f.write("%f,%f,%f" % (mse, snr_sr, lsd))

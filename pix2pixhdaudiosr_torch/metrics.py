@@ -3,12 +3,14 @@
 Port of pix2pixhdaudiosr_tpu/metrics.py:26-99: sr renormalized to the hr
 mean/std, SNR in dB for sr and lr against hr, LSD from the log10 power STFT
 at 2x the model's n_fft/hop/win with a kbd window, and the numpy segmental
-SNR that fills the reference's dead SSNR slots.
+SNR that fills the reference's dead SSNR slots; `append_csv_row` writes
+the eval.csv rows of the training and evaluate CLIs.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import csv
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -75,3 +77,12 @@ def segmental_snr(hr_audio, sr_audio, frame_length: int = 1536,
         return 0.0
     snr = 10 * np.log10((sig + 1e-12) / (err + 1e-12))
     return float(np.mean(np.clip(snr[active], min_db, max_db)))
+
+
+def append_csv_row(path: str, row: Dict[str, float]) -> None:
+    """Append one row to a csv file, with a header line if it is empty."""
+    with open(path, "a") as f:
+        w = csv.DictWriter(f, fieldnames=row.keys())
+        if f.tell() == 0:
+            w.writeheader()
+        w.writerow(row)

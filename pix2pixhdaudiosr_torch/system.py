@@ -2,8 +2,9 @@
 
 Port of pix2pixhdaudiosr_tpu/system.py: `frames_for`, `n_frames`,
 `spectro_shape` (:51-138), `encode_input` (:170-185), `losses_and_grads`
-(:208-369) for the flagship's losses (LSGAN and feature matching) and
-`inference` (:371-383). Nets are nn.Modules that hold their weights (the
+(:208-351) for the flagship's losses (LSGAN and feature matching) with the
+fake pool's pooled pair, `_visual_slices` (:353-369) and `inference`
+(:371-383). Nets are nn.Modules that hold their weights (the
 JAX package passes param trees); they run in the compute dtype, on a
 channels_last view of the NHWC spectrogram.
 
@@ -13,7 +14,8 @@ and `--int8_trunk`, whose kernels have no backward. A training system
 differentiates, sharing netG's parameter tensors (netG itself when neither
 flag is set), and `netD`; the JAX package's pair is netG / netG_infer.
 Training keeps f32 parameters and computes in the compute dtype under
-autocast, as flax's dtype=bf16 modules do from f32 params.
+autocast, as flax's dtype=bf16 modules do from f32 params; so does
+`inference` on a training system (the in-training eval).
 """
 
 from __future__ import annotations
@@ -38,8 +40,6 @@ NOT_YET_TRAIN = (
      "feature-encoder configs (netE)", "optional nets, ROADMAP A9"),
     (lambda c: bool(c.remat_g), "--remat_g", "memory knobs, ROADMAP A12"),
     (lambda c: c.adam_mu_bf16, "--adam_mu_bf16", "memory knobs, ROADMAP A12"),
-    (lambda c: c.pool_size > 0, "--pool_size > 0 (the fake pool)",
-     "the rest of the train loop, ROADMAP A8"),
 )
 
 
@@ -150,10 +150,12 @@ class Pix2PixHDSystem:
                   generator: Optional[torch.Generator] = None):
         """[B, S] lr waveform -> (sr_spectro f32 [B,F,T,C], lr_pha,
         lr_norm_param, lr_spectro). The G input is cast to the compute
-        dtype and the G output to f32, as in the JAX package."""
+        dtype and the G output to f32, as in the JAX package; a training
+        system's G (f32 parameters) runs under autocast."""
         lr_spec, lr_pha, lr_norm = self.encode_input(lr_audio, noise, generator)
         g_in = lr_spec.to(self.dtype).permute(0, 3, 1, 2)  # channels_last view
-        sr = self.netG(g_in).permute(0, 2, 3, 1).float()
+        with self._autocast() if self.cfg.is_train else contextlib.nullcontext():
+            sr = self.netG(g_in).permute(0, 2, 3, 1).float()
         return sr, lr_pha, lr_norm, lr_spec
 
     # ------------------------------------------------------------------
@@ -169,58 +171,95 @@ class Pix2PixHDSystem:
 
     def losses_and_grads(self, batch: Dict[str, torch.Tensor],
                          noise: Optional[torch.Tensor] = None,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         pooled_fake: Optional[torch.Tensor] = None,
+                         with_visuals: bool = False,
+                         grads: Tuple[str, ...] = ("G", "D")
                          ) -> Tuple[Dict[str, torch.Tensor], Dict]:
-        """One GAN step's losses, with its grads left in the .grad of every
-        netG_train and netD parameter (set anew, not accumulated).
+        """One GAN step's losses, with the grads of the nets named in
+        `grads` left in the .grad of their parameters (netG_train for "G",
+        netD for "D"; set anew, not accumulated; every other .grad is None).
         batch: {"label": lr [B, S], "image": hr [B, S]}; the lr mask noise
-        is `noise` or drawn from `generator`.
+        is `noise` or drawn from `generator`. D's fake term runs on
+        `pooled_fake` ([B, F, T, 2C], the fake pool's pairs) where one is
+        given, else on the pair of this step's G output.
 
-        G runs forward once. The G losses are differentiated w.r.t. a
-        detached leaf of the G output (torch.autograd.grad, so netD's .grad
-        takes nothing from them) and pulled back through G; the D losses
-        see the detached output. D's forward on the real pair runs once: its
-        detached features are the feature-matching target, and it carries
-        the grad of D_real. So a step runs 1 G and 3 D forwards.
+        Every loss is computed whatever `grads` holds, as in the JAX
+        package, whose pool steps differentiate one net each and return
+        all the losses. G runs forward once. The G losses are
+        differentiated w.r.t. a detached leaf of the G output
+        (torch.autograd.grad, so netD's .grad takes nothing from them) and
+        pulled back through G; the D losses see the detached output. D's
+        forward on the real pair runs once: its detached features are the
+        feature-matching target, and it carries the grad of D_real. So a
+        step runs 1 G and 3 D forwards.
         Returns (the filtered losses, detached f32 scalars;
-        {"sr": G output [B,F,T,C] f32, "fake_pair": the D input pair})."""
+        {"sr": G output [B,F,T,C] f32, "fake_pair": the D input pair of
+        this step's G output, and with `with_visuals` "visuals":
+        visual_slices' first-sample [F, T] arrays})."""
         cfg = self.cfg
         use_lsgan = not cfg.no_lsgan
+        train_g, train_d = "G" in grads, "D" in grads
         with torch.no_grad():
             lr_spec, _, _ = self.encode_input(batch["label"], noise, generator)
-            hr_spec, _, _ = self.encode_target(batch["image"])
+            hr_spec, hr_pha, _ = self.encode_target(batch["image"])
         for p in (*self.netG_train.parameters(), *self.netD.parameters()):
             p.grad = None
         zero = torch.zeros((), device=self.device)
 
         with self._autocast():
             g_in = lr_spec.to(self.dtype).permute(0, 3, 1, 2)
-            sr = self.netG_train(g_in).permute(0, 2, 3, 1).float()
-            sr_leaf = sr.detach().requires_grad_(True)
-            pred_real = self.d_apply(lr_spec, hr_spec)
-            pred_fake = self.d_apply(lr_spec, sr_leaf)
-            parts = {"G_GAN": gan_loss(pred_fake, True, use_lsgan),
-                     "G_GAN_Feat": zero, "G_VGG": zero, "G_mat": zero,
-                     "G_GAN_t": zero}
-            if not cfg.no_gan_feat_loss:
-                target = [[f.detach() for f in scale] for scale in pred_real]
-                parts["G_GAN_Feat"] = feature_matching_loss(
-                    pred_fake, target, cfg.n_layers_d, cfg.num_d,
-                    cfg.lambda_feat)
-        g_total = sum(parts[k] for k in ("G_GAN", "G_mat", "G_GAN_Feat",
-                                         "G_VGG", "G_GAN_t"))
-        (sr_bar,) = torch.autograd.grad(g_total, sr_leaf)
-        sr.backward(sr_bar)
+            with torch.set_grad_enabled(train_g):
+                sr = self.netG_train(g_in).permute(0, 2, 3, 1).float()
+            sr_leaf = sr.detach().requires_grad_(train_g)
+            with torch.set_grad_enabled(train_d):
+                pred_real = self.d_apply(lr_spec, hr_spec)
+            with torch.set_grad_enabled(train_g):
+                pred_fake = self.d_apply(lr_spec, sr_leaf)
+                parts = {"G_GAN": gan_loss(pred_fake, True, use_lsgan),
+                         "G_GAN_Feat": zero, "G_VGG": zero, "G_mat": zero,
+                         "G_GAN_t": zero}
+                if not cfg.no_gan_feat_loss:
+                    target = [[f.detach() for f in scale] for scale in pred_real]
+                    parts["G_GAN_Feat"] = feature_matching_loss(
+                        pred_fake, target, cfg.n_layers_d, cfg.num_d,
+                        cfg.lambda_feat)
+        if train_g:
+            g_total = sum(parts[k] for k in ("G_GAN", "G_mat", "G_GAN_Feat",
+                                             "G_VGG", "G_GAN_t"))
+            (sr_bar,) = torch.autograd.grad(g_total, sr_leaf)
+            sr.backward(sr_bar)
 
         sr_d = sr.detach()
-        with self._autocast():
-            pred_fake = self.d_apply(lr_spec, sr_d)
+        fake_pair = torch.cat([lr_spec, sr_d], dim=-1)
+        with self._autocast(), torch.set_grad_enabled(train_d):
+            d_in = fake_pair if pooled_fake is None else pooled_fake
+            pred_fake = self.netD(d_in.to(self.dtype).permute(0, 3, 1, 2))
             parts["D_fake"] = gan_loss(pred_fake, False, use_lsgan)
             parts["D_real"] = gan_loss(pred_real, True, use_lsgan)
             parts["D_fake_t"] = parts["D_real_t"] = zero
-        ((parts["D_fake"] + parts["D_real"]) * 0.5).backward()
+        if train_d:
+            ((parts["D_fake"] + parts["D_real"]) * 0.5).backward()
 
         losses = filter_losses({k: v.detach() for k, v in parts.items()},
                                self.flags)
-        aux = {"sr": sr_d, "fake_pair": torch.cat([lr_spec, sr_d], dim=-1)}
+        aux = {"sr": sr_d, "fake_pair": fake_pair}
+        if with_visuals:
+            aux["visuals"] = self.visual_slices(lr_spec, sr_d, hr_spec, hr_pha)
         return losses, aux
+
+    def visual_slices(self, lr_spec: torch.Tensor, sr: torch.Tensor,
+                      hr_spec: torch.Tensor, hr_pha: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """First-sample [F, T] visual tensors: the channel-mean magnitudes of
+        lr, sr and hr, and with explicit encoding the sr pseudo-phase
+        sign(sr0 - sr1), the hr phase and their difference."""
+        if not self.cfg.explicit_encoding:
+            return {"label": lr_spec[0, :, :, 0], "generated": sr[0, :, :, 0],
+                    "real": hr_spec[0, :, :, 0]}
+        sr_pha = torch.sign(sr[0, :, :, 0] - sr[0, :, :, 1])
+        return {"label": 0.5 * (lr_spec[0, :, :, 0] + lr_spec[0, :, :, 1]),
+                "generated": 0.5 * (sr[0, :, :, 0] + sr[0, :, :, 1]),
+                "real": 0.5 * (hr_spec[0, :, :, 0] + hr_spec[0, :, :, 1]),
+                "label_pha": hr_pha[0] - sr_pha, "generated_pha": sr_pha,
+                "real_pha": hr_pha[0]}

@@ -1,14 +1,16 @@
-"""Two-optimizer GAN training: state, optimizers and the train step.
+"""Two-optimizer GAN training: state, optimizers, the train step, the fake
+pool's split steps and the eval step.
 
-Port of pix2pixhdaudiosr_tpu/trainer.py:35-137: Adam(lr, beta1, 0.999) for
-G and for D from one forward pass (`make_train_step`), the learning rate
-set on both for the linear decay (`set_learning_rate`), and the
+Port of pix2pixhdaudiosr_tpu/trainer.py: Adam(lr, beta1, 0.999) for G and
+for D from one forward pass (`make_train_step`, :98-137), the learning
+rate set on both for the linear decay (`set_learning_rate`), the
 `niter_fix_global` phase, which zeroes every non-enhancer G grad (so a
 fresh Adam leaves those weights where they are) until `reset_opt_g`
-starts a new G optimizer. Parameters and Adam moments are f32; the step
-computes in the compute dtype (system.py). The state is mutated in place,
-where the JAX step returns a new one. The fake pool
-(`make_pool_steps`, utils/image_pool.py) comes with ROADMAP A8.
+starts a new G optimizer, the fake pool's G and D steps
+(`make_pool_steps`, :140-177) and the in-training eval's inference and
+inverse (`make_eval_step`, :180-191). Parameters and Adam moments are f32;
+the step computes in the compute dtype (system.py). The state is mutated
+in place, where the JAX step returns a new one.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .models.generator import init_normal_
@@ -81,11 +84,19 @@ def _mask_fixed_global(net_g: torch.nn.Module) -> None:
                 p.grad.zero_()
 
 
+def _split_rng(rng):
+    """(generator, noise): a train step's mask noise is a tensor, or a
+    torch.Generator to draw it from."""
+    if isinstance(rng, torch.Generator):
+        return rng, None
+    return None, rng
+
+
 def make_train_step(system: Pix2PixHDSystem):
     """The train step:
 
-        step(state, batch, rng, pooled_fake=None, fix_global=False)
-            -> (losses, aux)
+        step(state, batch, rng, pooled_fake=None, fix_global=False,
+             with_visuals=False) -> (losses, aux)
 
     batch: {"label": lr [B, S], "image": hr [B, S]} on the system's device;
     rng: the lr mask noise as a tensor, or a torch.Generator to draw it
@@ -94,14 +105,11 @@ def make_train_step(system: Pix2PixHDSystem):
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              rng: Union[torch.Generator, torch.Tensor, None] = None,
              pooled_fake: Optional[torch.Tensor] = None,
-             fix_global: bool = False):
-        if pooled_fake is not None:
-            raise NotImplementedError("the fake pool is not ported yet; it "
-                                      "comes with ROADMAP A8")
-        gen = rng if isinstance(rng, torch.Generator) else None
-        noise = None if gen is not None else rng
-        losses, aux = system.losses_and_grads(batch, noise=noise,
-                                              generator=gen)
+             fix_global: bool = False, with_visuals: bool = False):
+        gen, noise = _split_rng(rng)
+        losses, aux = system.losses_and_grads(
+            batch, noise=noise, generator=gen, pooled_fake=pooled_fake,
+            with_visuals=with_visuals)
         if fix_global:
             _mask_fixed_global(system.netG_train)
         state.opt_g.step()
@@ -110,3 +118,58 @@ def make_train_step(system: Pix2PixHDSystem):
         return losses, aux
 
     return step
+
+
+def make_pool_steps(system: Pix2PixHDSystem):
+    """The fake pool's split steps (`--pool_size > 0`):
+
+        g_step(state, batch, rng, fix_global=False, with_visuals=False)
+            -> (losses, aux)      updates G; aux["fake_pair"] feeds the pool
+        d_step(state, batch, rng, pooled_fake) -> losses
+                                  updates D against the pooled pair
+
+    Both must see the same mask noise: give each the same tensor, or a
+    generator seeded alike. Each returns every loss, as the JAX steps do
+    (d_step's G losses come from the G that g_step has just updated); each
+    differentiates only the net it updates. `state.step` counts d_steps."""
+    def g_step(state: TrainState, batch, rng, fix_global: bool = False,
+               with_visuals: bool = False):
+        gen, noise = _split_rng(rng)
+        losses, aux = system.losses_and_grads(
+            batch, noise=noise, generator=gen, with_visuals=with_visuals,
+            grads=("G",))
+        if fix_global:
+            _mask_fixed_global(system.netG_train)
+        state.opt_g.step()
+        return losses, aux
+
+    def d_step(state: TrainState, batch, rng, pooled_fake: torch.Tensor):
+        gen, noise = _split_rng(rng)
+        losses, _ = system.losses_and_grads(
+            batch, noise=noise, generator=gen, pooled_fake=pooled_fake,
+            grads=("D",))
+        state.opt_d.step()
+        state.step += 1
+        return losses
+
+    return g_step, d_step
+
+
+def make_eval_step(system: Pix2PixHDSystem):
+    """The in-training eval's inference and inverse:
+
+        eval_step(lr_audio, rng) -> (sr_audio [B, segment_length], sr_spectro)
+
+    rng: the mask noise or a generator, as for the train step. The
+    spectrogram goes to imdct_eval as G gives it (no abs, unlike the
+    generate CLI), and the waveform is scaled by sqrt(up_ratio - 1)."""
+    scale = float(np.sqrt(system.cfg.up_ratio - 1).astype(np.float32))
+
+    @torch.no_grad()
+    def eval_step(lr_audio: torch.Tensor, rng=None):
+        gen, noise = _split_rng(rng)
+        sr_spec, lr_pha, lr_norm, _ = system.inference(lr_audio, noise, gen)
+        sr_audio = system.codec.imdct_eval(sr_spec, lr_pha, lr_norm, gen)
+        return scale * sr_audio, sr_spec
+
+    return eval_step

@@ -5,15 +5,19 @@ tag `<which_epoch>` lives at `<load_pretrain or expr_dir>/<which_epoch>_net_G.pt
 Keys follow models/generator.py (the flax tree's names); a JAX checkpoint
 is converted with tools/export_torch_generator.py. A training run saves,
 per tag, `<tag>_net_G.pth` (what generate loads), `<tag>_net_D.pth` and
-`<tag>_optim.pth` (both Adams' state_dicts and the step count), and the
-resume cursor `iter.txt` ("epoch,epoch_iter"), as
-pix2pixhdaudiosr_tpu/utils/checkpoint.py:76-122 keeps its tags. Resuming
-(--continue_train) comes with ROADMAP A8.
+`<tag>_optim.pth` (both Adams' state by parameter name, their learning
+rates and the step count), all on the CPU, and the resume cursor
+`iter.txt` ("epoch,epoch_iter"), as
+pix2pixhdaudiosr_tpu/utils/checkpoint.py:76-122 keeps its tags.
+`load_train_state` merges a tag back as that module's `merge_matching`
+(:26-72) does: every saved leaf whose name exists in the target with the
+same shape is taken, every other target leaf is kept.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Dict, Set, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,19 +44,112 @@ def load_generator(net: nn.Module, cfg) -> nn.Module:
     return net
 
 
+def _param_names(opt: torch.optim.Optimizer, net: nn.Module):
+    """The name in `net` of each parameter `opt` steps, in its order."""
+    names = {id(p): n for n, p in net.named_parameters()}
+    return [names[id(p)] for group in opt.param_groups for p in group["params"]]
+
+
+def _named_adam(opt: torch.optim.Optimizer, net: nn.Module) -> Dict:
+    """An Adam's per-parameter state keyed by parameter name, on the CPU."""
+    sd = opt.state_dict()
+    names = _param_names(opt, net)
+    return {"state": {names[i]: {k: v.detach().cpu() if torch.is_tensor(v)
+                                 else v for k, v in s.items()}
+                      for i, s in sd["state"].items()},
+            "lr": opt.param_groups[0]["lr"]}
+
+
 def save_train_state(state, expr_dir: str, tag: str = "latest") -> str:
-    """Write tag's net_G and net_D files (state_dicts on the CPU) and optim
-    file (both Adams' state_dicts as they are, and the step) of a
-    trainer.TrainState into expr_dir; returns the net_G path."""
+    """Write tag's net_G and net_D files (state_dicts) and optim file (both
+    Adams' state by parameter name, their learning rates, and the step) of
+    a trainer.TrainState into expr_dir, every tensor on the CPU; returns
+    the net_G path."""
     system = state.system
     save_generator(system.netD, os.path.join(expr_dir, f"{tag}_net_D.pth"))
-    torch.save({"G": state.opt_g.state_dict(), "D": state.opt_d.state_dict(),
+    torch.save({"G": _named_adam(state.opt_g, system.netG_train),
+                "D": _named_adam(state.opt_d, system.netD),
                 "step": state.step},
                os.path.join(expr_dir, f"{tag}_optim.pth"))
     return save_generator(system.netG_train,
                           os.path.join(expr_dir, f"{tag}_net_G.pth"))
 
 
+def _load(path: str):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+@torch.no_grad()
+def _merge_net(net: nn.Module, saved: Dict[str, torch.Tensor]) -> Set[str]:
+    loaded = set()
+    for name, t in net.state_dict().items():
+        if name in saved and saved[name].shape == t.shape:
+            t.copy_(saved[name])
+            loaded.add(name)
+    return loaded
+
+
+def _merge_adam(opt: torch.optim.Optimizer, net: nn.Module,
+                saved: Dict) -> Set[str]:
+    names = _param_names(opt, net)
+    params = [p for group in opt.param_groups for p in group["params"]]
+    sd = opt.state_dict()
+    loaded = set()
+    for i, (name, p) in enumerate(zip(names, params)):
+        s = saved["state"].get(name)
+        if s is not None and all(v.shape == p.shape for k, v in s.items()
+                                 if k != "step"):
+            sd["state"][i] = s
+            loaded.add(name)
+    for group in sd["param_groups"]:
+        group["lr"] = saved["lr"]
+    opt.load_state_dict(sd)  # moves the moments to each parameter's device
+    return loaded
+
+
+def has(tag: str, expr_dir: str) -> bool:
+    """Whether expr_dir holds tag's generator (`<tag>_net_G.pth`)."""
+    return os.path.exists(os.path.join(expr_dir, f"{tag}_net_G.pth"))
+
+
+def load_train_state(state, tag: str, expr_dir: str) -> Set[str]:
+    """Merge tag's files in expr_dir into a trainer.TrainState in place:
+    every saved tensor whose name exists in the target with the same shape
+    (G and D weights; Adam moments, by parameter name), the learning rates
+    and the step where the optim file exists. A missing net_D or optim
+    file leaves that part as it is; a missing net_G raises
+    FileNotFoundError. Returns the names loaded: "G.<param>",
+    "D.<param>", "opt_g.<param>", "opt_d.<param>" and "step"."""
+    system = state.system
+    path = os.path.join(expr_dir, f"{tag}_net_G.pth")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no generator checkpoint at {path}")
+    loaded = {f"G.{n}" for n in _merge_net(system.netG_train, _load(path))}
+    path = os.path.join(expr_dir, f"{tag}_net_D.pth")
+    if os.path.exists(path):
+        loaded |= {f"D.{n}" for n in _merge_net(system.netD, _load(path))}
+    path = os.path.join(expr_dir, f"{tag}_optim.pth")
+    if os.path.exists(path):
+        saved = _load(path)
+        for key, opt, net in (("G", state.opt_g, system.netG_train),
+                              ("D", state.opt_d, system.netD)):
+            loaded |= {f"opt_{key.lower()}.{n}"
+                       for n in _merge_adam(opt, net, saved[key])}
+        state.step = int(saved["step"])
+        loaded.add("step")
+    return loaded
+
+
 def save_iter(expr_dir: str, epoch: int, epoch_iter: int) -> None:
     with open(os.path.join(expr_dir, "iter.txt"), "w") as f:
         f.write(f"{epoch},{epoch_iter}\n")
+
+
+def load_iter(expr_dir: str) -> Tuple[int, int]:
+    """The resume cursor (epoch, epoch_iter); (1, 0) on any failure."""
+    try:
+        with open(os.path.join(expr_dir, "iter.txt")) as f:
+            a, b = f.read().strip().split(",")
+        return int(a), int(b)
+    except (OSError, ValueError):
+        return 1, 0

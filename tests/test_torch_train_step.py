@@ -321,7 +321,6 @@ def test_training_g_is_plain_and_shares_the_serving_weights():
     (["--instance_feat"], "A9"),
     (["--remat_g", "full"], "A12"),
     (["--adam_mu_bf16"], "A12"),
-    (["--pool_size", "4"], "A8"),
 ])
 def test_unported_training_options_raise(extra, item):
     cfg = parse_config(TOY + extra, is_train=True, save=False)
@@ -330,21 +329,13 @@ def test_unported_training_options_raise(extra, item):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--continue_train"], "A8"),
-    (["--load_pretrain", "somewhere"], "A8"),
-    (["--validation_split", "0.5", "--eval_freq", "10"], "A8"),
-    (["--tf_log"], "A8"),
-    ([], "A8"),               # without --no_html: the HTML gallery
     (["--fsdp"], "A11"),
     (["--use_time_D"], "A9"),
 ])
 def test_train_loop_refuses_unported_options(tmp_path, extra, item):
     argv = TOY + ["--name", "run", "--checkpoints_dir", str(tmp_path),
-                  "--dataroot", str(tmp_path), "--device", "cpu", *extra]
-    if "--validation_split" not in extra:
-        argv += ["--validation_split", "0"]
-    if extra:
-        argv.append("--no_html")
+                  "--dataroot", str(tmp_path), "--device", "cpu",
+                  "--validation_split", "0", "--no_html", *extra]
     with pytest.raises(SystemExit, match=item):
         train_loop.main(argv)
     assert not (tmp_path / "run" / "latest_net_G.pth").exists()
@@ -426,15 +417,3 @@ def test_train_loop_decay_and_fix_global_switch(tmp_path, capsys):
     assert [g["lr"] for o in (state.opt_g, state.opt_d)
             for g in o.param_groups] == [0.0, 0.0]
     assert not list(tmp_path.glob("run/*.pth"))
-
-
-def test_train_loop_stops_without_saving_on_a_non_finite_loss():
-    """The divergence guard's post-mortem save is not ported: a non-finite
-    loss stops the run (naming A8) before a save could overwrite a good
-    checkpoint; Ctrl+C stops it the same way."""
-    good = {"G_GAN": torch.tensor(1.0)}
-    assert train_loop.finite_losses(good, 1, 2) == {"G_GAN": 1.0}
-    with pytest.raises(SystemExit, match="A8"):
-        train_loop.finite_losses({"G_GAN": torch.tensor(float("nan"))}, 1, 2)
-    with pytest.raises(SystemExit, match="A8"):
-        train_loop._interrupted(None, None)
