@@ -56,13 +56,22 @@ Phases, each fatal on failure (exit code 1):
      22) and the fused forward's 4 conv3x3_in launches on the wgmma route;
      print B3's time against its bound a shape, with its calls in a
      plain forward, and the flagship's int8 size against f32 and bf16;
-  9. B3 with its gradient (models/layers.InstanceNormAct: the kernel forward,
-     the closed-form backward in plain PyTorch) at the 6 generator and the
-     6 discriminator InstanceNorm shapes at batch 64, f32 and bf16: y
-     against the twin (1e-5 in f32, one bf16 ulp in bf16) and dx against
-     autograd through the twin (1e-4 max|dx| in f32, one bf16 ulp + that
-     floor in bf16); the backward timed a shape, beside autograd through
-     the twin and through F.instance_norm (the library yardstick);
+  9. B3 with its gradient (models/layers.InstanceNormAct: the kernel
+     forward, which saves each plane's mean and variance, and the backward
+     kernel of csrc/instance_norm_bwd.cu) at the 6 generator and the 6
+     discriminator InstanceNorm shapes at batch 64, f32 and bf16: y against
+     the twin (1e-5 in f32, one bf16 ulp in bf16), the saved statistics
+     against the twin's, dx against the backward's twin and against
+     autograd through the forward's twin (1e-4 max|dx| in f32, one bf16
+     ulp + that floor in bf16), one backward launch a call on the
+     planner's route, two runs bit-identical, 0 elements whose slope from
+     the recomputed x^ differs from the slope read off y; the backward
+     kernel timed a shape in bf16 on both routes where the shape has two
+     (CUDA events; device time with the L2 warm and with it evicted
+     before each call, the share of the bound read from the latter),
+     beside its twin, the closed form, autograd through the twin and
+     through F.instance_norm (the library yardstick) and its bound (3
+     planes; the 4-plane figure of earlier records beside it);
  10. one train step of a toy config (n_fft 64, LocalEnhancer ngf 4,
      PatchGAN ndf 4), CUDA against CPU in f32: every loss within
      rtol 1e-4; B3's output at each of the step's InstanceNorm inputs
@@ -72,17 +81,21 @@ Phases, each fatal on failure (exit code 1):
      within 1e-3 max|g| (a conv bias feeding an InstanceNorm, whose exact
      grad is 0, within 1e-3 of its net's max) and every updated weight
      within 2 lr (two opposite Adam steps); against the independent CPU
-     step, D's grads within the same bound and G's within 40x it;
+     step, D's grads within the same bound and G's within 40x it; the
+     backward kernel launched once for each InstanceNorm of the card step;
  11. the flagship train step (G and the 2-scale PatchGAN at ndf 64, bf16
      compute, f32 params and Adam moments) at batch 64 through
      trainer.make_train_step: 2 warm-up and 5 timed steps (ms/step,
-     segments/s, peak GiB), B3 launches a step (40, all one-pass) and B1
-     tensor-core launches a step (2), every loss finite and every parameter
-     moved, and a torch.profiler trace of one step split into forward,
-     backward and optimizer, with the InstanceNorm backward's share;
+     segments/s, peak GiB), B3 launches a step (40, all one-pass), its
+     backward kernel's (40, shape by shape as the forward's; by route, and
+     the dy it copied) and B1 tensor-core launches a step (2), every loss
+     finite and every parameter moved, and a torch.profiler trace of one
+     step split into forward, backward and optimizer, with the InstanceNorm
+     backward's device ms and share;
  12. the training CLI (python -m pix2pixhdaudiosr_torch.train_loop) at
-     flagship width on a synthetic wav corpus: 2 steps at batch 2, then the
-     generate CLI on the latest_net_G.pth it saved;
+     flagship width on a synthetic wav corpus: 2 steps at batch 2 (B3 and
+     its backward 80 launches each), then the generate CLI on the
+     latest_net_G.pth it saved;
  13. the CLIs at their default behaviours, flagship width, on 8 one-second
      files, FLAC (written by the port's write_flac) and wav: where
      matplotlib or PIL is missing, the training and generate CLIs without
@@ -92,22 +105,26 @@ Phases, each fatal on failure (exit code 1):
      --tf_log (3 steps, an eval of one batch after each): eval.csv's 3
      rows finite, IMDCT2 launched once an eval batch and all on the
      tensor-core route, InstanceNorm 40 a step + 22 an eval batch (all
-     one-pass), MDCT2 2 a step + 1 an eval batch, an event file, and with
+     one-pass), its backward 40 a step and none in an eval, MDCT2 2 a step
+     + 1 an eval batch, an event file, and with
      the gallery web/index.html; one eval pass and a flagship train state's
      save and restore timed; a run in a process of its own sent SIGINT
      after its first loss line (latest and epoch-1 files, iter.txt
      "2,0"), then --continue_train from it ("Resuming from epoch 2", G
      equal to the saved one before the first step, the step count going
-     on); 2 steps with --pool_size 2 (InstanceNorm 80 a step) and the
-     pool's host round trip at batch 64; the evaluate CLI on the training
-     run's latest (B1, B2, B3 launches an eval batch); generate without
+     on); 2 steps with --pool_size 2 (InstanceNorm 80 a step, its backward
+     40) and the pool's host round trip at batch 64; the evaluate CLI on
+     the training run's latest (B1, B2, B3 launches an eval batch, no
+     backward); generate without
      --no_html (the gallery's lable_* images, or the stop);
  14. FLAC input's host time: one decode of a 5 s 48 kHz file, a batch of
      64 segments from one-second FLAC files without the resample cache,
      with it cold and warm.
 Each phase prints its seconds ([phase] lines).
 The line before the last is {"kernels": [...]} (`launches` from one
-serve forward, `train_launches_per_step` from one flagship train step);
+serve forward, and for the InstanceNorm backward, which serving never
+launches, from one flagship train step; `serve_launches` from one plain
+serve forward and `train_launches_per_step` from one flagship train step);
 the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
 with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
@@ -145,6 +162,10 @@ KERNELS = {
                "pix2pixhdaudiosr_tpu/ops/dct_pallas.py:134"),
     "instance_norm_act": ("pix2pixhdaudiosr_torch/csrc/instance_norm.cu",
                           "pix2pixhdaudiosr_tpu/ops/norm_pallas.py:49"),
+    # B3's gradient: the TPU kernel has none (XLA differentiates
+    # pix2pixhdaudiosr_tpu/models/layers.py:189-208)
+    "instance_norm_act_grad": ("pix2pixhdaudiosr_torch/csrc/instance_norm_bwd.cu",
+                               "pix2pixhdaudiosr_tpu/ops/norm_pallas.py:49"),
     "conv3x3_in": ("pix2pixhdaudiosr_torch/csrc/conv3x3_wgmma.cu",
                    "pix2pixhdaudiosr_tpu/ops/enhancer_pallas.py:182"),
     "conv3x3_valid": ("pix2pixhdaudiosr_torch/csrc/conv3x3_wgmma.cu",
@@ -183,8 +204,11 @@ TRAIN_IN_LAUNCHES, TRAIN_MDCT_LAUNCHES = 40, 2
 EVAL_IN_LAUNCHES = IN_LAUNCHES["plain"]
 EVAL_MDCT_LAUNCHES, EVAL_IMDCT_LAUNCHES = 1, 1
 # a fake-pool step: g_step and d_step each run 1 G and 3 D forwards
-# (trainer.make_pool_steps, every loss computed by both)
+# (trainer.make_pool_steps, every loss computed by both); the InstanceNorm
+# backward runs where one net is differentiated: g_step through G (22) and
+# D on its output (6), d_step through D on the real and the pooled pair (12)
 POOL_IN_LAUNCHES = 2 * TRAIN_IN_LAUNCHES
+POOL_IN_GRAD_LAUNCHES = TRAIN_IN_LAUNCHES
 # phase 13's corpus: 8 files; a 0.25 validation split keeps 2 for the eval
 # (one batch of 2) and leaves 6, 3 steps at batch 2
 CLI_FILES, CLI_STEPS = 8, 3
@@ -215,13 +239,15 @@ def check(ok: bool, what: str) -> None:
 
 
 def reset_counts(fn) -> None:
-    """Set every launch count of a kernel wrapper to 0."""
-    fn.launches = 0
-    for attr in ("launches_tc", "launches_onepass", "launches_wgmma"):
-        if hasattr(fn, attr):
-            setattr(fn, attr, 0)
-    if hasattr(fn, "launches_by_shape"):
-        fn.launches_by_shape.clear()
+    """Set every count of a kernel wrapper (launches, by route and by
+    shape, and the backward's dy copies) to 0."""
+    for attr in list(vars(fn)):
+        if attr.startswith(("launches", "dy_copies")):
+            value = getattr(fn, attr)
+            if isinstance(value, dict):
+                value.clear()
+            else:
+                setattr(fn, attr, 0)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -238,23 +264,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
+def device_ms(fn, iters: int = 20, tries: int = 5, cold: bool = False) -> float:
     """Mean device time of the kernels fn() launches, in ms, from
     torch.profiler: unlike cuda_ms, it leaves out the host time between
     launches, which is most of a call where the kernel is short. The
     first traced run is a warm-up, and a trace that comes back without
     kernels (a process's first often does, a later one now and then) is
-    taken again, up to `tries` times."""
+    taken again, up to `tries` times. With `cold`, a 128 MB fill before
+    each call evicts the 50 MB L2 (inputs that fit it would otherwise be
+    read from it, faster than the HBM bound), and the fill's own kernel is
+    left out of the sum."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda") if cold else None
     for attempt in range(tries + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if cold:
+                    flush.fill_(attempt)
                 fn()
             torch.cuda.synchronize()
         total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
+                    if e.device_type == DeviceType.CUDA
+                    and not (cold and "FillFunctor" in e.key))
         if attempt > 0 and total > 0:
             return total / 1e3 / iters
     raise SmokeFailure(f"{tries} profiler traces came back without kernels")
@@ -1045,57 +1078,103 @@ def b3_per_shape(detail: dict, calls: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 def in_grad_check(x, act: str, dy) -> dict:
-    """B3's Function (kernel forward, closed-form backward) at x against
-    the twin on the same values: y within 1e-5 of the twin's in f32 and
-    one bf16 ulp in bf16 (as phase 3), and dx against autograd through the
-    twin in f32, with the activation's slope read off the kernel's output
-    as the backward reads it. Returns the errors, `ok`, and the count of
-    elements whose activation side differs between the kernel's and the
-    twin's output (a value within rounding of 0)."""
+    """B3's Function (the kernel forward, the backward kernel) at x: y
+    within 1e-5 of the twin's in f32 and one bf16 ulp in bf16 (as phase 3);
+    the forward's saved statistics against the twin's (mean within 1e-5,
+    variance within 1e-5 relative); dx within 1e-4 max|dx| in f32, one bf16
+    ulp + that floor in bf16, of the backward's twin on the same x, dy and
+    saved statistics, and of autograd through the forward's twin in f32
+    with the activation's slope read off the kernel's y (as the closed form
+    reads it); one backward launch. Returns the errors, `ok`, `slope_flips`
+    (elements whose slope, taken by the kernel from the recomputed x^,
+    differs from the slope read off y: must be 0) and `side_flips`
+    (elements on another side of 0 in the kernel's y than in the twin's: a
+    value within rounding of 0)."""
     import torch
     from pix2pixhdaudiosr_torch.models.layers import InstanceNormAct
     from pix2pixhdaudiosr_torch.ops import norm
+    grad = norm.instance_norm_act_grad
     xk = x.detach().requires_grad_(True)
     y = InstanceNormAct.apply(xk, act)
+    _, saved = y.grad_fn.saved_tensors
+    n = grad.launches
     (dx,) = torch.autograd.grad(y, xk, dy)
+    launched = grad.launches - n
+    x = x.detach()
+    want = norm.instance_norm_act_grad_ref(x, dy, saved, act)
     g = dy.float()
     if act == "relu":
         g = g * (y > 0)
     elif act == "leaky":
         g = torch.where(y >= 0, g, 0.2 * g)
-    xr = x.detach().float().requires_grad_(True)
-    (want,) = torch.autograd.grad(norm.instance_norm_act_ref(xr, "none"), xr, g)
-    y_twin = norm.instance_norm_act_ref(x.detach(), act)
-    flips = int(((y > 0) != (y_twin > 0)).sum()) if act != "none" else 0
-    scale = want.abs().max().item()
-    err = (dx.float() - want).abs().max().item()
-    y_err = (y.float() - y_twin.float()).abs().max().item()
-    res = dict(y_max_abs_err=y_err, max_abs_err=err, max_abs_dx=scale,
-               side_flips=flips)
+    xr = x.float().requires_grad_(True)
+    (want_ad,) = torch.autograd.grad(norm.instance_norm_act_ref(xr, "none"),
+                                     xr, g)
+    y_twin = norm.instance_norm_act_ref(x, act)
+    mean, var = norm.instance_moments_ref(x)
+    # x^ = (x - mean) rstd with rstd > 0: its sign is that of x - mean
+    centred = x.float() - saved[0][:, :, None, None]
+    if act == "relu":
+        slope_flips = int(((y > 0) != (centred > 0)).sum())
+    elif act == "leaky":
+        slope_flips = int(((y >= 0) != (centred >= 0)).sum())
+    else:
+        slope_flips = 0
+    scale = want.float().abs().max().item()
+    scale_ad = want_ad.abs().max().item()
+    res = dict(y_max_abs_err=(y.float() - y_twin.float()).abs().max().item(),
+               max_abs_err=(dx.float() - want.float()).abs().max().item(),
+               autograd_max_abs_err=(dx.float() - want_ad).abs().max().item(),
+               max_abs_dx=scale,
+               mean_max_abs_err=(saved[0] - mean).abs().max().item(),
+               var_max_rel_err=((saved[1] - var).abs().max()
+                                / var.abs().max().clamp_min(1e-30)).item(),
+               launches=launched, slope_flips=slope_flips,
+               side_flips=int(((y > 0) != (y_twin > 0)).sum())
+               if act != "none" else 0)
+    ok = (launched == 1 and slope_flips == 0
+          and res["mean_max_abs_err"] <= 1e-5
+          and res["var_max_rel_err"] <= 1e-5)
     if x.dtype == torch.float32:
-        res["ok"] = y_err <= 1e-5 and err <= 1e-4 * scale
+        res["ok"] = (ok and res["y_max_abs_err"] <= 1e-5
+                     and res["max_abs_err"] <= 1e-4 * scale
+                     and res["autograd_max_abs_err"] <= 1e-4 * scale_ad)
     else:
         res["y_ulp_excess"] = ulp_excess(y, y_twin)
         res["ulp_excess"] = ulp_excess(dx, want, 1e-4 * scale)
-        res["ok"] = res["y_ulp_excess"] <= 0 and res["ulp_excess"] <= 0
+        res["autograd_ulp_excess"] = ulp_excess(dx, want_ad, 1e-4 * scale_ad)
+        res["ok"] = ok and all(res[k] <= 0 for k in (
+            "y_ulp_excess", "ulp_excess", "autograd_ulp_excess"))
     check(dx.dtype == x.dtype and dx.shape == x.shape,
           f"dx {dx.dtype} {tuple(dx.shape)} for x {x.dtype} {tuple(x.shape)}")
     return res
 
 
+def in_grad_bound(x) -> dict:
+    """The backward's bound: 3 planes of x's bytes (x and dy read, dx
+    written), ~20 f32 operations an element."""
+    return bound(3 * x.element_size() * x.numel(), 20 * x.numel(), F32_FLOPS)
+
+
 def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
     """B3 with its gradient at every training InstanceNorm shape (the
     generator's with relu and none, the discriminator's with leaky), batch
-    `batch`, f32 and bf16: y against the twin and dx against autograd
-    through the twin (in_grad_check); every forward on the one-pass route.
-    The closed-form backward is timed in bf16 a shape (CUDA events), beside
-    autograd through the twin and, as the library yardstick, autograd
-    through F.instance_norm and the activation."""
+    `batch`, f32 and bf16: in_grad_check (y, the saved statistics, dx
+    against the backward's twin and autograd through the forward's twin, 0
+    slope flips), each backward launch counted on the planner's route, and
+    two runs of the backward kernel bit-identical. In bf16 a shape the
+    backward kernel is timed (CUDA events; profiler device time with the L2
+    warm, and evicted before each call for the share of the bound) on its
+    route and on the other route where the shape has one, beside its twin,
+    the closed form (instance_norm_act_backward), autograd through the
+    forward's twin and, as the library yardstick, autograd through
+    F.instance_norm and the activation; with the bound of 3 planes (and the
+    4-plane figure of earlier records, x, y and dy read)."""
     import torch
     import torch.nn.functional as F
     from pix2pixhdaudiosr_torch.ops import norm
     gen = torch.Generator(device=dev).manual_seed(12)
-    fn, rows = norm.instance_norm_act, {}
+    fn, grad, rows = norm.instance_norm_act, norm.instance_norm_act_grad, {}
     for shapes, acts in ((IN_SHAPES, ("relu", "none")), (D_IN_SHAPES, ("leaky",))):
         for H, W, C in shapes:
             row = {}
@@ -1104,16 +1183,42 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
                      + 0.5).to(dtype).contiguous(memory_format=torch.channels_last)
                 dy = torch.randn(x.shape, generator=gen, device=dev).to(
                     dtype).contiguous(memory_format=torch.channels_last)
+                plan = norm.plan_instance_norm_grad(batch, H, W, C, dtype)
                 for act in acts:
                     n1 = fn.launches_onepass
+                    n2 = grad.launches_by_route.get(plan.route, 0)
                     r = in_grad_check(x, act, dy)
                     check(fn.launches_onepass - n1 == 1,
-                          f"IN grad {(H, W, C)}: the two-pass route")
+                          f"IN grad {(H, W, C)}: the forward's two-pass route")
+                    check(grad.launches_by_route.get(plan.route, 0) - n2 == 1,
+                          f"IN grad {(H, W, C)}: the backward left the "
+                          f"{plan.route} route")
                     row[f"{str(dtype)[6:]} {act}"] = r
                     check(r["ok"], f"IN grad {(H, W, C)} {dtype} {act}: {r}")
+                y, saved = fn(x, acts[0], with_stats=True)
+
+                def run(plan=plan):
+                    return grad(x, dy, saved, acts[0], plan=plan)
+                check(torch.equal(run(), run()),
+                      f"IN grad {(H, W, C)} {dtype}: two runs differ")
                 if dtype == torch.bfloat16:
-                    y = fn(x, acts[0])
-                    row["backward_ms"] = cuda_ms(
+                    row.update(route=plan.route, plan=plan._asdict(),
+                               backward_ms=cuda_ms(run),
+                               backward_device_ms=device_ms(run),
+                               backward_cold_device_ms=device_ms(run, cold=True))
+                    other = (norm.INPlan("twopass") if plan.route == "onepass"
+                             else norm.plan_instance_norm_grad(
+                                 batch, H, W, C, dtype, narrow=True))
+                    if other.route != plan.route:
+                        row.update(other_route=other.route,
+                                   other_plan=other._asdict(),
+                                   other_route_ms=cuda_ms(lambda: run(other)),
+                                   other_route_device_ms=device_ms(
+                                       lambda: run(other)))
+                    row["twin_ms"] = cuda_ms(
+                        lambda: norm.instance_norm_act_grad_ref(
+                            x, dy, saved, acts[0]), iters=5, warmup=1)
+                    row["closed_form_ms"] = cuda_ms(
                         lambda: norm.instance_norm_act_backward(x, y, dy, acts[0]),
                         iters=5, warmup=1)
                     xr = x.detach().requires_grad_(True)
@@ -1126,11 +1231,15 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
                     yl = norm.activate(F.instance_norm(xr), acts[0])
                     row["library_backward_ms"] = cuda_ms(
                         lambda: torch.autograd.grad(yl, xr, dy, retain_graph=True),
-                        iters=5, warmup=1)
-                    # reads x, y and dy, writes dx; ~20 f32 operations an element
-                    row.update(bound(4 * 2 * x.numel(), 20 * x.numel(), F32_FLOPS))
-                    del y, xr, yr, yl
-                del x, dy
+                        iters=10, warmup=2)
+                    row.update(in_grad_bound(x))
+                    row["bound_4planes_ms"] = 4 * 2 * x.numel() / HBM_BPS * 1e3
+                    row["share_of_bound"] = (row["bound_ms"]
+                                             / row["backward_cold_device_ms"])
+                    row["max_abs_err"] = max(v["max_abs_err"] for k, v in
+                                             row.items() if k.startswith("bfloat16"))
+                    del xr, yr, yl
+                del x, dy, y, saved
             rows[f"{H}x{W}x{C}"] = row
             print(f"[in grad] {H}x{W}x{C} B={batch}: " + json.dumps(row))
     torch.cuda.empty_cache()
@@ -1140,15 +1249,23 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
 def in_backward_per_step(in_grad: dict, train: dict) -> dict:
     """The InstanceNorm backward's times (phase 9, bf16, a shape) summed
     over one flagship train step's calls (phase 11's launches by shape):
-    the port's plain backward, autograd through F.instance_norm (the
-    library yardstick) and the bound."""
-    out = dict(plain_ms=0.0, library_ms=0.0, bound_ms=0.0, calls=0.0)
+    the backward kernel (CUDA events, device time with the L2 warm and
+    cold), the closed form,
+    autograd through F.instance_norm (the library yardstick) and the
+    bound; and the shapes where the kernel is not faster than the library."""
+    keys = {"kernel_ms": "backward_ms", "kernel_device_ms": "backward_device_ms",
+            "kernel_cold_device_ms": "backward_cold_device_ms",
+            "closed_form_ms": "closed_form_ms",
+            "library_ms": "library_backward_ms", "bound_ms": "bound_ms"}
+    out = dict({k: 0.0 for k in keys}, calls=0.0)
     for shape, calls in train["in_by_shape_per_step"].items():
         row = in_grad[shape]
-        out["plain_ms"] += calls * row["backward_ms"]
-        out["library_ms"] += calls * row["library_backward_ms"]
-        out["bound_ms"] += calls * row["bound_ms"]
+        for k, src in keys.items():
+            out[k] += calls * row[src]
         out["calls"] += calls
+    out["not_faster_than_library"] = [
+        shape for shape, row in in_grad.items()
+        if row["backward_ms"] >= row["library_backward_ms"]]
     return out
 
 
@@ -1234,12 +1351,15 @@ def phase_train_reference(dev) -> dict:
       INDEPENDENT_G_LIMIT of it. The two steps' InstanceNorm inputs differ
       already (in_in_max_abs_err), by the rounding of the layers before
       them, and G's grads at this toy size amplify that.
-    Also the card step's B3 and B1 launches."""
+    Also the card step's B3 and B1 launches: every InstanceNorm of the
+    step records a gradient, so its backward kernel launches as often as
+    its forward."""
     import torch
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.models import layers
     from pix2pixhdaudiosr_torch.ops.mdct_kernels import mdct2
-    from pix2pixhdaudiosr_torch.ops.norm import instance_norm_act
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_grad)
     from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
     from pix2pixhdaudiosr_torch.trainer import init_state, make_train_step
 
@@ -1276,31 +1396,40 @@ def phase_train_reference(dev) -> dict:
                             named.items() for n, w in net.named_parameters()})
 
     def recorder(calls):
-        def fn(x, act):
-            y = instance_norm_act(x, act)
+        def fn(x, act, **kw):
+            out = instance_norm_act(x, act, **kw)
+            y = out[0] if isinstance(out, tuple) else out
             calls.append((x.detach(), y.detach(), act))
-            return y
+            return out
         return fn
 
     card_in, cpu_in = [], []
-    reset_counts(instance_norm_act)
-    reset_counts(mdct2)
+    for fn in (instance_norm_act, instance_norm_act_grad, mdct2):
+        reset_counts(fn)
     got = run(dev, recorder(card_in))
     res = dict(in_launches=instance_norm_act.launches,
                in_launches_onepass=instance_norm_act.launches_onepass,
+               in_grad_launches=instance_norm_act_grad.launches,
+               in_grad_launches_by_route=dict(
+                   instance_norm_act_grad.launches_by_route),
                mdct2_launches_tc=mdct2.launches_tc)
     want = run("cpu", recorder(cpu_in))
 
     def replay(out):
         """An InstanceNorm forward for a CPU step that returns, call by
-        call, out(x, y, act) of the card step's input x and output y."""
+        call, out(x, y, act) of the card step's input x and output y, and
+        where the step asks for them the twin's statistics of its own x
+        (which its backward reads)."""
         calls = iter(card_in)
 
-        def fn(x, act):
+        def fn(x, act, with_stats=False):
             xk, yk, act_k = next(calls)
             check(act_k == act and yk.shape == x.shape, "the CPU step's "
                   "InstanceNorm calls differ from the card step's")
-            return out(xk.cpu(), yk.cpu(), act)
+            y = out(xk.cpu(), yk.cpu(), act)
+            if not with_stats:
+                return y
+            return y, instance_norm_act(x, act, with_stats=True)[1]
         return fn
     same = run("cpu", replay(lambda x, y, act: y))
     twin = run("cpu", replay(lambda x, y, act: instance_norm_act(x, act)))
@@ -1354,6 +1483,7 @@ def phase_train_reference(dev) -> dict:
     check(res["param_max_abs_err"] <= 2 * cfg.lr * (1 + 1e-3),
           f"updated params off the CPU's by {res['param_max_abs_err']}")
     check(res["in_launches"] == res["in_launches_onepass"] > 0
+          and res["in_grad_launches"] == res["in_launches"]
           and res["mdct2_launches_tc"] == TRAIN_MDCT_LAUNCHES,
           f"toy train step launches: {res}")
     return res
@@ -1382,8 +1512,9 @@ def profile_train_step(run_step, top: int = 16) -> dict:
     """One traced train step: the device time of its kernels by part
     (forward, backward, optimizer: each kernel counted once, under the
     outermost event that launched it, _phase_of), the InstanceNorm
-    backward's device time and share, and the `top` kernels by device
-    time."""
+    forward's device time (under the Function's op), its backward's (under
+    the autograd node InstanceNormActBackward) with its share and its
+    kernels by name (ms, calls), and the `top` kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1404,7 +1535,7 @@ def profile_train_step(run_step, top: int = 16) -> dict:
         raise SmokeFailure("3 profiler traces of a train step came back "
                            "without kernels")
     parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-    in_bwd = 0.0
+    in_fwd, in_bwd, in_kernels = 0.0, 0.0, {}
     for e in prof.events():
         ms = e.self_device_time_total / 1e3
         if ms <= 0 or e.device_type == DeviceType.CUDA:
@@ -1413,13 +1544,49 @@ def profile_train_step(run_step, top: int = 16) -> dict:
         outer = e
         while outer.cpu_parent is not None:
             outer = outer.cpu_parent
-        if "InstanceNormAct" in outer.name:
+        # the Function's forward is the op "InstanceNormAct", its backward
+        # the autograd node "InstanceNormActBackward"
+        if "InstanceNormActBackward" in outer.name:
             in_bwd += ms
+            for k in e.kernels:
+                row = in_kernels.setdefault(k.name[:70], [0.0, 0])
+                row[0] += k.duration / 1e3
+                row[1] += 1
+        elif "InstanceNormAct" in outer.name:
+            in_fwd += ms
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     return dict(host_wall_ms=wall, device_ms=total, parts_ms=parts,
+                in_forward_ms=in_fwd,
                 in_backward_ms=in_bwd, in_backward_share=in_bwd / total,
+                in_backward_kernels=sorted(([k, *v] for k, v in in_kernels.items()),
+                                           key=lambda r: -r[1]),
                 top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
                      for e in kernels[:top]])
+
+
+def dy_layouts(run_step) -> dict:
+    """The dy that autograd hands the InstanceNorm backward in one step, by
+    (H, W, C), dtype and strides, with how many of them the wrapper copied
+    (ops/norm._readable_dy)."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import norm
+    seen, readable = {}, norm._readable_dy
+
+    def spy(x, dy, onepass):
+        out = readable(x, dy, onepass)
+        B, C, H, W = x.shape
+        key = f"{H}x{W}x{C} {str(dy.dtype)[6:]} strides {tuple(dy.stride())}"
+        row = seen.setdefault(key, dict(calls=0, copied=0))
+        row["calls"] += 1
+        row["copied"] += int(out[0] is not dy)
+        return out
+    norm._readable_dy = spy
+    try:
+        run_step()
+        torch.cuda.synchronize()  # a trace after this starts on an idle card
+    finally:
+        norm._readable_dy = readable
+    return seen
 
 
 def phase_train_step(dev, counters) -> dict:
@@ -1429,8 +1596,10 @@ def phase_train_step(dev, counters) -> dict:
     timed steps (CUDA events around each), every kernel counter set to 0
     just before the warm-up and read just after the last step; then one
     traced step. Checks: every loss finite each step, every parameter moved,
-    40 InstanceNorm launches a step all one-pass, 2 MDCT2 launches a step
-    on the tensor-core route, no launch of the serving-only kernels."""
+    40 InstanceNorm launches a step all one-pass, 40 of its backward
+    kernel (shape by shape as the forward's; by route and the dy copies
+    reported), 2 MDCT2 launches a step on the tensor-core route, no launch
+    of the serving-only kernels."""
     import torch
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
@@ -1477,6 +1646,7 @@ def phase_train_step(dev, counters) -> dict:
     n_steps = len(losses)
     launches = {k: fn.launches for k, fn in counters.items()}
     inorm, mdct = counters["instance_norm_act"], counters["mdct2"]
+    grad = counters["instance_norm_act_grad"]
     res = dict(batch=TRAIN_BATCH, params_g=n_g, params_d=n_d, steps=n_steps,
                ms_per_step=sum(ms) / len(ms), ms_runs=ms,
                segments_per_s=TRAIN_BATCH / (sum(ms) / len(ms) / 1e3),
@@ -1486,13 +1656,22 @@ def phase_train_step(dev, counters) -> dict:
                in_by_shape_per_step={f"{h}x{w}x{c}": n / n_steps for (h, w, c), n
                                      in inorm.launches_by_shape.items()},
                mdct2_tc_per_step=mdct.launches_tc / n_steps,
+               in_grad_per_step=grad.launches / n_steps,
+               in_grad_by_route_per_step={
+                   k: n / n_steps for k, n in grad.launches_by_route.items()},
+               in_grad_dy_copies_by_shape_per_step={
+                   f"{h}x{w}x{c}": n / n_steps for (h, w, c), n
+                   in grad.dy_copies_by_shape.items()},
                losses=[{k: float(v) for k, v in l.items()} for l in losses])
     moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(
         before, (*system.netG_train.parameters(), *system.netD.parameters())))
     res["params_moved"], res["param_tensors"] = moved, len(before)
     del before
     counts = (inorm.launches, inorm.launches_onepass, mdct.launches,
-              mdct.launches_tc)
+              mdct.launches_tc, grad.launches)
+    res["in_grad_dy_layouts"] = dy_layouts(run_step)
+    shapes_ok = ({k: n for k, n in inorm.launches_by_shape.items()}
+                 == {k: n for k, n in grad.launches_by_shape.items()})
     res["profile"] = profile_train_step(run_step)
     print("[train step] " + json.dumps(res))
     check(all(all(map(lambda v: v == v and abs(v) != float("inf"), l.values()))
@@ -1506,8 +1685,15 @@ def phase_train_step(dev, counters) -> dict:
     check(counts[2] == counts[3] == TRAIN_MDCT_LAUNCHES * n_steps,
           f"MDCT2: {counts[2]} launches, {counts[3]} on the tensor-core "
           f"route in {n_steps} steps")
+    # the backward kernel takes every InstanceNorm backward of the step:
+    # as many launches as forwards, shape by shape (the closed form is on
+    # no path: layers.InstanceNormAct calls instance_norm_act_grad only)
+    check(counts[4] == TRAIN_IN_LAUNCHES * n_steps and shapes_ok,
+          f"InstanceNorm backward: {counts[4]} launches in {n_steps} steps, "
+          f"by shape {grad.launches_by_shape}; expected "
+          f"{TRAIN_IN_LAUNCHES} a step, as the forward's by shape")
     for k, n in launches.items():
-        if k not in ("instance_norm_act", "mdct2"):
+        if k not in ("instance_norm_act", "instance_norm_act_grad", "mdct2"):
             check(n == 0, f"the train step launched {k} {n}x")
     del system, state, batch
     torch.cuda.empty_cache()
@@ -1544,6 +1730,7 @@ def phase_train_cli(dev, counters, wav: str, n_in: int) -> dict:
     expr = os.path.join(WORK, "train")
     check(state.step == 2, f"the training CLI took {state.step} steps")
     check(launches["instance_norm_act"] == 2 * TRAIN_IN_LAUNCHES
+          and launches["instance_norm_act_grad"] == 2 * TRAIN_IN_LAUNCHES
           and launches["mdct2"] == 2 * TRAIN_MDCT_LAUNCHES,
           f"training CLI launches {launches}")
     for part in ("net_G", "net_D", "optim"):
@@ -1705,8 +1892,8 @@ def phase_cli(dev, counters) -> dict:
     state, out, secs = run_cli(train_loop.main, [
         "--name", "cli", *common, *one_epoch, *cadence, *html], counters)
     launches = {k: fn.launches for k, fn in counters.items()}
-    inorm, mdct, imdct = (counters[k] for k in ("instance_norm_act", "mdct2",
-                                                "imdct2"))
+    inorm, mdct, imdct, grad = (counters[k] for k in (
+        "instance_norm_act", "mdct2", "imdct2", "instance_norm_act_grad"))
     steps, n_eval = state.step, CLI_STEPS   # one eval batch a step
     check(steps == CLI_STEPS, f"the training CLI took {steps} steps")
     rows = check_finite_csv(os.path.join(expr, "eval.csv"), n_eval)
@@ -1717,6 +1904,9 @@ def phase_cli(dev, counters) -> dict:
     check(inorm.launches == inorm.launches_onepass == want_in,
           f"InstanceNorm: {inorm.launches} launches ({inorm.launches_onepass}"
           f" one-pass), expected {want_in}")
+    check(grad.launches == steps * TRAIN_IN_LAUNCHES,
+          f"InstanceNorm backward: {grad.launches} launches, expected "
+          f"{steps * TRAIN_IN_LAUNCHES} (none in an eval)")
     want_mdct = steps * TRAIN_MDCT_LAUNCHES + n_eval * EVAL_MDCT_LAUNCHES
     check(mdct.launches == mdct.launches_tc == want_mdct,
           f"MDCT2: {mdct.launches} launches ({mdct.launches_tc} tensor-core)"
@@ -1813,9 +2003,11 @@ def phase_cli(dev, counters) -> dict:
         "--name", "pool", *common, *one_epoch, *plain, "--pool_size", "2",
         "--max_dataset_size", "4"], counters)
     check(state.step == 2, f"the pool run took {state.step} steps")
-    check(inorm.launches == inorm.launches_onepass == 2 * POOL_IN_LAUNCHES,
-          f"pool run: {inorm.launches} InstanceNorm launches, expected "
-          f"{2 * POOL_IN_LAUNCHES}")
+    check(inorm.launches == inorm.launches_onepass == 2 * POOL_IN_LAUNCHES
+          and grad.launches == 2 * POOL_IN_GRAD_LAUNCHES,
+          f"pool run: {inorm.launches} InstanceNorm launches and "
+          f"{grad.launches} of its backward, expected {2 * POOL_IN_LAUNCHES} "
+          f"and {2 * POOL_IN_GRAD_LAUNCHES}")
     res["pool"] = dict(seconds=secs, launches={k: fn.launches for k, fn
                                                in counters.items()})
     del state
@@ -1834,7 +2026,7 @@ def phase_cli(dev, counters) -> dict:
     check(imdct.launches == imdct.launches_tc == n_batches * EVAL_IMDCT_LAUNCHES
           and mdct.launches == mdct.launches_tc == n_batches * EVAL_MDCT_LAUNCHES
           and inorm.launches == inorm.launches_onepass
-          == n_batches * EVAL_IN_LAUNCHES,
+          == n_batches * EVAL_IN_LAUNCHES and grad.launches == 0,
           f"evaluate launches {[(fn.launches, getattr(fn, 'launches_tc', getattr(fn, 'launches_onepass', None))) for fn in counters.values()]} for {n_batches} batches")
     res["evaluate"] = dict(seconds=secs, rows=rows, launches={
         k: fn.launches for k, fn in counters.items()})
@@ -1935,6 +2127,7 @@ def main() -> int:
         from pix2pixhdaudiosr_torch.ops.enhancer import conv3x3_in
         from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
         from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                     instance_norm_act_grad,
                                                      instance_stats)
         from pix2pixhdaudiosr_torch.ops.quant import (conv3x3_int8,
                                                       stochastic_quantize_2d)
@@ -1983,7 +2176,10 @@ def main() -> int:
                           flagship_system(dev, ["--data_type", "8"]), lr, noise)
         all_counters = dict(counters, conv3x3_in=conv3x3_in,
                             conv3x3_valid=conv3x3_valid,
-                            stochastic_quantize_2d=stochastic_quantize_2d)
+                            stochastic_quantize_2d=stochastic_quantize_2d,
+                            instance_norm_act_grad=instance_norm_act_grad)
+        train_counters = dict(counters,
+                              instance_norm_act_grad=instance_norm_act_grad)
         serve = timed("serve timing", phase_serve_timing, system, lr, noise,
                       all_counters)
         sizes = phase_sizes(pth)
@@ -1992,11 +2188,11 @@ def main() -> int:
         in_grad = timed("in grad", phase_in_grad, dev)
         train_ref = timed("train reference", phase_train_reference, dev)
         train = timed("train step", phase_train_step, dev, all_counters)
-        train_cli = timed("train cli", phase_train_cli, dev, counters, wav,
-                          n_in)
+        train_cli = timed("train cli", phase_train_cli, dev, train_counters,
+                          wav, n_in)
         in_bwd = in_backward_per_step(in_grad, train)
         print("[in grad] a train step's calls: " + json.dumps(in_bwd))
-        cli = timed("cli", phase_cli, dev, counters)
+        cli = timed("cli", phase_cli, dev, train_counters)
         flac = timed("flac", phase_flac)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -2005,19 +2201,26 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
 
     b3 = b3_per_shape(detail, serve["plain"]["in_launches_by_shape"])
+    # the backward kernel at 512 x 128 x 48, batch 64, bf16 (phase 9); its
+    # `launches` are one flagship train step's (phase 11), its path
+    big = in_grad[f"{IN_SHAPES[0][0]}x{IN_SHAPES[0][1]}x{IN_SHAPES[0][2]}"]
+    rec["instance_norm_act_grad"] = dict(
+        big, ms=big["backward_ms"], plain_ms=big["twin_ms"],
+        library_ms=big["library_backward_ms"])
     launches = dict(gen_res["launches"],
                     conv3x3_in=gen_fused["launches"]["conv3x3_in"],
                     conv3x3_valid=valid_launches,
-                    stochastic_quantize_2d=quant_launches)
+                    stochastic_quantize_2d=quant_launches,
+                    instance_norm_act_grad=train["launches"][
+                        "instance_norm_act_grad"] // train["steps"])
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
+                    serve_launches=serve["plain"]["launches"].get(k, 0),
                     train_launches_per_step=train["launches"].get(k, 0)
                     / train["steps"],
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}) for k in KERNELS]
-    kernels[[k["name"] for k in kernels].index("instance_norm_act")][
-        "backward"] = "plain PyTorch (ops/norm.instance_norm_act_backward)"
     print("[detail] " + json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         kernel_detail=detail, generate=gen_res, generate_fused=gen_fused,

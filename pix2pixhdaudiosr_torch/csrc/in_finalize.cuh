@@ -13,10 +13,13 @@ namespace {
 // in a fixed order (deterministic, no atomics) and writes
 //   mean[i * stride] = E[x],  rstd[i * stride] = rsqrt(max(E[x^2] - mean^2, 0) + eps)
 // for i = b * C + c: stride 2 gives one interleaved [B, C, 2] buffer,
-// stride 1 two separate [B, C] arrays.
+// stride 1 two separate [B, C] arrays. With `saved` (f32 [2, B, C], what
+// the InstanceNorm backward reads) also saved[i] = mean and
+// saved[B * C + i] = the clamped variance.
 __global__ void in_finalize_kernel(const float* __restrict__ partial,
                                    float* __restrict__ mean,
-                                   float* __restrict__ rstd, int stride,
+                                   float* __restrict__ rstd,
+                                   float* __restrict__ saved, int stride,
                                    int B, int C, int P, int HW, float eps) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * C) return;
@@ -32,14 +35,18 @@ __global__ void in_finalize_kernel(const float* __restrict__ partial,
   const float var = fmaxf(ex2 - m * m, 0.f);
   mean[(size_t)i * stride] = m;
   rstd[(size_t)i * stride] = rsqrtf(var + eps);
+  if (saved != nullptr) {
+    saved[i] = m;
+    saved[(size_t)B * C + i] = var;
+  }
 }
 
 inline int launch_finalize(const float* partial, float* mean, float* rstd,
                            int stride, int B, int C, int P, int HW, float eps,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, float* saved = nullptr) {
   constexpr int kThreads = 256;
   in_finalize_kernel<<<ceil_div(B * C, kThreads), kThreads, 0, stream>>>(
-      partial, mean, rstd, stride, B, C, P, HW, eps);
+      partial, mean, rstd, saved, stride, B, C, P, HW, eps);
   return cudaGetLastError();
 }
 

@@ -33,7 +33,11 @@
 //      bit-identical from run to run (no atomics);
 //   4. normalizes its staged slice, applies the activation and writes
 //      16-byte vectors to a contiguous channels_last output.
-// One launch, one HBM read and one write. The cluster index runs over the
+// One launch, one HBM read and one write. Where the caller asks (a forward
+// that autograd records), the rank-0 block of each cluster also writes the
+// plane's f32 mean and clamped variance, which the backward
+// (instance_norm_bwd.cu) reads instead of a statistics pass over x. The
+// cluster index runs over the
 // channel tiles fastest, so the tiles of one sample run side by side. A
 // tile spans at least a 32-byte sector of each position where the row
 // allows: at 512 x 128 x 48 bf16 a 16-byte tile (half a sector of each
@@ -52,7 +56,7 @@
 //      sums of x and x^2 for the chunk to a workspace [B, P, C, 2].
 //   2. in_finalize (in_finalize.cuh): one thread per (b, c) adds the P
 //      partials in a fixed order (deterministic, no atomics) and writes
-//      (mean, rstd).
+//      (mean, rstd), and where asked the saved (mean, variance).
 //   3. in_apply: an elementwise pass, 16 bytes per thread per access when
 //      C allows it, normalises, applies the activation and casts.
 // The chunk count P (chosen by the wrapper) keeps both regimes busy: H*W =
@@ -63,10 +67,7 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
+#include "in_cluster.cuh"
 #include "in_finalize.cuh"
 
 namespace cg = cooperative_groups;
@@ -162,7 +163,7 @@ void launch_apply(const void* x, void* y, const float* stats, long long n,
 template <typename T>
 int stats_pass(const void* x, float* partial, float* mean, float* rstd,
                int stride, int B, int HW, int C, float eps, int P,
-               cudaStream_t stream) {
+               cudaStream_t stream, float* saved = nullptr) {
   const int ctw = C < kMaxTile ? C : kMaxTile;
   const int rows_per_chunk = p2p::ceil_div(HW, P);
   dim3 grid(P, p2p::ceil_div(C, ctw), B);
@@ -171,14 +172,14 @@ int stats_pass(const void* x, float* partial, float* mean, float* rstd,
   const int err = cudaGetLastError();
   if (err) return err;
   return p2p::launch_finalize(partial, mean, rstd, stride, B, C, P, HW, eps,
-                              stream);
+                              stream, saved);
 }
 
 template <typename T>
-int run(const void* x, void* y, float* partial, float* stats, int B, int HW,
-        int C, int act, float eps, int P, cudaStream_t stream) {
+int run(const void* x, void* y, float* partial, float* stats, float* saved,
+        int B, int HW, int C, int act, float eps, int P, cudaStream_t stream) {
   const int err = stats_pass<T>(x, partial, stats, stats + 1, 2, B, HW, C,
-                                eps, P, stream);
+                                eps, P, stream, saved);
   if (err) return err;
   const long long n = (long long)B * HW * C;
   const long long hwc = (long long)HW * C;
@@ -194,48 +195,29 @@ int run(const void* x, void* y, float* partial, float* stats, int B, int HW,
 // --------------------------------------------------------------------------
 // One-pass route: each (sample, channel tile) plane staged in the shared
 // memory of a cluster of K blocks.
-constexpr int kOnepassThreads = 512;
-constexpr int kOnepassWarps = kOnepassThreads / 32;
-constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
-constexpr int kMaxCluster = 16;     // above 8 only as a non-portable size
-
 // Bytes of shared memory a block uses (ops/norm.py onepass_smem): the staged
 // [positions][tile] slice, then f32 [warps][2][tile] warp sums, [2][tile]
 // block sums (read by the cluster) and [2][tile] mean and rstd.
 inline size_t onepass_smem(int positions, int tile, int elem) {
   return (size_t)positions * tile * elem +
-         (size_t)(2 * kOnepassWarps + 4) * tile * sizeof(float);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-// The two halves of cluster.sync(), issued apart.
-__device__ __forceinline__ void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait_acquire() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+         (size_t)(2 * p2p::kOnepassWarps + 4) * tile * sizeof(float);
 }
 
 // Grid (K * C / tile, B), cluster (K, 1, 1): cluster blockIdx.x / K owns
 // channels [c0, c0 + tile) of sample blockIdx.y, and its block of rank r the
 // positions [r * positions, (r + 1) * positions) of H*W. A thread owns the
 // 16-byte vector v = tid % V of each position it touches (V = 2^log2v
-// vectors a position; 512 % V == 0, so v is fixed for the thread).
+// vectors a position; 512 % V == 0, so v is fixed for the thread). With
+// `saved` (f32 [2, B, C]) rank 0 writes saved[0][b][c] = mean and
+// saved[1][b][c] = the clamped variance.
 template <typename T>
-__global__ void __launch_bounds__(kOnepassThreads)
-    in_onepass_kernel(const T* __restrict__ x, T* __restrict__ y, int HW,
-                      int W, int C, long long sample_pitch,
-                      long long row_pitch, int tile, int log2v,
-                      int positions, int act, float eps) {
+__global__ void __launch_bounds__(p2p::kOnepassThreads)
+    in_onepass_kernel(const T* __restrict__ x, T* __restrict__ y,
+                      float* __restrict__ saved, int HW, int W, int C,
+                      long long sample_pitch, long long row_pitch, int tile,
+                      int log2v, int positions, int act, float eps) {
+  using p2p::kOnepassThreads;
+  using p2p::kOnepassWarps;
   constexpr int VEC = 16 / sizeof(T);
   using P = p2p::Pack<T, VEC>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -262,9 +244,10 @@ __global__ void __launch_bounds__(kOnepassThreads)
   for (int i = tid; i < n_vec; i += kOnepassThreads) {
     const int p = p0 + (i >> log2v);
     const int h = p / W;
-    cp_async16(stage + i, xb + h * row_pitch + (long long)(p - h * W) * C);
+    p2p::cp_async16(stage + i,
+                    xb + h * row_pitch + (long long)(p - h * W) * C);
   }
-  cp_async_wait_all();
+  p2p::cp_async_wait_all();
   __syncthreads();
 
   // 2. The block's sums of x and x^2 per channel: each thread over the
@@ -323,8 +306,13 @@ __global__ void __launch_bounds__(kOnepassThreads)
     const float var = fmaxf(Q / (float)HW - m * m, 0.f);
     mr[tid] = m;
     mr[tile + tid] = rsqrtf(var + eps);
+    if (saved != nullptr && rank == 0) {
+      const size_t i = (size_t)b * C + c0 + tid;
+      saved[i] = m;
+      saved[(size_t)gridDim.y * C + i] = var;
+    }
   }
-  cluster_arrive_release();  // done reading the other blocks
+  p2p::cluster_arrive_release();  // done reading the other blocks
   __syncthreads();
 
   // 4. Normalize the staged slice and write it, 16 bytes a thread.
@@ -344,73 +332,29 @@ __global__ void __launch_bounds__(kOnepassThreads)
           activate((p2p::to_float(in.v[j]) - mean[j]) * rstd[j], act));
     *reinterpret_cast<P*>(yb + (size_t)(i >> log2v) * C) = out;
   }
-  cluster_wait_acquire();  // no block leaves while another reads its sums
-}
-
-// cudaOccupancyMaxActiveClusters for a launch, asked once per (kernel,
-// device, K, shared memory): 0 means no GPC can hold one cluster.
-int max_active_clusters(const void* kernel, const cudaLaunchConfig_t& cfg,
-                        int* clusters) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, unsigned, size_t>, int> cache;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err) return err;
-  const auto key =
-      std::make_tuple(kernel, dev, cfg.attrs[0].val.clusterDim.x,
-                      cfg.dynamicSmemBytes);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *clusters = it->second;
-    return cudaSuccess;
-  }
-  err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
-  if (err) return err;
-  cache[key] = *clusters;
-  return cudaSuccess;
+  p2p::cluster_wait_acquire();  // no block leaves while another reads its sums
 }
 
 template <typename T>
-int onepass(const void* x, void* y, int B, int H, int W, int C,
+int onepass(const void* x, void* y, float* saved, int B, int H, int W, int C,
             long long sample_pitch, long long row_pitch, int tile, int K,
             int positions, int act, float eps, cudaStream_t stream) {
   const int HW = H * W;
-  const int tile_bytes = tile * (int)sizeof(T);
-  const int tile_vecs = tile_bytes / 16;
-  int log2v = 0;
-  while ((1 << log2v) < tile_vecs) ++log2v;
+  const int log2v = p2p::tile_log2v(tile, sizeof(T));
   // a plan that ops/norm.py plan_instance_norm would not make
-  if (tile <= 0 || C % tile || tile_bytes % 16 || (1 << log2v) != tile_vecs ||
-      tile_vecs > 32 || K < 1 || K > kMaxCluster || positions < 1 ||
-      (long long)K * positions < HW || (long long)(K - 1) * positions >= HW)
+  if (log2v < 0 || C % tile || K < 1 || K > p2p::kMaxCluster ||
+      positions < 1 || (long long)K * positions < HW ||
+      (long long)(K - 1) * positions >= HW)
     return cudaErrorInvalidValue;
   const size_t smem = onepass_smem(positions, tile, sizeof(T));
-  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  if (smem > (size_t)p2p::kSmemLimit) return cudaErrorInvalidValue;
   const auto kernel = in_onepass_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (!err)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = p2p::cluster_config((const void*)kernel, dim3(K * (C / tile), B, 1),
+                                K, smem, stream, &cfg, &attr);
   if (err) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(K * (C / tile), B, 1);
-  cfg.blockDim = dim3(kOnepassThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = (cudaError_t)max_active_clusters((const void*)kernel, cfg, &clusters);
-  if (err) return err;
-  if (clusters == 0) return cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const T*)x, (T*)y, HW, W, C,
+  err = cudaLaunchKernelEx(&cfg, kernel, (const T*)x, (T*)y, saved, HW, W, C,
                            sample_pitch, row_pitch, tile, log2v, positions,
                            act, eps);
   if (err) return err;
@@ -424,37 +368,40 @@ extern "C" {
 // The one-pass route. x: [B, C, H, W] whose rows of W*C elements are
 // contiguous, sample b and row h at x + b * sample_pitch + h * row_pitch
 // (elements; multiples of 16 bytes, x 16-byte aligned); y: contiguous
-// channels_last. dtype and act as below; the plan (tile channels, cluster
+// channels_last; saved: f32 [2, B, C] (mean, clamped variance) written
+// when not null. dtype and act as below; the plan (tile channels, cluster
 // size, positions per block) is ops/norm.py plan_instance_norm's. Returns
 // cudaErrorInvalidValue for a plan it cannot run, and
 // cudaErrorInvalidConfiguration when no cluster of the plan fits the card.
-int p2p_instance_norm_onepass(const void* x, void* y, int B, int H, int W,
-                              int C, long long sample_pitch,
+int p2p_instance_norm_onepass(const void* x, void* y, void* saved, int B,
+                              int H, int W, int C, long long sample_pitch,
                               long long row_pitch, int dtype, int act,
                               float eps, int tile, int cluster, int positions,
                               void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return onepass<__nv_bfloat16>(x, y, B, H, W, C, sample_pitch, row_pitch,
-                                  tile, cluster, positions, act, eps, s);
-  return onepass<float>(x, y, B, H, W, C, sample_pitch, row_pitch, tile,
-                        cluster, positions, act, eps, s);
+    return onepass<__nv_bfloat16>(x, y, (float*)saved, B, H, W, C,
+                                  sample_pitch, row_pitch, tile, cluster,
+                                  positions, act, eps, s);
+  return onepass<float>(x, y, (float*)saved, B, H, W, C, sample_pitch,
+                        row_pitch, tile, cluster, positions, act, eps, s);
 }
 
 // The two-pass route. x, y: [B, H*W, C] (channels_last [B, C, H, W]);
 // dtype 0 = f32, 1 = bf16; act 0 = none, 1 = relu, 2 = leaky(0.2);
-// partial: f32 [B, P, C, 2]; stats: f32 [B, C, 2] (mean, rstd) on return.
+// partial: f32 [B, P, C, 2]; stats: f32 [B, C, 2] (mean, rstd) on return;
+// saved: f32 [2, B, C] (mean, clamped variance) written when not null.
 int p2p_instance_norm_act(const void* x, void* y, void* partial, void* stats,
-                          int B, int HW, int C, int dtype, int act, float eps,
-                          int P, void* stream) {
+                          void* saved, int B, int HW, int C, int dtype,
+                          int act, float eps, int P, void* stream) {
   if (B <= 0 || HW <= 0 || C <= 0) return cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return run<__nv_bfloat16>(x, y, (float*)partial, (float*)stats, B, HW, C,
-                              act, eps, P, s);
-  return run<float>(x, y, (float*)partial, (float*)stats, B, HW, C, act, eps,
-                    P, s);
+    return run<__nv_bfloat16>(x, y, (float*)partial, (float*)stats,
+                              (float*)saved, B, HW, C, act, eps, P, s);
+  return run<float>(x, y, (float*)partial, (float*)stats, (float*)saved, B,
+                    HW, C, act, eps, P, s);
 }
 
 // Passes 1 and 2 only (the fused enhancer's entry statistics): mean, rstd

@@ -16,28 +16,29 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.norm import activate, instance_norm_act, instance_norm_act_backward
+from ..ops.norm import activate, instance_norm_act, instance_norm_act_grad
 
 DECONV_MODES = ("same", "torch")
 
 
 class InstanceNormAct(torch.autograd.Function):
     """`instance_norm_act` with a gradient (eps 1e-5): the kernel (or, on the
-    CPU, its twin) forward, ops/norm.instance_norm_act_backward backward. It
-    saves x and y, and y is the next layer's input, which autograd keeps
-    anyway."""
+    CPU, its twin) forward, which also returns the f32 mean and clamped
+    variance of each plane, and `instance_norm_act_grad` (the backward
+    kernel, or its twin) from x, dy and those statistics. It saves x (a
+    cropped view stays a view) and the statistics, not y."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, act: str = "none") -> torch.Tensor:
-        y = instance_norm_act(x, act)
-        ctx.save_for_backward(x, y)
+        y, saved = instance_norm_act(x, act, with_stats=True)
+        ctx.save_for_backward(x, saved)
         ctx.act = act
         return y
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
-        x, y = ctx.saved_tensors
-        return instance_norm_act_backward(x, y, dy, ctx.act), None
+        x, saved = ctx.saved_tensors
+        return instance_norm_act_grad(x, dy, saved, ctx.act), None
 
 
 def instance_norm(x: torch.Tensor, act: str = "none") -> torch.Tensor:

@@ -35,9 +35,15 @@ _SIGNATURES = {
     "p2p_imdct2_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "p2p_mdct2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "p2p_imdct2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "p2p_instance_norm_onepass": (_P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _F,
-                                  _I, _I, _I, _P),
-    "p2p_instance_norm_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "p2p_instance_norm_onepass": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I,
+                                  _F, _I, _I, _I, _P),
+    "p2p_instance_norm_act": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                              _P),
+    "p2p_instance_norm_grad_onepass": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                                       _L, _L, _I, _I, _F, _I, _I, _I, _P),
+    "p2p_instance_norm_grad_twopass": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _L, _L, _L, _L, _I, _I, _F, _I, _I,
+                                       _P),
     "p2p_instance_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "p2p_conv3x3_in": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _F, _I, _I, _I, _I, _P),

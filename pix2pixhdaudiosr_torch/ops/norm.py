@@ -16,11 +16,21 @@ See csrc/instance_norm.cu for what bounds it on the card and how each route
 answers it. A CPU tensor runs the twin; a CUDA tensor launches a kernel
 (counted in `instance_norm_act.launches`, the one-pass ones also in
 `.launches_onepass`, and by (H, W, C) in `.launches_by_shape`) or raises.
-`instance_norm_act_backward` is the closed form of what JAX differentiates
-(plain PyTorch in f32; the JAX package has no backward kernel either), the
-backward of models/layers.InstanceNormAct. `instance_stats` runs the
-statistics passes alone (the fused enhancer folds the normalize into its
-next conv).
+With `with_stats=True` it also returns the f32 statistics the backward
+reads, [2, B, C]: the mean and the clamped variance of each plane.
+
+`instance_norm_act_grad` is the backward of models/layers.InstanceNormAct
+(csrc/instance_norm_bwd.cu; the JAX package has none, it differentiates
+layers.instance_norm through XLA): dx from x, dy and the saved statistics,
+on a one-pass (cluster) or a two-pass route chosen by the shape
+(`plan_instance_norm_grad`), counted in `instance_norm_act_grad.launches`,
+`.launches_by_route` and `.launches_by_shape`; a dy that the kernels cannot
+read in place is copied and counted in `.dy_copies`. Its twin,
+`instance_norm_act_grad_ref`, is the same formulation in plain PyTorch.
+`instance_norm_act_backward` is the closed form that recomputes the
+statistics and reads the slope off y: a second twin, on no path.
+`instance_stats` runs the statistics passes alone (the fused enhancer folds
+the normalize into its next conv).
 """
 
 from __future__ import annotations
@@ -75,6 +85,42 @@ def onepass_smem(positions: int, tile: int, elem: int) -> int:
     return positions * tile * elem + (2 * ONEPASS_WARPS + 4) * tile * 4
 
 
+def grad_onepass_smem(positions: int, tile: int, elem: int) -> int:
+    """Shared memory of a one-pass backward block
+    (csrc/instance_norm_bwd.cu grad_onepass_smem): the staged [positions,
+    tile] slices of x and dy, then f32 scratch of [warps][2][tile] partial
+    sums, [2][tile] block sums, [4][tile] mean, rstd, mean(g), mean(g x^)."""
+    return 2 * positions * tile * elem + (2 * ONEPASS_WARPS + 6) * tile * 4
+
+
+def _onepass_plan(hw: int, row: int, elem: int, staged: int, smem,
+                  block_bytes: int, max_cluster: int, tile_bytes: int,
+                  narrow: bool):
+    """The one-pass plan of `plan_instance_norm` for `staged` tensors held
+    at once (their plane is hw * tile * staged bytes; smem(positions, tile,
+    elem) the block's shared memory), or None where no cluster holds it.
+    `narrow` admits 16-byte tiles."""
+    cap = tile_bytes
+    while cap < 512 and hw * 2 * cap * staged <= SMALL_PLANE:
+        cap *= 2
+    widths = [t for t in (512, 256, 128, 64, 32, 16)
+              if t <= cap and row % t == 0]
+    wide = [t for t in widths if t >= _SECTOR]
+    for t, limit in ([(t, block_bytes) for t in wide]
+                     + [(t, 2 * block_bytes) for t in (widths if narrow
+                                                        else wide)]):
+        plane = hw * t * staged
+        if plane > max_cluster * limit:
+            continue
+        k = min(max_cluster, -(-plane // block_bytes))
+        positions = -(-hw // k)
+        k = -(-hw // positions)    # no block left without positions
+        size = smem(positions, t // elem, elem)
+        if size <= SMEM_LIMIT:
+            return INPlan("onepass", t // elem, k, positions, size)
+    return None
+
+
 @functools.lru_cache(maxsize=256)
 def plan_instance_norm(B: int, H: int, W: int, C: int, dtype: torch.dtype,
                        block_bytes: int = BLOCK_BYTES,
@@ -90,27 +136,34 @@ def plan_instance_norm(B: int, H: int, W: int, C: int, dtype: torch.dtype,
     size, is the fewest blocks of `block_bytes` that hold the plane, at
     most `max_cluster`. Rows that are no multiple of 16 bytes, and planes
     that no cluster holds, take the two-pass route."""
-    elem = dtype.itemsize
     hw, row = H * W, C * dtype.itemsize
     if B < 1 or hw < 1 or row % _VEC:
         return INPlan("twopass")
-    cap = tile_bytes
-    while cap < 512 and hw * 2 * cap <= SMALL_PLANE:
-        cap *= 2
-    widths = [t for t in (512, 256, 128, 64, 32, 16)
-              if t <= cap and row % t == 0]
-    wide = [t for t in widths if t >= _SECTOR]
-    for t, limit in ([(t, block_bytes) for t in wide]
-                     + [(t, 2 * block_bytes) for t in widths]):
-        if hw * t > max_cluster * limit:
-            continue
-        k = min(max_cluster, -(-hw * t // block_bytes))
-        positions = -(-hw // k)
-        k = -(-hw // positions)    # no block left without positions
-        smem = onepass_smem(positions, t // elem, elem)
-        if smem <= SMEM_LIMIT:
-            return INPlan("onepass", t // elem, k, positions, smem)
-    return INPlan("twopass")
+    return _onepass_plan(hw, row, dtype.itemsize, 1, onepass_smem,
+                         block_bytes, max_cluster, tile_bytes,
+                         True) or INPlan("twopass")
+
+
+@functools.lru_cache(maxsize=256)
+def plan_instance_norm_grad(B: int, H: int, W: int, C: int,
+                            dtype: torch.dtype,
+                            narrow: bool = False,
+                            block_bytes: int = BLOCK_BYTES,
+                            max_cluster: int = MAX_CLUSTER,
+                            tile_bytes: int = TILE_BYTES) -> INPlan:
+    """The route of `instance_norm_act_grad` for x [B, C, H, W] of `dtype`
+    (a function of the shape alone), as `plan_instance_norm` with x and dy
+    both staged: a plane of 2 * H*W * tile bytes. A 16-byte tile is taken
+    only with `narrow`: at 512 x 128 x 48, the one training shape where
+    only such a tile fits a cluster, the two-pass route measured faster on
+    an H100 (tools/in_grad_ablation.py, PERF.md). A shape no cluster holds
+    takes the two-pass route."""
+    hw, row = H * W, C * dtype.itemsize
+    if B < 1 or hw < 1 or row % _VEC:
+        return INPlan("twopass")
+    return _onepass_plan(hw, row, dtype.itemsize, 2, grad_onepass_smem,
+                         block_bytes, max_cluster, tile_bytes,
+                         narrow) or INPlan("twopass")
 
 
 def activate(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -125,19 +178,27 @@ def activate(y: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def instance_norm_act_ref(x: torch.Tensor, act: str = "none",
-                          eps: float = 1e-5) -> torch.Tensor:
+                          eps: float = 1e-5, with_stats: bool = False):
     """Twin of `instance_norm_act`. x: [B, C, H, W], any layout."""
-    mean, rstd = instance_stats_ref(x, eps)
+    mean, var = instance_moments_ref(x)
+    rstd = torch.rsqrt(var + eps)
     y = (x.float() - mean[:, :, None, None]) * rstd[:, :, None, None]
-    return activate(y, act).to(x.dtype)
+    y = activate(y, act).to(x.dtype)
+    return (y, torch.stack((mean, var))) if with_stats else y
+
+
+def instance_moments_ref(x: torch.Tensor):
+    """f32 (mean, max(E[x^2] - mean^2, 0)), each [B, C], of x [B, C, H, W]:
+    the statistics `instance_norm_act` saves for its backward."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3))
+    ex2 = (xf * xf).mean(dim=(2, 3))
+    return mean, torch.clamp(ex2 - mean * mean, min=0.0)
 
 
 def instance_stats_ref(x: torch.Tensor, eps: float = 1e-5):
     """Twin of `instance_stats`. x: [B, C, H, W], any layout."""
-    xf = x.float()
-    mean = xf.mean(dim=(2, 3))
-    ex2 = (xf * xf).mean(dim=(2, 3))
-    var = torch.clamp(ex2 - mean * mean, min=0.0)
+    mean, var = instance_moments_ref(x)
     return mean, torch.rsqrt(var + eps)
 
 
@@ -196,33 +257,41 @@ def nhwc_pitches(name: str, x: torch.Tensor) -> Tuple[int, int]:
     return sample, row
 
 
+def _ptr(t):
+    """A tensor's data pointer for ctypes, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
 def _launch_onepass(x: torch.Tensor, y: torch.Tensor, plan: INPlan,
-                    pitches: Tuple[int, int], act: str, eps: float) -> None:
+                    pitches: Tuple[int, int], act: str, eps: float,
+                    saved=None) -> None:
     B, C, H, W = x.shape
     _cuda.launch("p2p_instance_norm_onepass", x.device, x.data_ptr(),
-                 y.data_ptr(), B, H, W, C, pitches[0], pitches[1],
-                 int(x.dtype == torch.bfloat16), ACTS[act], float(eps),
-                 plan.tile, plan.cluster, plan.positions)
+                 y.data_ptr(), _ptr(saved), B, H, W, C, pitches[0],
+                 pitches[1], int(x.dtype == torch.bfloat16), ACTS[act],
+                 float(eps), plan.tile, plan.cluster, plan.positions)
 
 
 def _launch_twopass(x: torch.Tensor, y: torch.Tensor, act: str,
-                    eps: float) -> None:
+                    eps: float, saved=None) -> None:
     B, C, H, W = x.shape
     P = stat_chunks(B, H * W, C)
     partial = torch.empty(B, P, C, 2, dtype=torch.float32, device=x.device)
     stats = torch.empty(B, C, 2, dtype=torch.float32, device=x.device)
     _cuda.launch("p2p_instance_norm_act", x.device, x.data_ptr(), y.data_ptr(),
-                 partial.data_ptr(), stats.data_ptr(), B, H * W, C,
-                 int(x.dtype == torch.bfloat16), ACTS[act], float(eps), P)
+                 partial.data_ptr(), stats.data_ptr(), _ptr(saved), B, H * W,
+                 C, int(x.dtype == torch.bfloat16), ACTS[act], float(eps), P)
 
 
 def instance_norm_act(x: torch.Tensor, act: str = "none",
-                      eps: float = 1e-5) -> torch.Tensor:
+                      eps: float = 1e-5, with_stats: bool = False):
     """InstanceNorm2d(affine=False) + none/relu/leaky(0.2) over H, W.
     x: [B, C, H, W]; on CUDA float32 or bfloat16 with rows of W*C
-    contiguous (`nhwc_pitches`). Returns the input dtype, channels_last."""
+    contiguous (`nhwc_pitches`). Returns y, of the input dtype and
+    channels_last; with `with_stats`, (y, f32 [2, B, C] mean and clamped
+    variance), what `instance_norm_act_grad` reads."""
     if x.device.type == "cpu":
-        return instance_norm_act_ref(x, act, eps)
+        return instance_norm_act_ref(x, act, eps, with_stats)
     _cuda.check_cuda("instance_norm_act", x)
     pitches = nhwc_pitches("instance_norm_act", x)
     if act not in ACTS:
@@ -230,19 +299,21 @@ def instance_norm_act(x: torch.Tensor, act: str = "none",
     B, C, H, W = x.shape
     plan = plan_instance_norm(B, H, W, C, x.dtype)
     y = torch.empty_like(x, memory_format=torch.channels_last)
+    saved = (torch.empty(2, B, C, dtype=torch.float32, device=x.device)
+             if with_stats else None)
     if plan.route == "onepass":
         if x.data_ptr() % _VEC:
             raise ValueError("instance_norm_act: the one-pass route needs a "
                              "16-byte aligned start")
-        _launch_onepass(x, y, plan, pitches, act, eps)
+        _launch_onepass(x, y, plan, pitches, act, eps, saved)
         instance_norm_act.launches_onepass += 1
     else:  # the two-pass kernels read a contiguous tensor: copy a view
         _launch_twopass(x.contiguous(memory_format=torch.channels_last), y,
-                        act, eps)
+                        act, eps, saved)
     instance_norm_act.launches += 1
     shapes = instance_norm_act.launches_by_shape
     shapes[(H, W, C)] = shapes.get((H, W, C), 0) + 1
-    return y
+    return (y, saved) if with_stats else y
 
 
 instance_norm_act.launches = 0
@@ -274,11 +345,146 @@ def instance_stats(x: torch.Tensor, eps: float = 1e-5):
 instance_stats.launches = 0
 
 
+def _slope_times(g: torch.Tensor, xhat: torch.Tensor, act: str):
+    """g * act'(x^) as a select: relu 1 where x^ > 0, leaky 1 where
+    x^ >= 0, else 0.2 (csrc/instance_norm_bwd.cu slope_times)."""
+    if act == "relu":
+        return torch.where(xhat > 0, g, 0.0)
+    if act == "leaky":
+        return torch.where(xhat >= 0, g, 0.2 * g)
+    if act == "none":
+        return g
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def instance_norm_act_grad_ref(x: torch.Tensor, dy: torch.Tensor,
+                               saved: torch.Tensor, act: str = "none",
+                               eps: float = 1e-5) -> torch.Tensor:
+    """Twin of `instance_norm_act_grad`, in its formulation: from the
+    forward's saved f32 (mean, clamped var), rstd = rsqrt(var + eps),
+    x^ = (x - mean) rstd, g = dy act'(x^) and
+    dx = rstd (g - mean(g) - x^ mean(g x^)), the means over H, W, with no
+    variance term where var was clamped to 0. x's dtype, channels_last."""
+    mean, var = saved[0, :, :, None, None], saved[1, :, :, None, None]
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x.float() - mean) * rstd
+    g = _slope_times(dy.float(), xhat, act)
+    g_mean = g.mean(dim=(2, 3), keepdim=True)
+    gx_mean = torch.where(var > 0, (g * xhat).mean(dim=(2, 3), keepdim=True),
+                          0.0)
+    return (rstd * (g - g_mean - xhat * gx_mean)).to(
+        x.dtype, memory_format=torch.channels_last)
+
+
+def grad_chunks(B: int, HW: int, nv: int) -> int:
+    """Row chunks P per sample for the backward's two-pass partial sums over
+    nv vectors a position (csrc/instance_norm_bwd.cu
+    in_grad_partial_kernel): enough blocks to fill the card, and at most
+    _MAX_ROWS_PER_THREAD rows summed by one thread."""
+    ctv = min(nv, _THREADS)
+    fill = -(-_TARGET_BLOCKS // (B * -(-nv // ctv)))
+    accuracy = -(-HW // (_THREADS // ctv * _MAX_ROWS_PER_THREAD))
+    return max(1, min(HW, max(fill, accuracy)))
+
+
+def _readable_dy(x: torch.Tensor, dy: torch.Tensor, onepass: bool):
+    """(dy, its pitches): dy as autograd hands it where the kernels read it
+    in place (x's dtype, rows of W*C contiguous, 16-byte pitches and start
+    on the one-pass route), else a channels_last copy, counted in
+    `instance_norm_act_grad.dy_copies` (and by (H, W, C))."""
+    if dy.dtype == x.dtype:
+        try:
+            pitches = nhwc_pitches("instance_norm_act_grad", dy)
+        except ValueError:
+            pitches = None
+        if pitches is not None and not (onepass and dy.data_ptr() % _VEC):
+            return dy, pitches
+    dy = dy.to(x.dtype, memory_format=torch.channels_last)
+    fn = instance_norm_act_grad
+    fn.dy_copies += 1
+    B, C, H, W = x.shape
+    fn.dy_copies_by_shape[(H, W, C)] = fn.dy_copies_by_shape.get((H, W, C),
+                                                                 0) + 1
+    return dy, nhwc_pitches("instance_norm_act_grad", dy)
+
+
+def instance_norm_act_grad(x: torch.Tensor, dy: torch.Tensor,
+                           saved: torch.Tensor, act: str = "none",
+                           eps: float = 1e-5,
+                           plan: INPlan = None) -> torch.Tensor:
+    """dL/dx of y = act(instance_norm(x)) given dL/dy and the statistics
+    the forward saved (`instance_norm_act(..., with_stats=True)`: f32
+    [2, B, C], mean and clamped variance). x: [B, C, H, W] as the forward
+    took it (on CUDA: rows of W*C contiguous, `nhwc_pitches`; a cropped
+    view is read in place); dy: x's shape. Returns x's dtype and shape,
+    channels_last. `plan` forces a route (`plan_instance_norm_grad`'s by
+    default)."""
+    if x.device.type == "cpu":
+        return instance_norm_act_grad_ref(x, dy, saved, act, eps)
+    name = "instance_norm_act_grad"
+    _cuda.check_cuda(name, x, dy, saved)
+    x_pitches = nhwc_pitches(name, x)
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    B, C, H, W = x.shape
+    if dy.shape != x.shape:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
+    if (saved.shape != (2, B, C) or saved.dtype != torch.float32
+            or not saved.is_contiguous()):
+        raise ValueError(f"{name}: saved statistics must be contiguous f32 "
+                         f"[2, {B}, {C}], got {saved.dtype} "
+                         f"{tuple(saved.shape)}")
+    plan = plan or plan_instance_norm_grad(B, H, W, C, x.dtype)
+    onepass = plan.route == "onepass"
+    if onepass and x.data_ptr() % _VEC:
+        raise ValueError(f"{name}: the one-pass route needs a 16-byte "
+                         f"aligned x")
+    dy, dy_pitches = _readable_dy(x, dy, onepass)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                     memory_format=torch.channels_last)
+    dtype = int(x.dtype == torch.bfloat16)
+    if onepass:
+        _cuda.launch("p2p_instance_norm_grad_onepass", x.device, x.data_ptr(),
+                     dy.data_ptr(), dx.data_ptr(), saved.data_ptr(), B, H, W,
+                     C, *x_pitches, *dy_pitches, dtype, ACTS[act], float(eps),
+                     plan.tile, plan.cluster, plan.positions)
+    else:
+        vec = _VEC // x.element_size()
+        if (C % vec or any(p % vec for p in (*x_pitches, *dy_pitches))
+                or any(t.data_ptr() % _VEC for t in (x, dy))):
+            vec = 1
+        P = grad_chunks(B, H * W, C // vec)
+        partial = torch.empty(B, P, C, 2, dtype=torch.float32,
+                              device=x.device)
+        coef = torch.empty(B, C, 4, dtype=torch.float32, device=x.device)
+        _cuda.launch("p2p_instance_norm_grad_twopass", x.device, x.data_ptr(),
+                     dy.data_ptr(), dx.data_ptr(), saved.data_ptr(),
+                     partial.data_ptr(), coef.data_ptr(), B, H, W, C,
+                     *x_pitches, *dy_pitches, dtype, ACTS[act], float(eps), P,
+                     vec)
+    fn = instance_norm_act_grad
+    fn.launches += 1
+    fn.launches_by_route[plan.route] = fn.launches_by_route.get(plan.route,
+                                                                0) + 1
+    fn.launches_by_shape[(H, W, C)] = fn.launches_by_shape.get((H, W, C),
+                                                               0) + 1
+    return dx
+
+
+instance_norm_act_grad.launches = 0
+instance_norm_act_grad.launches_by_route = {}
+instance_norm_act_grad.launches_by_shape = {}
+instance_norm_act_grad.dy_copies = 0
+instance_norm_act_grad.dy_copies_by_shape = {}
+
+
 def instance_norm_act_backward(x: torch.Tensor, y: torch.Tensor,
                                dy: torch.Tensor, act: str = "none",
                                eps: float = 1e-5) -> torch.Tensor:
-    """dL/dx of y = act(instance_norm(x)) given dL/dy, in f32 from the saved
-    input: x^ = (x - mean) rstd, g = dy act'(y), and
+    """The closed form (a second twin of `instance_norm_act_grad`, on no
+    path): dL/dx of y = act(instance_norm(x)) given dL/dy, in f32, the
+    statistics recomputed from x: x^ = (x - mean) rstd,
+    g = dy act'(y), and
     dx = rstd (g - mean(g) - x^ mean(g x^)), the means over H, W; where
     E[x^2] - mean^2 was clamped to 0 the variance passes no gradient. The
     activation's slope is read off the forward's own output y (relu: y > 0,

@@ -195,12 +195,13 @@ D_IN_SHAPES = [(129, 33, 128), (65, 17, 256), (66, 18, 512), (65, 17, 128),
 @pytest.mark.parametrize("hwc,act", [(s, "relu") for s in IN_SHAPES]
                          + [(s, "leaky") for s in D_IN_SHAPES])
 def test_instance_norm_function_matches_twin_autograd(cuda, hwc, act, dtype):
-    """InstanceNormAct (the kernel forward, the closed-form backward) at
-    every training InstanceNorm shape, batch 2, against the twin
+    """InstanceNormAct (the kernel forward, the backward kernel) at every
+    training InstanceNorm shape, batch 2, against the twins
     (chip_smoke.in_grad_check): y within 1e-5 in f32 and one bf16 ulp in
-    bf16; dx against autograd through the twin within 1e-4 max|dx| in f32,
-    one bf16 ulp (+ that floor) in bf16, in x's dtype and shape; the
-    forward on the one-pass route."""
+    bf16; the saved statistics; dx against the backward's twin and against
+    autograd through the forward's twin within 1e-4 max|dx| in f32, one
+    bf16 ulp (+ that floor) in bf16, in x's dtype and shape, with no slope
+    flip; the forward on the one-pass route."""
     import chip_smoke
     from pix2pixhdaudiosr_torch.ops.norm import instance_norm_act
     H, W, C = hwc
@@ -210,6 +211,115 @@ def test_instance_norm_function_matches_twin_autograd(cuda, hwc, act, dtype):
     res = chip_smoke.in_grad_check(x, act, dy)
     assert instance_norm_act.launches_onepass == n1 + 1
     assert res["ok"], res
+
+
+def _assert_grad_close(got, want):
+    """dx within one bf16 ulp + 1e-4 max|dx| (bf16), 1e-4 max|dx| (f32)."""
+    import chip_smoke
+    assert got.dtype == want.dtype and got.shape == want.shape
+    floor = 1e-4 * want.float().abs().max().item()
+    if got.dtype == torch.float32:
+        assert (got - want).abs().max().item() <= floor
+    else:
+        assert chip_smoke.ulp_excess(got, want, floor) <= 0
+
+
+@pytest.mark.parametrize("route", ["onepass", "twopass"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hwc,act", [(s, "relu") for s in IN_SHAPES]
+                         + [(s, "leaky") for s in D_IN_SHAPES])
+def test_instance_norm_grad_kernel_matches_twin(cuda, hwc, act, dtype, route):
+    """The backward kernel at every training InstanceNorm shape, batch 2, on
+    both routes (one-pass with 16-byte tiles admitted, so every shape has
+    one): dx within tolerance of the twin from the forward's saved
+    statistics, channels_last in x's dtype, bit-identical over two runs,
+    each launch counted on its route; the forward's saved statistics equal
+    to the twin's (mean within 1e-5, variance within 1e-5 relative)."""
+    from pix2pixhdaudiosr_torch.ops import norm
+    H, W, C = hwc
+    x = _in_input(cuda, (2, C, H, W), dtype)
+    dy = _in_input(cuda, (2, C, H, W), dtype, seed=9)
+    y, saved = norm.instance_norm_act(x, act, with_stats=True)
+    mean, var = norm.instance_moments_ref(x)
+    torch.testing.assert_close(saved[0], mean, atol=1e-5, rtol=0)
+    torch.testing.assert_close(saved[1], var, atol=0, rtol=1e-5)
+    plan = (norm.plan_instance_norm_grad(2, H, W, C, x.dtype, narrow=True)
+            if route == "onepass" else norm.INPlan("twopass"))
+    assert plan.route == route
+    n = norm.instance_norm_act_grad.launches_by_route.get(route, 0)
+    got = norm.instance_norm_act_grad(x, dy, saved, act, plan=plan)
+    assert norm.instance_norm_act_grad.launches_by_route[route] == n + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _assert_grad_close(got, norm.instance_norm_act_grad_ref(x, dy, saved, act))
+    assert torch.equal(norm.instance_norm_act_grad(x, dy, saved, act,
+                                                   plan=plan), got)
+
+
+@pytest.mark.parametrize("route", ["onepass", "twopass"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_instance_norm_grad_reads_crop_and_padded_dy(cuda, dtype, route):
+    """Through the Function: x the same-mode deconv crop [..., :2H, :2W]
+    and dy a crop of a padded channels_last tensor are both read in place
+    (no dy copy), dx lands in the full tensor's grad (zero outside the
+    view), and equals the dx of contiguous copies bit for bit."""
+    from pix2pixhdaudiosr_torch.models.layers import InstanceNormAct
+    from pix2pixhdaudiosr_torch.ops import norm
+    full = _in_input(cuda, (2, 48, 65, 33), dtype).requires_grad_(True)
+    x = full[..., :64, :32]
+    dy = _in_input(cuda, (2, 48, 66, 34), dtype, seed=9)[..., 1:65, :32]
+    plan = (norm.plan_instance_norm_grad(2, 64, 32, 48, x.dtype, narrow=True)
+            if route == "onepass" else norm.INPlan("twopass"))
+    grad = norm.instance_norm_act_grad
+    copies, n = grad.dy_copies, grad.launches
+
+    def plain(x_, dy_):
+        y, saved = norm.instance_norm_act(x_, "relu", with_stats=True)
+        return grad(x_, dy_, saved, "relu", plan=plan)
+    got = plain(x, dy)
+    assert grad.dy_copies == copies and grad.launches == n + 1
+    want = plain(x.detach().contiguous(memory_format=torch.channels_last),
+                 dy.contiguous(memory_format=torch.channels_last))
+    assert torch.equal(got, want)
+    if route == "onepass" and plan == norm.plan_instance_norm_grad(
+            2, 64, 32, 48, x.dtype):
+        y = InstanceNormAct.apply(x, "relu")
+        y.backward(dy)
+        assert torch.equal(full.grad[..., :64, :32], got)
+        assert not full.grad[..., 64:, :].any() and not full.grad[..., 32:].any()
+
+
+def test_instance_norm_grad_copies_an_nchw_dy_and_counts_it(cuda):
+    """A dy that is no channels_last tensor (NCHW-contiguous, an expanded
+    one) is copied by the wrapper, counted in dy_copies by shape, and gives
+    the dx of its channels_last copy."""
+    from pix2pixhdaudiosr_torch.ops import norm
+    grad = norm.instance_norm_act_grad
+    x = _in_input(cuda, (2, 96, 16, 8), "bfloat16")
+    y, saved = norm.instance_norm_act(x, "none", with_stats=True)
+    for dy in (_in_input(cuda, (2, 96, 16, 8), "bfloat16", seed=9).contiguous(),
+               torch.ones(1, 1, 1, 1, device=cuda,
+                          dtype=torch.bfloat16).expand(2, 96, 16, 8)):
+        copies = grad.dy_copies_by_shape.get((16, 8, 96), 0)
+        got = grad(x, dy, saved, "none")
+        assert grad.dy_copies_by_shape[(16, 8, 96)] == copies + 1
+        assert torch.equal(got, grad(
+            x, dy.contiguous(memory_format=torch.channels_last), saved, "none"))
+
+
+def test_instance_norm_grad_constant_plane_drops_the_variance_term(cuda):
+    """A constant plane (the variance clamped to 0): the kernel's dx equals
+    rstd (g - mean(g)) of the twin, on both routes."""
+    from pix2pixhdaudiosr_torch.ops import norm
+    x = _in_input(cuda, (2, 16, 8, 8), "float32")
+    x[:, 3] = 0.75   # exact sums: E[x^2] - mean^2 is 0
+    dy = _in_input(cuda, (2, 16, 8, 8), "float32", seed=9)
+    y, saved = norm.instance_norm_act(x, "leaky", with_stats=True)
+    assert (saved[1, :, 3] == 0).all()
+    want = norm.instance_norm_act_grad_ref(x, dy, saved, "leaky")
+    for plan in (norm.plan_instance_norm_grad(2, 8, 8, 16, x.dtype),
+                 norm.INPlan("twopass")):
+        _assert_grad_close(norm.instance_norm_act_grad(
+            x, dy, saved, "leaky", plan=plan), want)
 
 
 @pytest.mark.parametrize("C", [2, 4, 64])

@@ -127,9 +127,9 @@ def test_deconv_crop_reaches_the_norm_uncopied(monkeypatch):
     itself, not a copy; the CPU twin normalizes it as it is."""
     seen = []
 
-    def record(x, act):
+    def record(x, act, **kw):
         seen.append(x)
-        return norm.instance_norm_act(x, act)
+        return norm.instance_norm_act(x, act, **kw)
 
     monkeypatch.setattr(tlayers, "instance_norm_act", record)
     m = tlayers.ConvTransposeIN(8, 16, "same").to(memory_format=torch.channels_last)
