@@ -28,7 +28,12 @@ Phases, each fatal on failure (exit code 1):
      there is one (library_ms) and the kernel's bound (bound_ms: bytes over
      HBM bandwidth or operations over their peak rate, the larger); then
      the int8 trunk conv at [128, 1536, 16, 4] bf16: its int32 accumulator
-     on the card equal to the CPU's;
+     on the card equal to the CPU's; and B2's backward (imdct2_grad: B1's
+     kernel on the transposed inverse basis) at the HiFi-GAN recipe's
+     [32, 128, 512] f32 against autograd through imdct2's twin (atol 1e-5
+     max|dspec|, on the tensor-core route, and through ops/mdct.IMDCT2Fn
+     with the codec's crop), timed beside its twin and autograd through
+     the twin;
   4. write a 5 s synthetic 48 kHz wav;
   5. build the flagship generator (LocalEnhancer G3L2, ngf 48, 156,050,690
      parameters) with seeded N(0, 0.02) weights, saved and loaded as .pth;
@@ -58,8 +63,9 @@ Phases, each fatal on failure (exit code 1):
      plain forward, and the flagship's int8 size against f32 and bf16;
   9. B3 with its gradient (models/layers.InstanceNormAct: the kernel
      forward, which saves each plane's mean and variance, and the backward
-     kernel of csrc/instance_norm_bwd.cu) at the 6 generator and the 6
-     discriminator InstanceNorm shapes at batch 64, f32 and bf16: y against
+     kernel of csrc/instance_norm_bwd.cu) at the 6 generator, the 6
+     discriminator and the 6 time-domain discriminator InstanceNorm shapes
+     at batch 64, f32 and bf16: y against
      the twin (1e-5 in f32, one bf16 ulp in bf16), the saved statistics
      against the twin's, dx against the backward's twin and against
      autograd through the forward's twin (1e-4 max|dx| in f32, one bf16
@@ -73,16 +79,29 @@ Phases, each fatal on failure (exit code 1):
      through F.instance_norm (the library yardstick) and its bound (3
      planes; the 4-plane figure of earlier records beside it);
  10. one train step of a toy config (n_fft 64, LocalEnhancer ngf 4,
-     PatchGAN ndf 4), CUDA against CPU in f32: every loss within
-     rtol 1e-4; B3's output at each of the step's InstanceNorm inputs
-     within 4x the twin's distance (+ 1e-5) of a float64 InstanceNorm;
+     PatchGAN ndf 4), CUDA against CPU in f32, plain, then with the
+     recipes' --use_match_loss --use_time_D --lambda_time 10 (the frames'
+     floor --min_value at 1e-3) and with --use_hifigan_D (TOY_RECIPES):
+     every loss within rtol 1e-4 (+ 1e-9) of a CPU step on the card's
+     InstanceNorm outputs (plain: of the independent CPU step too); B3's
+     output at each of the step's InstanceNorm inputs within 4x the
+     twin's distance (+ 1e-5) of a float64 InstanceNorm;
      against a CPU step that takes the card's InstanceNorm outputs, and
      one that takes the twin's at the card's inputs, every grad leaf
      within 1e-3 max|g| (a conv bias feeding an InstanceNorm, whose exact
      grad is 0, within 1e-3 of its net's max) and every updated weight
      within 2 lr (two opposite Adam steps); against the independent CPU
-     step, D's grads within the same bound and G's within 40x it; the
-     backward kernel launched once for each InstanceNorm of the card step;
+     step, D's grads within the same bound, time_D's and hifigan_D's
+     within 1e-3 of their net's max, and G's within 40x the bound (with
+     --use_time_D, of G's max); each CPU step on the card step's branch
+     of every InstanceNorm activation and of the time-domain D's dB
+     floor, where an element within rounding of a kink may fall either
+     side (the independent step on its own branches is printed too); the
+     backward kernel launched once for each InstanceNorm of the card step,
+     with the HiFi-GAN D IMDCT2 and its backward once each, and G's grad
+     from G_GAN_t alone not 0. The plain step also replays the card's
+     encoder output into a CPU step and reads every generator conv output
+     and the feature-matching L1's signs of both steps (the G-grad gap);
  11. the flagship train step (G and the 2-scale PatchGAN at ndf 64, bf16
      compute, f32 params and Adam moments) at batch 64 through
      trainer.make_train_step: 2 warm-up and 5 timed steps (ms/step,
@@ -91,11 +110,19 @@ Phases, each fatal on failure (exit code 1):
      the dy it copied) and B1 tensor-core launches a step (2), every loss
      finite and every parameter moved, and a torch.profiler trace of one
      step split into forward, backward and optimizer, with the InstanceNorm
-     backward's device ms and share;
+     backward's device ms and share; then the two recipe steps at full
+     width: --use_match_loss --use_time_D --lambda_time 10 at batch 64 and
+     --use_hifigan_D at batch 32 (RECIPES), each the same measurements,
+     every parameter of every net moved, launches a step as
+     expected_step_launches (time-D: B3 and its backward 58, B1 2;
+     HiFi-GAN: B3 40, B1 2, B2 1 and its backward 1, all on the fast
+     routes) and the optional losses' codec half in f32 in the bf16 step;
  12. the training CLI (python -m pix2pixhdaudiosr_torch.train_loop) at
      flagship width on a synthetic wav corpus: 2 steps at batch 2 (B3 and
      its backward 80 launches each), then the generate CLI on the
-     latest_net_G.pth it saved;
+     latest_net_G.pth it saved; then the CLI with the time-D recipe's
+     flags for 2 steps at batch 2 and --continue_train from its `latest`
+     (G, D and time_D equal to the saved weights before the first step);
  13. the CLIs at their default behaviours, flagship width, on 8 one-second
      files, FLAC (written by the port's write_flac) and wav: where
      matplotlib or PIL is missing, the training and generate CLIs without
@@ -122,9 +149,11 @@ Phases, each fatal on failure (exit code 1):
      with it cold and warm.
 Each phase prints its seconds ([phase] lines).
 The line before the last is {"kernels": [...]} (`launches` from one
-serve forward, and for the InstanceNorm backward, which serving never
-launches, from one flagship train step; `serve_launches` from one plain
-serve forward and `train_launches_per_step` from one flagship train step);
+serve forward, for the InstanceNorm backward, which serving never
+launches, from one flagship train step, and for B2's backward from one
+HiFi-GAN recipe step; `serve_launches` from one plain serve forward,
+`train_launches_per_step` from one flagship train step and
+`recipe_launches_per_step` from one step of each recipe);
 the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
 with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
@@ -134,6 +163,7 @@ torch.backends.cudnn.allow_tf32 both False).
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -160,6 +190,10 @@ KERNELS = {
               "pix2pixhdaudiosr_tpu/ops/dct_pallas.py:85"),
     "imdct2": ("pix2pixhdaudiosr_torch/csrc/mdct.cu",
                "pix2pixhdaudiosr_tpu/ops/dct_pallas.py:134"),
+    # B2's gradient: B1's kernel on the transposed inverse basis (XLA
+    # differentiates the JAX package's inverse, ops/mdct.py:120-139)
+    "imdct2_grad": ("pix2pixhdaudiosr_torch/csrc/mdct.cu",
+                    "pix2pixhdaudiosr_tpu/ops/dct_pallas.py:134"),
     "instance_norm_act": ("pix2pixhdaudiosr_torch/csrc/instance_norm.cu",
                           "pix2pixhdaudiosr_tpu/ops/norm_pallas.py:49"),
     # B3's gradient: the TPU kernel has none (XLA differentiates
@@ -194,10 +228,25 @@ IN_LAUNCHES = {"plain": 22, "fused_enhancer": 17, "int8_trunk": 22}
 # on a [B, 512, 128, 4] pair: scale 1, then scale 0
 D_IN_SHAPES = [(129, 33, 128), (65, 17, 256), (66, 18, 512), (65, 17, 128),
                (33, 9, 256), (34, 10, 512)]
+# the time-domain discriminator's (--use_time_D) on its [B, 2, T, n_fft]
+# = [B, 2, 128, 512] input: D's shapes with H and W swapped
+TIME_D_IN_SHAPES = [(w, h, c) for h, w, c in D_IN_SHAPES]
 TRAIN_BATCH = 64
 # a train step's InstanceNorm launches: 22 in G and 6 in each of 3 D
 # forwards; its MDCT2 launches: the lr and the hr encode
 TRAIN_IN_LAUNCHES, TRAIN_MDCT_LAUNCHES = 40, 2
+# and the time-domain D's (--use_time_D): 6 in each of its 3 forwards
+TIME_D_IN_LAUNCHES = 18
+# the recipe steps at full width (scripts/train_recipes.sh): the VCTK time-D
+# + match loss run (:168-171) at batch 64, the HiFi-GAN D run (:162-164) at
+# batch 32
+RECIPES = ((["--use_match_loss", "--use_time_D", "--lambda_time", "10"],
+            TRAIN_BATCH), (["--use_hifigan_D"], 32))
+# the recipes' flags for the CUDA-vs-CPU toy step; the time-domain D's with
+# the frames' dB floor (--min_value) at 1e-3, since at 1e-7 its grads follow
+# the f32 rounding of the frames just above the floor, which weigh 8.7/f
+# (tests/test_torch_match_time_d.py)
+TOY_RECIPES = (RECIPES[0][0] + ["--min_value", "1e-3"], RECIPES[1][0])
 # the in-training eval's launches a validation batch (trainer.make_eval_step):
 # B3 in G's forward (as a plain serve forward), B1 for the lr encode, B2 for
 # the inverse
@@ -217,7 +266,10 @@ CLI_FILES, CLI_STEPS = 8, 3
 TOY_SEG = 480
 # the CUDA-vs-CPU train step's G grads, card against an independent CPU
 # step, within this many times 1e-3 max|g| a leaf: 2x the 20.1 read on an
-# H100, where the two steps' InstanceNorm outputs were 1.67e-4 apart
+# H100, which one element of the feature-matching L1 makes: |D(fake) -
+# D(real)| there is within rounding of 0 and takes opposite signs in the
+# two steps (phase 10's fm_l1_sign_flips), a jump in its subgradient that
+# a 2e-6 perturbation of G's conv outputs on the CPU alone reproduces
 INDEPENDENT_G_LIMIT = 40
 TOY_TRAIN = ["--netG", "local", "--ngf", "4", "--n_downsample_global", "2",
              "--n_blocks_global", "1", "--n_local_enhancers", "1",
@@ -385,10 +437,68 @@ def phase_kernels(dev, batch: int = 128, in_batch: int = 16):
             if (hop, b) == (256, batch):
                 rec[name] = r
 
+    rec["imdct2_grad"] = phase_imdct2_grad(dev, gen)
+    detail["imdct2_grad"] = rec["imdct2_grad"]
     rec["instance_norm_act"], in_detail = phase_instance_norm(
         dev, gen, batch, in_batch)
     detail.update(in_detail)
     return rec, detail
+
+
+def phase_imdct2_grad(dev, gen, batch: int = RECIPES[1][1]) -> dict:
+    """B2's backward (mdct_kernels.imdct2_grad: B1's kernel on the codec's
+    transposed inverse basis) at the HiFi-GAN recipe's [batch, 128, 512],
+    f32: against autograd through imdct2's twin within atol 1e-5
+    max|dspec|, on the tensor-core route; then through ops/mdct.IMDCT2Fn
+    (the codec's un-segmented inverse, crop and all) against autograd
+    through the twin, at the same tolerance. Timed with CUDA events beside
+    its twin (B1's twin on basis^T) and the library yardstick (autograd
+    through the twin: fold's backward and a matmul)."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import mdct_kernels as mk
+    from pix2pixhdaudiosr_torch.ops import framing
+    from pix2pixhdaudiosr_torch.ops.mdct import IMDCT2
+    from pix2pixhdaudiosr_torch.ops.window import kbdwin
+    hop, win = 256, 512
+    inv = IMDCT2(n_fft=512, hop_length=hop, win_length=win, window=kbdwin(win),
+                 device=dev)
+    spec = torch.randn(batch, 128, 512, generator=gen, device=dev) * 0.3
+    dy = torch.randn(batch, 127 * hop + win, generator=gen, device=dev)
+    n, n_tc = mk.imdct2_grad.launches, mk.imdct2_grad.launches_tc
+    got = mk.imdct2_grad(dy, inv.basis_t, hop, inv.planes_t)
+    launched = (mk.imdct2_grad.launches - n, mk.imdct2_grad.launches_tc - n_tc)
+    sr = spec.detach().requires_grad_(True)
+    y_ref = mk.imdct2_ref(sr, inv.basis, hop)
+    (want,) = torch.autograd.grad(y_ref, sr, dy, retain_graph=True)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    # the Function on the codec's path: crop, kernel forward, kernel backward
+    dyc = dy[:, win // 2: -(win // 2)].contiguous()
+    sk = spec.detach().requires_grad_(True)
+    (got_fn,) = torch.autograd.grad(inv(sk), sk, dyc)
+    sr2 = spec.detach().requires_grad_(True)
+    (want_fn,) = torch.autograd.grad(
+        framing.center_crop(mk.imdct2_ref(sr2, inv.basis, hop), win), sr2, dyc)
+    err_fn = (got_fn - want_fn).abs().max().item()
+    torch.cuda.synchronize()
+    check(launched == (1, 1), f"imdct2_grad: launches (all, tensor-core) "
+          f"{launched}, expected one on the tensor-core route")
+    check(err <= 1e-5 * scale and err_fn <= 1e-5 * want_fn.abs().max().item(),
+          f"imdct2_grad disagrees with autograd through the twin: {err}, "
+          f"through IMDCT2Fn {err_fn} (max|dspec| {scale})")
+    flop = 2 * spec.numel() * win
+    r = dict(shape=f"B={batch} T=128 512/256 f32", route="tensor-core",
+             max_abs_err=err, max_abs_err_function=err_fn, max_abs_dspec=scale,
+             ms=cuda_ms(lambda: mk.imdct2_grad(dy, inv.basis_t, hop, inv.planes_t)),
+             plain_ms=cuda_ms(lambda: mk.imdct2_grad_ref(dy, inv.basis_t, hop)),
+             library_ms=cuda_ms(lambda: torch.autograd.grad(
+                 y_ref, sr, dy, retain_graph=True)),
+             device_ms=device_ms(
+                 lambda: mk.imdct2_grad(dy, inv.basis_t, hop, inv.planes_t)),
+             **bound(4 * (dy.numel() + spec.numel()) + 2 * 4 * win * 512,
+                     3 * flop, TF32_FLOPS))
+    print("[kernels] imdct2_grad " + json.dumps(r))
+    return r
 
 
 def phase_instance_norm(dev, gen, batch: int, in_batch: int):
@@ -1158,7 +1268,8 @@ def in_grad_bound(x) -> dict:
 
 def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
     """B3 with its gradient at every training InstanceNorm shape (the
-    generator's with relu and none, the discriminator's with leaky), batch
+    generator's with relu and none, the discriminator's and the time-domain
+    discriminator's with leaky), batch
     `batch`, f32 and bf16: in_grad_check (y, the saved statistics, dx
     against the backward's twin and autograd through the forward's twin, 0
     slope flips), each backward launch counted on the planner's route, and
@@ -1175,7 +1286,8 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
     from pix2pixhdaudiosr_torch.ops import norm
     gen = torch.Generator(device=dev).manual_seed(12)
     fn, grad, rows = norm.instance_norm_act, norm.instance_norm_act_grad, {}
-    for shapes, acts in ((IN_SHAPES, ("relu", "none")), (D_IN_SHAPES, ("leaky",))):
+    for shapes, acts in ((IN_SHAPES, ("relu", "none")),
+                         (D_IN_SHAPES + TIME_D_IN_SHAPES, ("leaky",))):
         for H, W, C in shapes:
             row = {}
             for dtype in (torch.float32, torch.bfloat16):
@@ -1333,9 +1445,120 @@ def in_witness(calls) -> dict:
                 twin_f64=max(r["twin_f64"] for r in rows))
 
 
-def phase_train_reference(dev) -> dict:
-    """One make_train_step step of TOY_TRAIN on the card against the same
-    step on the CPU (kernel twins), f32 with TF32 off, from the same
+def card_branch_in(calls, source: str, flips: list = None):
+    """(forward, backward) of InstanceNorm for a CPU step that follows a
+    card step's activation branches: call by call, the card's recorded
+    (x, y, act) give each element's branch (y >= 0 for leaky, y > 0 for
+    relu, as the kernels select), which the CPU step's output and its
+    backward take. An element within rounding of the kink can take either
+    branch in two f32 steps, and the grads of the two differ by a jump
+    (ROADMAP §C), so two steps are compared on the same branches.
+    source: the output is the card's y ("card"), else the branch of the
+    twin's pre-activation InstanceNorm of the card's x ("card_x") or of the
+    CPU step's own x ("own"). The statistics are the twin's of its own x,
+    the backward the twin's with dy times the card's slope. `flips`, if
+    given, gets each call's count of elements whose own branch differs."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act_grad_ref,
+                                                 instance_norm_act_ref)
+    it, slopes = iter(calls), {}
+
+    def forward(x, act, with_stats=False):
+        xk, yk, act_k = next(it)
+        check(act_k == act and yk.shape == x.shape, "the CPU step's "
+              "InstanceNorm calls differ from the card step's")
+        y_own, saved = instance_norm_act_ref(x, "none", with_stats=True)
+        yk, slope = yk.cpu(), None
+        if act != "none":
+            keep = yk >= 0 if act == "leaky" else yk > 0
+            slope = torch.where(keep, 1.0, 0.2 if act == "leaky" else 0.0)
+            if flips is not None:
+                own = y_own >= 0 if act == "leaky" else y_own > 0
+                flips.append(int((own != keep).sum()))
+        if source == "card":
+            y = yk
+        else:
+            y = y_own if source == "own" else instance_norm_act_ref(
+                xk.cpu(), "none")
+            y = y if slope is None else (y * slope).to(y.dtype)
+        if not with_stats:
+            return y
+        slopes[saved.data_ptr()] = slope
+        return y, saved
+
+    def backward(x, dy, saved, act):
+        check(saved.data_ptr() in slopes, "an InstanceNorm backward without "
+              "its forward")
+        slope = slopes.pop(saved.data_ptr())
+        return instance_norm_act_grad_ref(
+            x, dy if slope is None else dy * slope, saved, "none")
+    return forward, backward
+
+
+def card_floor(floors, min_value: float):
+    """system.time_d_input for a CPU step that takes a card step's branch
+    of the time-domain D's dB floor, call by call: 20 log10 of |frames|
+    where the card's |frames| >= min_value (floors: its recorded masks of
+    the label's and the tested frames), of min_value elsewhere, minus 20,
+    as amplitude_to_db computes it. An element within rounding of the floor
+    takes either branch in two f32 steps, and its grad jumps by
+    8.7 / min_value (ROADMAP §C)."""
+    import torch
+    it = iter(floors)
+
+    def time_d_input(label_frames, test_frames):
+        keep = next(it)
+        return torch.stack([20.0 * torch.log10(torch.where(
+            k.cpu(), f.abs(), min_value)) - 20.0
+            for k, f in zip(keep, (label_frames, test_frames))], dim=-1)
+    return time_d_input
+
+
+def _cpu(tree):
+    """A codec result (tensors, dicts of tensors, tuples) on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree.detach().cpu() if hasattr(tree, "detach") else tree
+
+
+def _max_err(a, b) -> float:
+    return (a.detach().cpu() - b.detach().cpu()).abs().max().item()
+
+
+def conv_gap(card, cpu) -> list:
+    """Call by call, the generator's conv outputs of two steps: [name,
+    max|card - cpu|, that over max|cpu|]."""
+    return [[name, _max_err(a, b), _max_err(a, b) / b.abs().max().item()]
+            for (name, a), (_, b) in zip(card, cpu)]
+
+
+def g_gan_t_grad(system, batch, noise) -> float:
+    """max |grad| over G's parameters of the optional discriminators' G
+    loss (G_GAN_t) alone, on the system's device: it is 0 if that loss
+    does not reach G (a codec inverse without a gradient)."""
+    import torch
+    from pix2pixhdaudiosr_torch.losses import gan_loss
+    cfg = system.cfg
+    with torch.no_grad():
+        lr_spec, lr_pha, lr_norm = system.encode_input(batch["label"], noise)
+    sr = system.netG_train(lr_spec.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float()
+    loss = 0.0
+    if cfg.use_time_d:
+        frames = system.time_frames(system.codec.to_frames(sr, lr_norm))
+        loss = loss + gan_loss(system.time_d_apply(system.time_d_input(
+            lr_norm["frames"], frames)), True)
+    if cfg.use_hifigan_d:
+        loss = loss + gan_loss(system.hifigan_d_apply(
+            system.codec.to_audio(sr, lr_norm, pha=lr_pha)), True)
+    grads = torch.autograd.grad(loss, list(system.netG_train.parameters()))
+    return max(g.abs().max().item() for g in grads)
+
+
+def phase_train_reference(dev, extra=(), diagnose: bool = False) -> dict:
+    """One make_train_step step of TOY_TRAIN + `extra` on the card against
+    the same step on the CPU (kernel twins), f32 with TF32 off, from the same
     weights, batch and mask noise. Losses within rtol 1e-4 of the CPU
     step's. At each InstanceNorm input of the card's step the kernel's
     output sits within 4x the f32 twin's distance (+ 1e-5) of a float64
@@ -1345,19 +1568,35 @@ def phase_train_reference(dev) -> dict:
       call, in forward order), the arithmetic of every other layer its own,
       and one that takes the twin's output at the card step's InstanceNorm
       input: every grad leaf within 1e-3 max|g| (grad_worst_of_bound) of
-      each, and every updated parameter within 2 lr (two opposite steps
-      where a grad is rounding) of the first;
-      the independent CPU step: D's within the same bound, G's within
-      INDEPENDENT_G_LIMIT of it. The two steps' InstanceNorm inputs differ
-      already (in_in_max_abs_err), by the rounding of the layers before
-      them, and G's grads at this toy size amplify that.
-    Also the card step's B3 and B1 launches: every InstanceNorm of the
-    step records a gradient, so its backward kernel launches as often as
-    its forward."""
+      each (with --use_time_D, G's leaves within 1e-3 of G's max), and
+      every updated parameter within 2 lr (two opposite steps where a grad
+      is rounding) of the first;
+      the independent CPU step, its own arithmetic throughout: D's within
+      the same bound, time_D's and hifigan_D's within 1e-3 of their net's
+      max|g|, G's within INDEPENDENT_G_LIMIT of the bound. The two steps'
+      InstanceNorm inputs differ already (in_in_max_abs_err), by the
+      rounding of the layers before them, and G's grads at this toy size
+      amplify that.
+    Each of the three takes the card step's branch of every InstanceNorm's
+    activation (card_branch_in) and of the time-domain D's dB floor
+    (card_floor); branch_flips and floor_flips count the elements where
+    the independent step's own branch differs, and the independent step
+    on its own branches is read beside it (..._own_branches).
+    With `diagnose`, a fourth CPU step takes the card step's encoder output
+    (lr and hr), its own arithmetic after it: every generator conv output
+    of the card step is read against it and against the independent step's
+    (conv_gap), which names where the two independent steps part, and its
+    grads against the card's (grad_worst_of_bound_replay_encoder).
+    Also the card step's launches: every InstanceNorm of the step records
+    a gradient, so its backward kernel launches as often as its forward;
+    MDCT2 twice on the tensor-core route; with --use_hifigan_D, IMDCT2 and
+    its backward once each, and G's grad from G_GAN_t alone not 0."""
     import torch
+    from pix2pixhdaudiosr_torch import system as system_mod
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.models import layers
-    from pix2pixhdaudiosr_torch.ops.mdct_kernels import mdct2
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import (imdct2, imdct2_grad,
+                                                         mdct2)
     from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
                                                  instance_norm_act_grad)
     from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
@@ -1365,7 +1604,7 @@ def phase_train_reference(dev) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = parse_config(TOY_TRAIN, is_train=True, save=False)
+    cfg = parse_config(TOY_TRAIN + list(extra), is_train=True, save=False)
     cpu = torch.Generator().manual_seed(2)
     batch = {k: torch.randn(2, TOY_SEG, generator=cpu) * 0.2
              for k in ("label", "image")}
@@ -1374,26 +1613,70 @@ def phase_train_reference(dev) -> dict:
     b, f, t, c = init.spectro_shape(2)
     noise = torch.randn(b, init.codec.mask_size(f), t, c,
                         generator=torch.Generator().manual_seed(3))
+    nets = ("G", *init.d_nets())
 
-    def run(d, in_fn):
+    def run(d, in_fn, in_grad=None, encoded=None, floors=None):
         """One step on device d, InstanceNorm outputs through in_fn (the
-        forward of layers.InstanceNormAct, which the train step runs)."""
+        forward of layers.InstanceNormAct, which the train step runs) and
+        its backward through in_grad if given; the encoder's (lr, hr)
+        results `encoded` in place of its own if given; the time-domain D's
+        dB floor on the branches `floors` (card_floor) if given. Records the
+        encoder's results, every generator conv output and the dB floor's
+        branches."""
         system = Pix2PixHDSystem(cfg, device=d)
         state = init_state(system, 0)
         system.netG_train.load_state_dict(init.netG_train.state_dict())
-        system.netD.load_state_dict(init.netD.state_dict())
+        for key, net in system.d_nets().items():
+            net.load_state_dict(init.d_nets()[key].state_dict())
+        enc, convs, fm_signs = [], [], []
+        for i, side in enumerate(("encode_input", "encode_target")):
+            fn = getattr(system, side)
+            if encoded is not None:
+                fn = (lambda r: lambda *a, **k: r)(_cpu(encoded[i]))
+            setattr(system, side, (lambda fn: lambda *a, **k: (
+                enc.append(fn(*a, **k)) or enc[-1]))(fn))
+        hooks = [m.register_forward_hook(
+            (lambda n: lambda m, i, o: convs.append((n, o.detach())))(name))
+            for name, m in system.netG_train.named_modules()
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
         layers.instance_norm_act = in_fn
+        layers.instance_norm_act_grad = in_grad or instance_norm_act_grad
+        fm_loss = system_mod.feature_matching_loss
+        own_floors, time_d_input = [], system.time_d_input
+        if floors is None:
+            def floor_spy(label, test):
+                own_floors.append(tuple(f.detach().abs() >= cfg.min_value
+                                        for f in (label, test)))
+                return time_d_input(label, test)
+            system.time_d_input = floor_spy
+        else:
+            system.time_d_input = card_floor(floors, cfg.min_value)
+
+        def fm_spy(fake, real, *args):
+            """The signs of the feature-matching L1's differences."""
+            fm_signs.extend(torch.sign(f.detach().float() - r.float()).cpu()
+                            for sf, sr in zip(fake, real)
+                            for f, r in zip(sf[:-1], sr[:-1]))
+            return fm_loss(fake, real, *args)
+        system_mod.feature_matching_loss = fm_spy
         try:
             losses, _ = make_train_step(system)(
                 state, {k: v.to(d) for k, v in batch.items()}, noise.to(d))
         finally:
             layers.instance_norm_act = instance_norm_act
-        named = {"G.": system.netG_train, "D.": system.netD}
+            layers.instance_norm_act_grad = instance_norm_act_grad
+            system_mod.feature_matching_loss = fm_loss
+            del system.time_d_input
+            for h in hooks:
+                h.remove()
+        named = {"G": system.netG_train, **system.d_nets()}
         return dict(losses={k: float(v) for k, v in losses.items()},
-                    grads={p + n: w.grad.detach().cpu() for p, net in
+                    grads={f"{p}.{n}": w.grad.detach().cpu() for p, net in
                            named.items() for n, w in net.named_parameters()},
-                    params={p + n: w.detach().cpu() for p, net in
-                            named.items() for n, w in net.named_parameters()})
+                    params={f"{p}.{n}": w.detach().cpu() for p, net in
+                            named.items() for n, w in net.named_parameters()},
+                    encoded=enc, convs=convs, fm_signs=fm_signs,
+                    floors=own_floors, system=system)
 
     def recorder(calls):
         def fn(x, act, **kw):
@@ -1404,35 +1687,34 @@ def phase_train_reference(dev) -> dict:
         return fn
 
     card_in, cpu_in = [], []
-    for fn in (instance_norm_act, instance_norm_act_grad, mdct2):
+    for fn in (instance_norm_act, instance_norm_act_grad, mdct2, imdct2,
+               imdct2_grad):
         reset_counts(fn)
     got = run(dev, recorder(card_in))
-    res = dict(in_launches=instance_norm_act.launches,
+    res = dict(flags=list(extra), in_launches=instance_norm_act.launches,
                in_launches_onepass=instance_norm_act.launches_onepass,
                in_grad_launches=instance_norm_act_grad.launches,
                in_grad_launches_by_route=dict(
                    instance_norm_act_grad.launches_by_route),
-               mdct2_launches_tc=mdct2.launches_tc)
+               mdct2_launches_tc=mdct2.launches_tc,
+               imdct2_launches_tc=imdct2.launches_tc,
+               imdct2_grad_launches=imdct2_grad.launches,
+               imdct2_grad_launches_tc=imdct2_grad.launches_tc)
+    if cfg.use_time_d or cfg.use_hifigan_d:
+        res["g_gan_t_grad_max"] = g_gan_t_grad(
+            got["system"], {k: v.to(dev) for k, v in batch.items()},
+            noise.to(dev))
     want = run("cpu", recorder(cpu_in))
-
-    def replay(out):
-        """An InstanceNorm forward for a CPU step that returns, call by
-        call, out(x, y, act) of the card step's input x and output y, and
-        where the step asks for them the twin's statistics of its own x
-        (which its backward reads)."""
-        calls = iter(card_in)
-
-        def fn(x, act, with_stats=False):
-            xk, yk, act_k = next(calls)
-            check(act_k == act and yk.shape == x.shape, "the CPU step's "
-                  "InstanceNorm calls differ from the card step's")
-            y = out(xk.cpu(), yk.cpu(), act)
-            if not with_stats:
-                return y
-            return y, instance_norm_act(x, act, with_stats=True)[1]
-        return fn
-    same = run("cpu", replay(lambda x, y, act: y))
-    twin = run("cpu", replay(lambda x, y, act: instance_norm_act(x, act)))
+    same = run("cpu", *card_branch_in(card_in, "card"),
+               floors=got["floors"])
+    twin = run("cpu", *card_branch_in(card_in, "card_x"),
+               floors=got["floors"])
+    flips = []
+    aligned = run("cpu", *card_branch_in(card_in, "own", flips),
+                  floors=got["floors"])
+    res["branch_flips"] = sum(flips)
+    res["floor_flips"] = sum(int((a.cpu() != b).sum()) for ca, cb in zip(
+        got["floors"], want["floors"]) for a, b in zip(ca, cb))
     res["sign_flips"] = sum(int(((a.cpu() > 0) != (b > 0)).sum())
                             for (_, a, act), (_, b, _) in zip(card_in, cpu_in)
                             if act != "none")
@@ -1445,47 +1727,99 @@ def phase_train_reference(dev) -> dict:
     res["in_f64"] = {k: witness[k] for k in ("kernel_f64", "twin_f64", "worst")}
     res["loss_rel_err"] = {k: abs(got["losses"][k] - v) / abs(v)
                            for k, v in want["losses"].items()}
-    void = (norm_fed_biases(init.netG_train, "G.")
-            | norm_fed_biases(init.netD, "D."))
-    res["grad_worst_of_bound"] = {
-        net: grad_worst_of_bound(
-            {k: v for k, v in got["grads"].items() if k[0] == net},
-            {k: v for k, v in same["grads"].items() if k[0] == net}, void)
-        for net in ("G", "D")}
-    res["grad_worst_of_bound_twin_at_card_inputs"] = {
-        net: grad_worst_of_bound(
-            {k: v for k, v in got["grads"].items() if k[0] == net},
-            {k: v for k, v in twin["grads"].items() if k[0] == net}, void)
-        for net in ("G", "D")}
-    res["grad_worst_of_bound_independent"] = {
-        net: grad_worst_of_bound(
-            {k: v for k, v in got["grads"].items() if k[0] == net},
-            {k: v for k, v in want["grads"].items() if k[0] == net}, void)
-        for net in ("G", "D")}
+    res["loss_rel_err_card_in"] = {k: abs(got["losses"][k] - v) / abs(v)
+                                   for k, v in same["losses"].items()}
+    void = set().union(*(norm_fed_biases(net, f"{key}.") for key, net in
+                         (("G", init.netG_train), *init.d_nets().items())))
+
+    def worst(other, rel_net=()):
+        """grad_worst_of_bound of the card step against `other`, a net;
+        the nets in `rel_net` with every leaf read against the net's max."""
+        out = {}
+        for net in nets:
+            pick = {k: v for k, v in other["grads"].items()
+                    if k.startswith(net + ".")}
+            g = {k: v for k, v in got["grads"].items() if k.startswith(net + ".")}
+            out[net] = grad_worst_of_bound(g, pick, set(pick) if net in rel_net
+                                           else void)
+        return out
+    # with the time-domain D, G's grads against the replayed steps are read
+    # against G's max: its loss reads the G output through 10^(x/20) and the
+    # dB of the frames, so the final conv's rounding moves the small leaves
+    # (enh1_final's bias: 1.85x their own bound on an H100)
+    g_rel = ("G",) if cfg.use_time_d else ()
+    res["grad_worst_of_bound"] = worst(same, g_rel)
+    res["grad_worst_of_bound_twin_at_card_inputs"] = worst(twin, g_rel)
+    if g_rel:
+        res["grad_worst_of_leaf_bound_card_in"] = worst(same)
+    # the independent step on the card's branches (checked; with the
+    # time-domain D, G's leaves against G's max, as above), and on its own
+    # (read: one element within rounding of a kink moves time_D's grads by
+    # 4.5e-3 of their max, ROADMAP §C)
+    res["grad_worst_of_bound_independent"] = worst(aligned, g_rel)
+    res["grad_worst_of_net_max_independent"] = worst(aligned, nets)
+    res["grad_worst_of_bound_independent_own_branches"] = worst(want)
+    res["grad_worst_of_net_max_independent_own_branches"] = worst(want, nets)
+    if diagnose:
+        replayed = run("cpu", instance_norm_act, encoded=got["encoded"])
+        res["encode_max_abs_err"] = {
+            side: _max_err(a[0], b[0]) for side, a, b in
+            zip(("lr", "hr"), got["encoded"], want["encoded"])}
+        res["conv_gap_independent"] = conv_gap(got["convs"], want["convs"])
+        # elements of the feature-matching L1's |fake - real| whose sign
+        # differs between the two independent steps: each moves the L1's
+        # subgradient by 2 w / N, whatever the size of the rounding
+        res["fm_l1_sign_flips"] = [
+            int((a != b).sum()) for a, b in zip(got["fm_signs"],
+                                                want["fm_signs"])]
+        res["conv_gap_replay_encoder"] = conv_gap(got["convs"],
+                                                  replayed["convs"])
+        res["grad_worst_of_bound_replay_encoder"] = worst(replayed)
+        res["loss_rel_err_replay_encoder"] = {
+            k: abs(got["losses"][k] - v) / abs(v)
+            for k, v in replayed["losses"].items()}
+        del replayed
     res["param_max_abs_err"] = max((got["params"][k] - v).abs().max().item()
                                    for k, v in same["params"].items())
     res["losses"] = got["losses"]
     print("[train reference] CUDA vs CPU, f32: " + json.dumps(res))
     print("[train reference] InstanceNorm against float64, call by call: "
           + json.dumps(witness["calls"]))
-    check(all(e <= 1e-4 for e in res["loss_rel_err"].values()),
-          f"train step losses off the CPU's: {res['loss_rel_err']}")
+    # every loss within rtol 1e-4 (+ 1e-9 for a loss near 0) of the CPU
+    # step on the card's InstanceNorm outputs; of the independent step's
+    # too for the plain step, whose losses do not go through the codec
+    # inverse (it maps the G output's rounding through 10^(x/20) of a
+    # 140 dB range: 16x)
+    for key in ("loss_rel_err_card_in",) + (("loss_rel_err",) if not extra
+                                            else ()):
+        ref = same if key == "loss_rel_err_card_in" else want
+        check(all(abs(got["losses"][k] - v) <= 1e-4 * abs(v) + 1e-9
+                  for k, v in ref["losses"].items()),
+              f"train step losses off the CPU's: {key} {res[key]}")
     for r in witness["calls"]:
         check(r["kernel_f64"] <= 4 * r["twin_f64"] + 1e-5,
               f"B3 off float64 by more than 4x the twin's distance: {r}")
     for key in ("grad_worst_of_bound", "grad_worst_of_bound_twin_at_card_inputs"):
         check(all(w <= 1 for w, _ in res[key].values()),
               f"train step grads off the CPU's: {key} {res[key]}")
-    indep = res["grad_worst_of_bound_independent"]
-    check(indep["D"][0] <= 1 and indep["G"][0] <= INDEPENDENT_G_LIMIT,
-          f"train step grads off the independent CPU step's: {indep}")
+    indep, net_max = (res["grad_worst_of_bound_independent"],
+                      res["grad_worst_of_net_max_independent"])
+    check(indep["D"][0] <= 1 and indep["G"][0] <= INDEPENDENT_G_LIMIT
+          and all(net_max[k][0] <= 1 for k in nets if k not in ("G", "D")),
+          f"train step grads off the independent CPU step's: {indep}, "
+          f"of the net's max: {net_max}")
     # two Adam steps of lr in opposite directions, and the weights' rounding
     check(res["param_max_abs_err"] <= 2 * cfg.lr * (1 + 1e-3),
           f"updated params off the CPU's by {res['param_max_abs_err']}")
+    n_inv = int(cfg.use_hifigan_d)
     check(res["in_launches"] == res["in_launches_onepass"] > 0
           and res["in_grad_launches"] == res["in_launches"]
-          and res["mdct2_launches_tc"] == TRAIN_MDCT_LAUNCHES,
-          f"toy train step launches: {res}")
+          and res["mdct2_launches_tc"] == TRAIN_MDCT_LAUNCHES
+          and res["imdct2_launches_tc"] == n_inv
+          and res["imdct2_grad_launches"] == res["imdct2_grad_launches_tc"]
+          == n_inv, f"toy train step launches: {res}")
+    if "g_gan_t_grad_max" in res:
+        check(res["g_gan_t_grad_max"] > 0, "G_GAN_t gives G no gradient")
     return res
 
 
@@ -1511,7 +1845,8 @@ def _is_annotation(event) -> bool:
 def profile_train_step(run_step, top: int = 16) -> dict:
     """One traced train step: the device time of its kernels by part
     (forward, backward, optimizer: each kernel counted once, under the
-    outermost event that launched it, _phase_of), the InstanceNorm
+    outermost event that launched it, _phase_of) with each part's top 4
+    kernels by device time, the InstanceNorm
     forward's device time (under the Function's op), its backward's (under
     the autograd node InstanceNormActBackward) with its share and its
     kernels by name (ms, calls), and the `top` kernels by device time."""
@@ -1535,12 +1870,18 @@ def profile_train_step(run_step, top: int = 16) -> dict:
         raise SmokeFailure("3 profiler traces of a train step came back "
                            "without kernels")
     parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    part_kernels = {k: {} for k in parts}
     in_fwd, in_bwd, in_kernels = 0.0, 0.0, {}
     for e in prof.events():
         ms = e.self_device_time_total / 1e3
         if ms <= 0 or e.device_type == DeviceType.CUDA:
             continue
-        parts[_phase_of(e)] += ms
+        part = _phase_of(e)
+        parts[part] += ms
+        for k in e.kernels:
+            row = part_kernels[part].setdefault(k.name[:60], [0.0, 0])
+            row[0] += k.duration / 1e3
+            row[1] += 1
         outer = e
         while outer.cpu_parent is not None:
             outer = outer.cpu_parent
@@ -1556,6 +1897,9 @@ def profile_train_step(run_step, top: int = 16) -> dict:
             in_fwd += ms
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     return dict(host_wall_ms=wall, device_ms=total, parts_ms=parts,
+                parts_top={k: sorted(([n, *v] for n, v in rows.items()),
+                                     key=lambda r: -r[1])[:4]
+                           for k, rows in part_kernels.items()},
                 in_forward_ms=in_fwd,
                 in_backward_ms=in_bwd, in_backward_share=in_bwd / total,
                 in_backward_kernels=sorted(([k, *v] for k, v in in_kernels.items()),
@@ -1589,45 +1933,85 @@ def dy_layouts(run_step) -> dict:
     return seen
 
 
-def phase_train_step(dev, counters) -> dict:
-    """The flagship train step at batch TRAIN_BATCH through
-    trainer.make_train_step: seeded N(0, 0.02) weights, a seeded batch of
-    lr and hr waveforms, a mask-noise generator a step. 2 warm-up and 5
-    timed steps (CUDA events around each), every kernel counter set to 0
-    just before the warm-up and read just after the last step; then one
-    traced step. Checks: every loss finite each step, every parameter moved,
-    40 InstanceNorm launches a step all one-pass, 40 of its backward
-    kernel (shape by shape as the forward's; by route and the dy copies
-    reported), 2 MDCT2 launches a step on the tensor-core route, no launch
-    of the serving-only kernels."""
+def expected_step_launches(cfg) -> dict:
+    """A flagship train step's launches by kernel (all on the fast route):
+    B3 and its backward 40, + 18 with the time-domain D (6 in each of its 3
+    forwards); B1 2 (the lr and the hr encode); with the HiFi-GAN D, B2 1
+    (to_audio of the G output, whose detached value feeds the D side) and
+    its backward 1."""
+    n_in = TRAIN_IN_LAUNCHES + TIME_D_IN_LAUNCHES * cfg.use_time_d
+    n_inv = int(cfg.use_hifigan_d)
+    return {"instance_norm_act": n_in, "instance_norm_act_grad": n_in,
+            "mdct2": TRAIN_MDCT_LAUNCHES, "imdct2": n_inv, "imdct2_grad": n_inv}
+
+
+def spy_codec_dtypes(system) -> dict:
+    """Record, for every call of the codec half of the optional losses
+    (codec.to_frames, the time-domain D's f32 pair, codec.to_audio's
+    IMDCT2 input and output), the dtypes it produced: each must be
+    float32 in a bf16 step. Returns the dict the records land in."""
+    seen = {}
+
+    def note(key, t):
+        seen.setdefault(key, set()).add(str(t.dtype)[6:])
+        return t
+    codec = system.codec
+    to_frames, time_d_input, imdct = (codec.to_frames, system.time_d_input,
+                                      codec.imdct)
+    codec.to_frames = lambda *a, **k: note("to_frames", to_frames(*a, **k))
+    system.time_d_input = lambda *a, **k: note("time_d_input",
+                                               time_d_input(*a, **k))
+    codec.imdct = lambda spec: note("imdct2_out", imdct(note("imdct2_in", spec)))
+    return seen
+
+
+def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
+    """The flagship train step (+ the recipe flags `extra`) at `batch`
+    through trainer.make_train_step: seeded N(0, 0.02) weights, a seeded
+    batch of lr and hr waveforms, a mask-noise generator a step. 2 warm-up
+    and 5 timed steps (CUDA events around each), every kernel counter set
+    to 0 just before the warm-up and read just after the last step; then
+    one traced step. Checks: every loss finite each step, every parameter
+    of every net moved, each kernel's launches a step as
+    expected_step_launches (B3 all one-pass, its backward shape by shape
+    as the forward's, by route and the dy copies reported; MDCT2, IMDCT2
+    and IMDCT2's backward on the tensor-core route), no launch of the
+    serving-only kernels, and the optional losses' codec half in f32."""
     import torch
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
     from pix2pixhdaudiosr_torch.trainer import init_state, make_train_step
 
+    # earlier phases' systems (the spies close reference cycles over them)
+    # must be gone before the peak is read
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.backends.cudnn.benchmark = True
-    cfg = parse_config([*FLAGSHIP, "--batchSize", str(TRAIN_BATCH)],
+    cfg = parse_config([*FLAGSHIP, "--batchSize", str(batch), *extra],
                        is_train=True, save=False)
     system = Pix2PixHDSystem(cfg, device=dev)
     state = init_state(system, 0)
-    n_g = sum(p.numel() for p in system.netG_train.parameters())
-    n_d = sum(p.numel() for p in system.netD.parameters())
-    check((n_g, n_d) == (156_050_690, 5_531_522), f"G, D parameters {n_g}, {n_d}")
+    n_params = {k: sum(p.numel() for p in net.parameters()) for k, net in
+                (("G", system.netG_train), *system.d_nets().items())}
+    check((n_params["G"], n_params["D"]) == (156_050_690, 5_531_522),
+          f"parameters {n_params}")
+    dtypes = spy_codec_dtypes(system)
     gen = torch.Generator(device=dev).manual_seed(4)
     t = torch.arange(SEG, device=dev) / 48000
-    f0 = 100 + 400 * torch.rand(TRAIN_BATCH, 1, generator=gen, device=dev)
+    f0 = 100 + 400 * torch.rand(batch, 1, generator=gen, device=dev)
     hr = 0.3 * torch.sin(2 * torch.pi * f0 * t) + 0.01 * torch.randn(
-        TRAIN_BATCH, SEG, generator=gen, device=dev)
-    batch = {"image": hr, "label": hr + 0.05 * torch.randn(
-        TRAIN_BATCH, SEG, generator=gen, device=dev)}
+        batch, SEG, generator=gen, device=dev)
+    data = {"image": hr, "label": hr + 0.05 * torch.randn(
+        batch, SEG, generator=gen, device=dev)}
     step = make_train_step(system)
-    before = [p.detach().clone() for p in (*system.netG_train.parameters(),
-                                           *system.netD.parameters())]
+    params = [p for net in (system.netG_train, *system.d_nets().values())
+              for p in net.parameters()]
+    before = [p.detach().clone() for p in params]
     seeds = iter(range(1000))
 
     def run_step():
         noise_gen = torch.Generator(device=dev).manual_seed(next(seeds))
-        return step(state, batch, noise_gen)[0]
+        return step(state, data, noise_gen)[0]
 
     for fn in counters.values():
         reset_counts(fn)
@@ -1645,57 +2029,67 @@ def phase_train_step(dev, counters) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_steps = len(losses)
     launches = {k: fn.launches for k, fn in counters.items()}
-    inorm, mdct = counters["instance_norm_act"], counters["mdct2"]
-    grad = counters["instance_norm_act_grad"]
-    res = dict(batch=TRAIN_BATCH, params_g=n_g, params_d=n_d, steps=n_steps,
+    inorm, grad = counters["instance_norm_act"], counters["instance_norm_act_grad"]
+    res = dict(flags=list(extra), batch=batch, params=n_params,
+               params_g=n_params["G"], params_d=n_params["D"], steps=n_steps,
                ms_per_step=sum(ms) / len(ms), ms_runs=ms,
-               segments_per_s=TRAIN_BATCH / (sum(ms) / len(ms) / 1e3),
+               segments_per_s=batch / (sum(ms) / len(ms) / 1e3),
                peak_gib=peak, launches=launches,
+               launches_per_step={k: n / n_steps for k, n in launches.items()},
+               tc_launches_per_step={
+                   k: counters[k].launches_tc / n_steps
+                   for k in ("mdct2", "imdct2", "imdct2_grad") if k in counters},
                in_launches_per_step=inorm.launches / n_steps,
                in_onepass_per_step=inorm.launches_onepass / n_steps,
                in_by_shape_per_step={f"{h}x{w}x{c}": n / n_steps for (h, w, c), n
                                      in inorm.launches_by_shape.items()},
-               mdct2_tc_per_step=mdct.launches_tc / n_steps,
+               mdct2_tc_per_step=counters["mdct2"].launches_tc / n_steps,
                in_grad_per_step=grad.launches / n_steps,
                in_grad_by_route_per_step={
                    k: n / n_steps for k, n in grad.launches_by_route.items()},
                in_grad_dy_copies_by_shape_per_step={
                    f"{h}x{w}x{c}": n / n_steps for (h, w, c), n
                    in grad.dy_copies_by_shape.items()},
+               codec_dtypes={k: sorted(v) for k, v in dtypes.items()},
                losses=[{k: float(v) for k, v in l.items()} for l in losses])
-    moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(
-        before, (*system.netG_train.parameters(), *system.netD.parameters())))
+    moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, params))
     res["params_moved"], res["param_tensors"] = moved, len(before)
     del before
-    counts = (inorm.launches, inorm.launches_onepass, mdct.launches,
-              mdct.launches_tc, grad.launches)
-    res["in_grad_dy_layouts"] = dy_layouts(run_step)
+    counts = {k: (fn.launches, getattr(fn, "launches_tc", None))
+              for k, fn in counters.items()}
     shapes_ok = ({k: n for k, n in inorm.launches_by_shape.items()}
                  == {k: n for k, n in grad.launches_by_shape.items()})
+    onepass = inorm.launches_onepass
+    if not extra:
+        res["in_grad_dy_layouts"] = dy_layouts(run_step)
     res["profile"] = profile_train_step(run_step)
-    print("[train step] " + json.dumps(res))
+    print(f"[train step{' ' + ' '.join(extra) if extra else ''}] "
+          + json.dumps(res))
     check(all(all(map(lambda v: v == v and abs(v) != float("inf"), l.values()))
               for l in res["losses"]), "a train-step loss is not finite")
     check(moved == res["param_tensors"], f"{res['param_tensors'] - moved} "
           f"parameter tensors did not move")
-    check(counts[0] == counts[1] == TRAIN_IN_LAUNCHES * n_steps,
-          f"InstanceNorm: {counts[0]} launches, {counts[1]} one-pass in "
-          f"{n_steps} steps; expected {TRAIN_IN_LAUNCHES} a step, all "
-          f"one-pass")
-    check(counts[2] == counts[3] == TRAIN_MDCT_LAUNCHES * n_steps,
-          f"MDCT2: {counts[2]} launches, {counts[3]} on the tensor-core "
-          f"route in {n_steps} steps")
+    want = expected_step_launches(cfg)
+    for k, fn in counters.items():
+        n, n_tc = counts[k]
+        check(n == want.get(k, 0) * n_steps, f"the train step launched {k} "
+              f"{n}x in {n_steps} steps, expected {want.get(k, 0)} a step")
+        check(n_tc is None or n_tc == n, f"{k}: {n_tc} of {n} launches on "
+              f"the tensor-core route")
+    check(onepass == counts["instance_norm_act"][0],
+          f"InstanceNorm: {onepass} of {counts['instance_norm_act'][0]} "
+          f"launches one-pass")
     # the backward kernel takes every InstanceNorm backward of the step:
     # as many launches as forwards, shape by shape (the closed form is on
     # no path: layers.InstanceNormAct calls instance_norm_act_grad only)
-    check(counts[4] == TRAIN_IN_LAUNCHES * n_steps and shapes_ok,
-          f"InstanceNorm backward: {counts[4]} launches in {n_steps} steps, "
-          f"by shape {grad.launches_by_shape}; expected "
-          f"{TRAIN_IN_LAUNCHES} a step, as the forward's by shape")
-    for k, n in launches.items():
-        if k not in ("instance_norm_act", "instance_norm_act_grad", "mdct2"):
-            check(n == 0, f"the train step launched {k} {n}x")
-    del system, state, batch
+    check(shapes_ok, f"InstanceNorm backward by shape {grad.launches_by_shape}"
+          f", the forward's {inorm.launches_by_shape}")
+    check(all(v == ["float32"] for v in res["codec_dtypes"].values())
+          and ("to_frames" in dtypes) == (cfg.use_match_loss or cfg.use_time_d)
+          and ("imdct2_out" in dtypes) == cfg.use_hifigan_d,
+          f"the optional losses' codec half: {res['codec_dtypes']}")
+    del system, state, data, run_step
+    gc.collect()
     torch.cuda.empty_cache()
     return res
 
@@ -1743,6 +2137,72 @@ def phase_train_cli(dev, counters, wav: str, n_in: int) -> dict:
                log=lines)
     print("[train cli] " + json.dumps(dict(seconds=seconds, launches=launches,
                                            generate_metric=gen["metric"])))
+    return res
+
+
+def phase_recipe_cli(dev, counters) -> dict:
+    """The training CLI at flagship width with the VCTK recipe's
+    --use_match_loss --use_time_D --lambda_time 10 (RECIPES[0]): 2 steps
+    at batch 2 over 4 files (one epoch, `latest` saved at its end), B3 and
+    its backward 58 launches a step, B1 2, the optional losses in the loss
+    lines and latest_net_time_D.pth written; then --continue_train from it
+    for a second epoch: before its first step G, D and time_D equal the
+    saved weights, and the step count goes on from the saved one."""
+    import torch
+    from pix2pixhdaudiosr_torch import train_loop
+    corpus = os.path.join(WORK, "recipe_corpus")
+    write_cli_corpus(corpus, 4)
+    expr = os.path.join(WORK, "recipe")
+    argv = ["--name", "recipe", "--checkpoints_dir", WORK, "--dataroot",
+            corpus, "--device", dev, *FLAGSHIP, *RECIPES[0][0], "--batchSize",
+            "2", "--niter_decay", "0", "--no_html", "--validation_split", "0",
+            "--print_freq", "2", "--save_latest_freq", "0",
+            "--save_epoch_freq", "1"]
+    state, out, secs = run_cli(train_loop.main, [*argv, "--niter", "1"],
+                               counters)
+    want = expected_step_launches(state.system.cfg)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(state.step == 2, f"the recipe run took {state.step} steps")
+    check(all(launches[k] == 2 * want.get(k, 0) for k in launches),
+          f"recipe CLI launches {launches}, expected 2x {want}")
+    check(all(f"{k}: " in out for k in ("G_mat", "G_GAN_t", "D_real_t",
+                                        "D_fake_t")),
+          "the recipe run's loss lines lack the optional losses")
+    saved = {k: torch.load(os.path.join(expr, f"latest_net_{k}.pth"),
+                           weights_only=True) for k in ("G", "D", "time_D")}
+    del state
+    first = {}
+    make_step = train_loop.make_train_step
+
+    def hooked(system):
+        step = make_step(system)
+
+        def first_step(state, *args, **kw):
+            if not first:
+                nets = {"G": system.netG_train, **system.d_nets()}
+                first["equal"] = {k: all(torch.equal(v.cpu(), saved[k][n])
+                                         for n, v in nets[k].state_dict().items())
+                                  for k in saved}
+                first["step"] = state.step
+            return step(state, *args, **kw)
+        return first_step
+
+    train_loop.make_train_step = hooked
+    try:
+        state, out2, secs2 = run_cli(train_loop.main, [*argv, "--niter", "2",
+                                                        "--continue_train"])
+    finally:
+        train_loop.make_train_step = make_step
+    check("Resuming from epoch 2 at iteration 0" in out2.splitlines(),
+          "the recipe run did not resume from epoch 2")
+    check(first.get("equal") == {k: True for k in saved} and first["step"] == 2
+          and state.step == 4, f"the resumed recipe run: before its first "
+          f"step {first}, ended at step {state.step}")
+    res = dict(seconds=secs, resume_seconds=secs2, launches=launches,
+               resumed_equal=first["equal"], final_step=state.step)
+    del state
+    torch.cuda.empty_cache()
+    print("[recipe cli] " + json.dumps(res))
     return res
 
 
@@ -2125,7 +2585,8 @@ def main() -> int:
         from pix2pixhdaudiosr_torch.ops import _cuda
         from pix2pixhdaudiosr_torch.ops.conv import conv3x3_valid
         from pix2pixhdaudiosr_torch.ops.enhancer import conv3x3_in
-        from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
+        from pix2pixhdaudiosr_torch.ops.mdct_kernels import (imdct2,
+                                                             imdct2_grad, mdct2)
         from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
                                                      instance_norm_act_grad,
                                                      instance_stats)
@@ -2177,8 +2638,9 @@ def main() -> int:
         all_counters = dict(counters, conv3x3_in=conv3x3_in,
                             conv3x3_valid=conv3x3_valid,
                             stochastic_quantize_2d=stochastic_quantize_2d,
-                            instance_norm_act_grad=instance_norm_act_grad)
-        train_counters = dict(counters,
+                            instance_norm_act_grad=instance_norm_act_grad,
+                            imdct2_grad=imdct2_grad)
+        train_counters = dict(counters, imdct2_grad=imdct2_grad,
                               instance_norm_act_grad=instance_norm_act_grad)
         serve = timed("serve timing", phase_serve_timing, system, lr, noise,
                       all_counters)
@@ -2186,10 +2648,18 @@ def main() -> int:
         del system, lr, noise
         torch.cuda.empty_cache()
         in_grad = timed("in grad", phase_in_grad, dev)
-        train_ref = timed("train reference", phase_train_reference, dev)
+        train_ref = timed("train reference", phase_train_reference, dev, (),
+                          True)
+        recipe_ref = [timed(f"train reference {' '.join(flags)}",
+                            phase_train_reference, dev, flags)
+                      for flags in TOY_RECIPES]
         train = timed("train step", phase_train_step, dev, all_counters)
+        recipes = [timed(f"recipe step {' '.join(flags)}", phase_train_step,
+                         dev, all_counters, flags, batch)
+                   for flags, batch in RECIPES]
         train_cli = timed("train cli", phase_train_cli, dev, train_counters,
                           wav, n_in)
+        recipe_cli = timed("recipe cli", phase_recipe_cli, dev, train_counters)
         in_bwd = in_backward_per_step(in_grad, train)
         print("[in grad] a train step's calls: " + json.dumps(in_bwd))
         cli = timed("cli", phase_cli, dev, train_counters)
@@ -2207,17 +2677,23 @@ def main() -> int:
     rec["instance_norm_act_grad"] = dict(
         big, ms=big["backward_ms"], plain_ms=big["twin_ms"],
         library_ms=big["library_backward_ms"])
+    # B2's backward runs on the HiFi-GAN recipe's step alone (RECIPES[1])
     launches = dict(gen_res["launches"],
                     conv3x3_in=gen_fused["launches"]["conv3x3_in"],
                     conv3x3_valid=valid_launches,
                     stochastic_quantize_2d=quant_launches,
                     instance_norm_act_grad=train["launches"][
-                        "instance_norm_act_grad"] // train["steps"])
+                        "instance_norm_act_grad"] // train["steps"],
+                    imdct2_grad=recipes[1]["launches"]["imdct2_grad"]
+                    // recipes[1]["steps"])
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
                     serve_launches=serve["plain"]["launches"].get(k, 0),
                     train_launches_per_step=train["launches"].get(k, 0)
                     / train["steps"],
+                    recipe_launches_per_step={
+                        " ".join(r["flags"]): r["launches_per_step"].get(k, 0)
+                        for r in recipes},
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}) for k in KERNELS]
@@ -2227,7 +2703,9 @@ def main() -> int:
         generate_quant=gen_quant, reference_max_abs_err=ref_err,
         fused_vs_plain=fused_err, quant_vs_plain=quant_err, serve=serve,
         sizes=sizes, b3_per_shape=b3, in_grad=in_grad,
-        train_reference=train_ref, train_step=train, train_cli=train_cli,
+        train_reference=train_ref, recipe_reference=recipe_ref,
+        train_step=train, recipe_steps=recipes, train_cli=train_cli,
+        recipe_cli=recipe_cli,
         in_backward_per_step=in_bwd, cli=cli, flac=flac,
         phase_seconds=phase_s)))
     print(json.dumps({"kernels": kernels}))

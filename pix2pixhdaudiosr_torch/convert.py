@@ -1,13 +1,16 @@
 """JAX (flax) params and optax Adam state -> this package's state_dicts.
 
-The torch modules are named after the flax param tree (models/layers.py),
-so the conversion is a walk over that tree: every `Conv_0` or
-`ConvTranspose_0` node holding {kernel, bias} becomes `<path>.weight` and
-`<path>.bias`. The walk serves the generator and the discriminator alike
-(`jax_to_torch_discriminator`), and the Adam moments, which are trees of
-the params' shape (`load_adam_state`).
+The torch modules are named after the flax param tree (models/layers.py,
+models/hifigan_d.py), so the conversion is a walk over that tree: every
+`Conv_0` or `ConvTranspose_0` node holding {kernel, bias} becomes
+`<path>.weight` and `<path>.bias`, and every HiFi-GAN `NormConv_<k>` node
+holding {kernel, bias[, g]} `<path>.weight`, `<path>.bias` and
+`<path>.g`. The walk serves the generator and every discriminator alike
+(`jax_to_torch_discriminator`: netD, time_D, hifigan_D), and the Adam
+moments, which are trees of the params' shape (`load_adam_state`).
 
-* Conv kernels: flax HWIO [kh, kw, ci, co] -> torch OIHW [co, ci, kh, kw].
+* Conv kernels: flax HWIO [kh, kw, ci, co] -> torch OIHW [co, ci, kh, kw];
+  1-D [k, ci, co] -> [co, ci, k] (ci per group, as in torch).
 * Deconv kernels: flip_hw(k) then permute(2, 3, 0, 1) -> [ci, co, kh, kw],
   the same weight for both deconv modes (models/layers.ConvTransposeIN;
   the inverse of tools/import_torch_checkpoint.py's `_deconv_w`).
@@ -28,6 +31,8 @@ import torch
 
 
 def _conv_weight(kernel: np.ndarray) -> np.ndarray:
+    if kernel.ndim == 3:
+        return kernel.transpose(2, 1, 0)
     return kernel.transpose(3, 2, 0, 1)
 
 
@@ -47,13 +52,17 @@ def jax_to_torch_generator(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     def walk(node: Mapping, path: list) -> None:
         for key, child in node.items():
-            if key in _LEAVES:
+            to_weight = _LEAVES.get(key) or (
+                _conv_weight if key.startswith("NormConv_") else None)
+            if to_weight is not None:
                 prefix = ".".join(path + [key])
                 kernel = np.asarray(child["kernel"], np.float32)
-                weight = np.ascontiguousarray(_LEAVES[key](kernel))
+                weight = np.ascontiguousarray(to_weight(kernel))
                 out[prefix + ".weight"] = torch.from_numpy(weight)
-                out[prefix + ".bias"] = torch.from_numpy(
-                    np.array(child["bias"], np.float32))
+                for leaf in ("bias", "g"):
+                    if leaf in child:
+                        out[f"{prefix}.{leaf}"] = torch.from_numpy(
+                            np.array(child[leaf], np.float32))
             else:
                 walk(child, path + [key])
 

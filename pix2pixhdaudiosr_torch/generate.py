@@ -38,7 +38,7 @@ _NOT_YET = (
     (lambda c: c.cp_shards > 1, "--cp_shards > 1", "parallel modes, ROADMAP A11"),
     (lambda c: c.tp_shards > 1, "--tp_shards > 1", "parallel modes, ROADMAP A11"),
     (lambda c: c.use_features or c.net_g == "encoder",
-     "feature-encoder configs", "optional nets, ROADMAP A9"),
+     "feature-encoder configs", "the feature encoder, ROADMAP A9d"),
 )
 
 

@@ -202,8 +202,8 @@ def build_generator(net_g: str, input_nc: int, output_nc: int, ngf: int,
                              fused_enh_blocks=fused_enh_blocks,
                              int8_trunk=int8_trunk, device=device)
     if net_g == "encoder":
-        raise NotImplementedError("the feature Encoder comes with the "
-                                  "optional nets (ROADMAP A9)")
+        raise NotImplementedError("the feature Encoder is not ported yet; "
+                                  "it comes with ROADMAP A9d")
     raise ValueError(f"generator not implemented: {net_g}")
 
 

@@ -6,6 +6,8 @@ folded into one precomputed float64 basis, cast to f32 on the codec's
 device; the transforms themselves run on the kernels of `mdct_kernels`.
 Where the codec takes the tensor-core route (`mdct_kernels.tc_route`), the
 basis is also split once here into the kernel's K-major tf32 planes.
+IMDCT2 is differentiable (`IMDCT2Fn`): its backward is B1's kernel on the
+transposed inverse basis, whose planes it also builds once.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch.nn.functional as F
 
 from . import framing
 from .dct import dct2_basis, dct3_basis
-from .mdct_kernels import imdct2, imdct2_planes, mdct2, mdct2_planes, tc_route
+from .mdct_kernels import (imdct2, imdct2_grad, imdct2_planes, mdct2,
+                           mdct2_planes, tc_route)
 from .window import resolve_window
 
 
@@ -48,14 +51,24 @@ class MDCT2(_LappedBase):
         self.basis = torch.tensor(self.window[:, None] * basis,
                                   dtype=torch.float32, device=device)
         self.planes = mdct2_planes(self.basis) if self.tc else None
+        self.window_t = torch.tensor(self.window, dtype=torch.float32,
+                                     device=device)
 
-    def __call__(self, signal: torch.Tensor) -> torch.Tensor:
+    def __call__(self, signal: torch.Tensor, return_ola: bool = False):
+        """[..., S] -> [..., T, n_fft]; with `return_ola` also the windowed
+        frames [..., T, win] of the padded signal (the time-domain
+        discriminator's input), framed and windowed in plain torch beside
+        B1, which has no frames output (nor has the TPU kernel)."""
         x = framing.pad_signal(signal.float(), self.hop_length, self.center,
                                self.pad_mode)
         lead, L = x.shape[:-1], x.shape[-1]
         out = mdct2(x.reshape(-1, L).contiguous(), self.basis, self.hop_length,
                     self.planes)
-        return out.reshape(lead + out.shape[-2:])
+        out = out.reshape(lead + out.shape[-2:])
+        if not return_ola:
+            return out
+        frames = framing.frame(x, self.win_length, self.hop_length)
+        return out, frames * self.window_t
 
 
 class IMDCT2(_LappedBase):
@@ -72,14 +85,21 @@ class IMDCT2(_LappedBase):
         self.basis = torch.tensor(basis, dtype=torch.float32, device=device)
         self.planes = (imdct2_planes(self.basis, self.hop_length) if self.tc
                        else None)
+        # the backward's operand: B1's [win, n_fft] basis and its planes
+        self.basis_t = self.basis.t().contiguous()
+        self.planes_t = mdct2_planes(self.basis_t) if self.tc else None
 
     def __call__(self, spec: torch.Tensor) -> torch.Tensor:
+        """[..., T, n_fft] -> [..., S], differentiable w.r.t. spec: the
+        product and overlap-add through IMDCT2Fn, the center crop and the
+        length fit as torch slicing and padding, whose gradients autograd
+        pads back."""
         if spec.shape[-1] != self.n_fft:
             raise ValueError(f"spectrogram has {spec.shape[-1]} bins, the "
                              f"codec {self.n_fft}")
         lead, T = spec.shape[:-2], spec.shape[-2]
-        out = imdct2(spec.float().reshape(-1, T, self.n_fft).contiguous(),
-                     self.basis, self.hop_length, self.planes)
+        out = IMDCT2Fn.apply(spec.float().reshape(-1, T, self.n_fft).contiguous(),
+                             self)
         out = out.reshape(lead + out.shape[-1:])
         if self.center:
             out = framing.center_crop(out, self.win_length)
@@ -96,3 +116,23 @@ def _fit_length(out: torch.Tensor, out_length) -> torch.Tensor:
     if short > 0:
         return F.pad(out, (0, short))
     return out[..., :out_length]
+
+
+class IMDCT2Fn(torch.autograd.Function):
+    """`imdct2` (B2) with a gradient: out[b, t*hop + i] = sum_f spec[b, t, f]
+    basis[f, i], so d spec[b, t] = frame(dy[b], win, hop)[t] @ basis^T,
+    which is B1's computation: `imdct2_grad` (B1's kernel on the codec's
+    `basis_t` and `planes_t`; on the CPU B1's twin). dy is the un-cropped
+    [B, (T-1)*hop + win] gradient; L = (T-1)*hop + win is a multiple of 4
+    wherever win and hop are (the tensor-core route's condition)."""
+
+    @staticmethod
+    def forward(ctx, spec: torch.Tensor, codec: "IMDCT2") -> torch.Tensor:
+        ctx.codec = codec
+        return imdct2(spec, codec.basis, codec.hop_length, codec.planes)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        c = ctx.codec
+        return imdct2_grad(dy.float().contiguous(), c.basis_t, c.hop_length,
+                           c.planes_t), None

@@ -15,7 +15,9 @@ Two routes on the card, chosen by the codec's shape alone (`tc_route`):
   FFMA          the f32 FFMA GEMM (`p2p_mdct2_f32`, `p2p_imdct2_f32`) for
                 every other codec (e.g. 512/160).
 Every launch counts in `<wrapper>.launches`; tensor-core launches also in
-`<wrapper>.launches_tc`.
+`<wrapper>.launches_tc`. `imdct2_grad`, the gradient of `imdct2` for
+autograd (ops/mdct.py), is a launch of B1's kernel on the transposed
+inverse basis, counted on its own.
 """
 
 from __future__ import annotations
@@ -110,36 +112,42 @@ def mdct2(x_pad: torch.Tensor, basis: torch.Tensor, hop: int,
     used on the tensor-core route (derived here when None)."""
     if x_pad.device.type == "cpu":
         return mdct2_ref(x_pad, basis, hop)
-    _cuda.check_cuda("mdct2", x_pad, basis)
-    _check_f32_contiguous("mdct2", x_pad=x_pad, basis=basis)
+    out, tc = _launch_mdct2("mdct2", x_pad, basis, hop, planes)
+    mdct2.launches += 1
+    mdct2.launches_tc += tc
+    return out
+
+
+def _launch_mdct2(name: str, x_pad: torch.Tensor, basis: torch.Tensor,
+                  hop: int, planes: Optional[Planes]):
+    """B1's launch, uncounted: (out, 1 on the tensor-core route else 0)."""
+    _cuda.check_cuda(name, x_pad, basis)
+    _check_f32_contiguous(name, x_pad=x_pad, basis=basis)
     if x_pad.dim() != 2 or basis.dim() != 2:
-        raise ValueError(f"mdct2: expected [B, L] and [win, n_fft], got "
+        raise ValueError(f"{name}: expected [B, L] and [win, n_fft], got "
                          f"{tuple(x_pad.shape)} and {tuple(basis.shape)}")
     B, L = x_pad.shape
     win, n_fft = basis.shape
     if not 0 < hop <= win <= L:
-        raise ValueError(f"mdct2: need 0 < hop <= win <= L, got hop={hop} "
+        raise ValueError(f"{name}: need 0 < hop <= win <= L, got hop={hop} "
                          f"win={win} L={L}")
     T = (L - win) // hop + 1
     out = torch.empty(B, T, n_fft, dtype=torch.float32, device=x_pad.device)
     if tc_route(win, hop, n_fft) and L % 4 == 0:
         if planes is None:
             planes = mdct2_planes(basis)
-        _check_planes("mdct2", planes, (n_fft, win))
-        _cuda.check_cuda("mdct2", x_pad, *planes)
+        _check_planes(name, planes, (n_fft, win))
+        _cuda.check_cuda(name, x_pad, *planes)
         x = _aligned(x_pad)
         _cuda.launch("p2p_mdct2_tc", x.device, x.data_ptr(),
                      planes[0].data_ptr(), planes[1].data_ptr(),
                      out.data_ptr(), B, L, T, win, hop, n_fft)
-        mdct2.launches_tc += 1
-    else:
-        if B > _MAX_GRID_Z:
-            raise ValueError(f"mdct2: B={B} > {_MAX_GRID_Z} on the FFMA route")
-        _cuda.launch("p2p_mdct2_f32", x_pad.device, x_pad.data_ptr(),
-                     basis.data_ptr(), out.data_ptr(), B, L, T, win, hop,
-                     n_fft)
-    mdct2.launches += 1
-    return out
+        return out, 1
+    if B > _MAX_GRID_Z:
+        raise ValueError(f"{name}: B={B} > {_MAX_GRID_Z} on the FFMA route")
+    _cuda.launch("p2p_mdct2_f32", x_pad.device, x_pad.data_ptr(),
+                 basis.data_ptr(), out.data_ptr(), B, L, T, win, hop, n_fft)
+    return out, 0
 
 
 mdct2.launches = 0
@@ -185,3 +193,29 @@ def imdct2(spec: torch.Tensor, basis: torch.Tensor, hop: int,
 
 imdct2.launches = 0
 imdct2.launches_tc = 0
+
+
+def imdct2_grad_ref(dy: torch.Tensor, basis_t: torch.Tensor,
+                    hop: int) -> torch.Tensor:
+    """Twin of `imdct2_grad`: B1's twin on the transposed inverse basis."""
+    return mdct2_ref(dy, basis_t, hop)
+
+
+def imdct2_grad(dy: torch.Tensor, basis_t: torch.Tensor, hop: int,
+                planes_t: Optional[Planes] = None) -> torch.Tensor:
+    """The gradient of `imdct2` w.r.t. its spectrum: d spec[t] =
+    frame(dy)[t] @ basis^T, which is B1's computation, so B1's kernel runs
+    it on the transposed inverse basis. dy [B, (T-1)*hop + win] f32 (the
+    un-cropped output's gradient), basis_t = basis.t() [win, n_fft] f32 ->
+    [B, T, n_fft] f32. `planes_t`: `mdct2_planes(basis_t)`. Counted in
+    `imdct2_grad.launches` (and `.launches_tc`), not in mdct2's counts."""
+    if dy.device.type == "cpu":
+        return imdct2_grad_ref(dy, basis_t, hop)
+    out, tc = _launch_mdct2("imdct2_grad", dy, basis_t, hop, planes_t)
+    imdct2_grad.launches += 1
+    imdct2_grad.launches_tc += tc
+    return out
+
+
+imdct2_grad.launches = 0
+imdct2_grad.launches_tc = 0

@@ -1,21 +1,26 @@
 """The Pix2PixHD audio-SR system: serving and the GAN train step.
 
 Port of pix2pixhdaudiosr_tpu/system.py: `frames_for`, `n_frames`,
-`spectro_shape` (:51-138), `encode_input` (:170-185), `losses_and_grads`
-(:208-351) for the flagship's losses (LSGAN and feature matching) with the
-fake pool's pooled pair, `_visual_slices` (:353-369) and `inference`
-(:371-383). Nets are nn.Modules that hold their weights (the
-JAX package passes param trees); they run in the compute dtype, on a
-channels_last view of the NHWC spectrogram.
+`spectro_shape` (:51-138), `encode_input` (:170-185), `_time_frames` and
+`_time_d_apply` (:191-205), `losses_and_grads` (:208-351: LSGAN and
+feature matching, the match loss, the time-domain and HiFi-GAN
+discriminators' losses, the fake pool's pooled pair), `_visual_slices`
+(:353-369) and `inference` (:371-383). Nets are nn.Modules that hold their
+weights (the JAX package passes param trees); they run in the compute
+dtype, on a channels_last view of the NHWC spectrogram.
 
 `netG` is the generator `inference` serves: it carries `--fused_enhancer`
 and `--int8_trunk`, whose kernels have no backward. A training system
 (cfg.is_train) adds `netG_train`, the plain generator the train step
 differentiates, sharing netG's parameter tensors (netG itself when neither
-flag is set), and `netD`; the JAX package's pair is netG / netG_infer.
+flag is set), `netD`, and with --use_time_D / --use_hifigan_D `time_D` /
+`hifigan_D` (else None); the JAX package's pair is netG / netG_infer.
 Training keeps f32 parameters and computes in the compute dtype under
 autocast, as flax's dtype=bf16 modules do from f32 params; so does
-`inference` on a training system (the in-training eval).
+`inference` on a training system (the in-training eval). The codec half
+of the optional losses (to_frames, to_audio, the dB of the time-domain
+frames) runs in f32 outside autocast, as the JAX step runs it on the f32 G
+output; only the discriminators' forwards run in the compute dtype.
 """
 
 from __future__ import annotations
@@ -23,21 +28,21 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .losses import (LOSS_NAMES, feature_matching_loss, filter_losses,
-                     gan_loss, loss_filter_flags)
+                     gan_loss, loss_filter_flags, match_loss)
 from .models.discriminator import build_discriminator
 from .models.generator import build_generator
+from .models.hifigan_d import build_hifigan_discriminator
+from .ops.audio import amplitude_to_db
 from .ops.encoding import CodecConfig, SpectroCodec
 
 # (condition on the config, what it asks for, the ROADMAP item that brings it)
 NOT_YET_TRAIN = (
-    (lambda c: c.use_match_loss, "--use_match_loss", "optional nets, ROADMAP A9"),
-    (lambda c: c.use_time_d, "--use_time_D", "optional nets, ROADMAP A9"),
-    (lambda c: c.use_hifigan_d, "--use_hifigan_D", "optional nets, ROADMAP A9"),
     (lambda c: c.use_features or c.net_g == "encoder",
-     "feature-encoder configs (netE)", "optional nets, ROADMAP A9"),
+     "feature-encoder configs (netE)", "the feature encoder, ROADMAP A9d"),
     (lambda c: bool(c.remat_g), "--remat_g", "memory knobs, ROADMAP A12"),
     (lambda c: c.adam_mu_bf16, "--adam_mu_bf16", "memory knobs, ROADMAP A12"),
 )
@@ -89,10 +94,27 @@ class Pix2PixHDSystem:
             use_sigmoid=cfg.no_lsgan, num_d=cfg.num_d,
             get_interm_feat=not cfg.no_gan_feat_loss, device="meta"
         ).to_empty(device=self.device).to(memory_format=torch.channels_last)
+        # the time-domain D sees [B, T, n_fft, 2]: the dB of the lr frames
+        # and of the tested frames
+        self.time_D = build_discriminator(
+            2, cfg.ndf, cfg.n_layers_d, use_sigmoid=cfg.no_lsgan,
+            num_d=cfg.num_d, get_interm_feat=False, device="meta"
+        ).to_empty(device=self.device).to(
+            memory_format=torch.channels_last) if cfg.use_time_d else None
+        self.hifigan_D = build_hifigan_discriminator(
+            cfg, device="meta").to_empty(device=self.device) \
+            if cfg.use_hifigan_d else None
         self.flags = loss_filter_flags(not cfg.no_gan_feat_loss,
                                        not cfg.no_vgg_loss, cfg.use_match_loss,
                                        cfg.use_hifigan_d or cfg.use_time_d)
         self.loss_names = [n for n, f in zip(LOSS_NAMES, self.flags) if f]
+
+    def d_nets(self) -> Dict[str, torch.nn.Module]:
+        """Every discriminator of a training system by its JAX param-tree
+        key ("D", "time_D", "hifigan_D"): what the D optimizer trains."""
+        return {k: n for k, n in (("D", self.netD), ("time_D", self.time_D),
+                                  ("hifigan_D", self.hifigan_D))
+                if n is not None}
 
     def _generator(self, fused: bool, int8: bool) -> torch.nn.Module:
         cfg = self.cfg
@@ -136,13 +158,22 @@ class Pix2PixHDSystem:
     def encode_input(self, lr_audio: torch.Tensor,
                      noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None):
-        """The lr side of the reference encode: always masked."""
+        """The lr side of the reference encode: always masked; with
+        --use_time_D on a training system, norm_param["frames"] too."""
         return self.codec.to_spectro(lr_audio, mask=True, noise=noise,
-                                     generator=generator)
+                                     generator=generator,
+                                     return_frames=self._need_frames)
 
-    def encode_target(self, hr_audio: torch.Tensor):
-        """The hr side of the reference encode: never masked."""
-        return self.codec.to_spectro(hr_audio, mask=False)
+    def encode_target(self, hr_audio: torch.Tensor,
+                      generator: Optional[torch.Generator] = None):
+        """The hr side of the reference encode: never masked (the random
+        phase encodings draw from `generator`)."""
+        return self.codec.to_spectro(hr_audio, mask=False, generator=generator,
+                                     return_frames=self._need_frames)
+
+    @property
+    def _need_frames(self) -> bool:
+        return self.cfg.is_train and self.cfg.use_time_d
 
     @torch.no_grad()
     def inference(self, lr_audio: torch.Tensor,
@@ -169,6 +200,29 @@ class Pix2PixHDSystem:
         x = torch.cat([label_spec, image_spec], dim=-1).to(self.dtype)
         return self.netD(x.permute(0, 3, 1, 2))
 
+    def time_frames(self, frames: torch.Tensor) -> torch.Tensor:
+        """sqrt(up_ratio - 1) * window * the raw IDCT frames of a G output
+        (codec.to_frames): [B, T, n_fft], f32."""
+        scale = float(np.sqrt(self.cfg.up_ratio - 1).astype(np.float32))
+        return scale * self.codec.mdct.window_t * frames
+
+    def time_d_input(self, label_frames: torch.Tensor,
+                     test_frames: torch.Tensor) -> torch.Tensor:
+        """The time-domain D's pair [B, T, n_fft, 2]: the dB of |frames| of
+        the label and of the tested signal, in f32."""
+        mv = self.cfg.min_value
+        return torch.stack([amplitude_to_db(label_frames.abs(), 20.0, mv, 1.0),
+                            amplitude_to_db(test_frames.abs(), 20.0, mv, 1.0)],
+                           dim=-1)
+
+    def time_d_apply(self, x: torch.Tensor):
+        """time_D on a time_d_input pair, in the compute dtype."""
+        return self.time_D(x.to(self.dtype).permute(0, 3, 1, 2))
+
+    def hifigan_d_apply(self, wav: torch.Tensor):
+        """hifigan_D on a waveform [B, S], in the compute dtype."""
+        return self.hifigan_D(wav[:, None, :].to(self.dtype))
+
     def losses_and_grads(self, batch: Dict[str, torch.Tensor],
                          noise: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
@@ -177,22 +231,30 @@ class Pix2PixHDSystem:
                          grads: Tuple[str, ...] = ("G", "D")
                          ) -> Tuple[Dict[str, torch.Tensor], Dict]:
         """One GAN step's losses, with the grads of the nets named in
-        `grads` left in the .grad of their parameters (netG_train for "G",
-        netD for "D"; set anew, not accumulated; every other .grad is None).
+        `grads` left in the .grad of their parameters (netG_train for "G";
+        netD, time_D and hifigan_D for "D"; set anew, not accumulated;
+        every other .grad is None).
         batch: {"label": lr [B, S], "image": hr [B, S]}; the lr mask noise
-        is `noise` or drawn from `generator`. D's fake term runs on
-        `pooled_fake` ([B, F, T, 2C], the fake pool's pairs) where one is
-        given, else on the pair of this step's G output.
+        is `noise` or drawn from `generator` (so are the random phase
+        encodings' draws and, without explicit encoding, to_audio's
+        pseudo-phase). D's fake term runs on `pooled_fake`
+        ([B, F, T, 2C], the fake pool's pairs) where one is given, else on
+        the pair of this step's G output; the time-domain and HiFi-GAN Ds
+        always see this step's G output.
 
         Every loss is computed whatever `grads` holds, as in the JAX
         package, whose pool steps differentiate one net each and return
         all the losses. G runs forward once. The G losses are
         differentiated w.r.t. a detached leaf of the G output
-        (torch.autograd.grad, so netD's .grad takes nothing from them) and
-        pulled back through G; the D losses see the detached output. D's
-        forward on the real pair runs once: its detached features are the
-        feature-matching target, and it carries the grad of D_real. So a
-        step runs 1 G and 3 D forwards.
+        (torch.autograd.grad, so no discriminator's .grad takes anything
+        from them) and pulled back through G; the D losses see the detached
+        output. D's forward on the real pair runs once: its detached
+        features are the feature-matching target, and it carries the grad
+        of D_real. So a step runs 1 G and 3 D forwards, and 3 of each
+        optional D. The codec half of the optional losses (the G output's
+        frames and waveform) runs once, in f32 outside autocast, and its
+        detached value feeds the D side (JAX computes it again there from
+        the same input and rng, to the same value).
         Returns (the filtered losses, detached f32 scalars;
         {"sr": G output [B,F,T,C] f32, "fake_pair": the D input pair of
         this step's G output, and with `with_visuals` "visuals":
@@ -201,9 +263,12 @@ class Pix2PixHDSystem:
         use_lsgan = not cfg.no_lsgan
         train_g, train_d = "G" in grads, "D" in grads
         with torch.no_grad():
-            lr_spec, _, _ = self.encode_input(batch["label"], noise, generator)
-            hr_spec, hr_pha, _ = self.encode_target(batch["image"])
-        for p in (*self.netG_train.parameters(), *self.netD.parameters()):
+            lr_spec, lr_pha, lr_norm = self.encode_input(batch["label"], noise,
+                                                         generator)
+            hr_spec, hr_pha, hr_norm = self.encode_target(batch["image"],
+                                                          generator)
+        for p in (*self.netG_train.parameters(), *(
+                q for net in self.d_nets().values() for q in net.parameters())):
             p.grad = None
         zero = torch.zeros((), device=self.device)
 
@@ -224,6 +289,29 @@ class Pix2PixHDSystem:
                     parts["G_GAN_Feat"] = feature_matching_loss(
                         pred_fake, target, cfg.n_layers_d, cfg.num_d,
                         cfg.lambda_feat)
+        time_x = wav = None
+        with torch.set_grad_enabled(train_g):
+            with torch.autocast(self.device.type, enabled=False):
+                if cfg.explicit_encoding and (cfg.use_match_loss
+                                              or cfg.use_time_d):
+                    frames = self.codec.to_frames(sr_leaf, lr_norm)
+                    if cfg.use_match_loss:
+                        parts["G_mat"] = match_loss(
+                            frames, self.codec.mdct.window_t, cfg.win_length,
+                            cfg.lambda_mat)
+                if cfg.use_time_d:
+                    time_x = self.time_d_input(lr_norm["frames"],
+                                               self.time_frames(frames))
+                if cfg.use_hifigan_d:
+                    wav = self.codec.to_audio(sr_leaf, lr_norm, pha=lr_pha,
+                                              generator=generator)
+            with self._autocast():
+                if time_x is not None:
+                    parts["G_GAN_t"] = parts["G_GAN_t"] + gan_loss(
+                        self.time_d_apply(time_x), True, use_lsgan) * cfg.lambda_time
+                if wav is not None:
+                    parts["G_GAN_t"] = parts["G_GAN_t"] + gan_loss(
+                        self.hifigan_d_apply(wav), True, use_lsgan) * cfg.lambda_time
         if train_g:
             g_total = sum(parts[k] for k in ("G_GAN", "G_mat", "G_GAN_Feat",
                                              "G_VGG", "G_GAN_t"))
@@ -232,14 +320,26 @@ class Pix2PixHDSystem:
 
         sr_d = sr.detach()
         fake_pair = torch.cat([lr_spec, sr_d], dim=-1)
+        real_x = None if time_x is None else self.time_d_input(
+            lr_norm["frames"], hr_norm["frames"])
         with self._autocast(), torch.set_grad_enabled(train_d):
             d_in = fake_pair if pooled_fake is None else pooled_fake
             pred_fake = self.netD(d_in.to(self.dtype).permute(0, 3, 1, 2))
             parts["D_fake"] = gan_loss(pred_fake, False, use_lsgan)
             parts["D_real"] = gan_loss(pred_real, True, use_lsgan)
             parts["D_fake_t"] = parts["D_real_t"] = zero
+            for fake_in, real_in, apply in (
+                    (time_x, real_x, self.time_d_apply),
+                    (wav, batch["image"], self.hifigan_d_apply)):
+                if fake_in is None:
+                    continue
+                parts["D_fake_t"] = parts["D_fake_t"] + gan_loss(
+                    apply(fake_in.detach()), False, use_lsgan) * cfg.lambda_time
+                parts["D_real_t"] = parts["D_real_t"] + gan_loss(
+                    apply(real_in), True, use_lsgan) * cfg.lambda_time
         if train_d:
-            ((parts["D_fake"] + parts["D_real"]) * 0.5).backward()
+            ((parts["D_fake"] + parts["D_real"]) * 0.5
+             + (parts["D_fake_t"] + parts["D_real_t"]) * 0.5).backward()
 
         losses = filter_losses({k: v.detach() for k, v in parts.items()},
                                self.flags)

@@ -21,13 +21,15 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .models import hifigan_d
 from .models.generator import init_normal_
 from .system import Pix2PixHDSystem
 
 
 @dataclass
 class TrainState:
-    """The nets live in `system` (netG_train, netD); `step` counts steps."""
+    """The nets live in `system` (netG_train, and system.d_nets(): netD,
+    time_D, hifigan_D); `step` counts steps."""
     system: Pix2PixHDSystem
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
@@ -41,17 +43,21 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], cfg,
 
 
 def _split_params(system: Pix2PixHDSystem) -> Tuple[List, List]:
-    """The G optimizer owns G, the D optimizer every discriminator."""
-    return list(system.netG_train.parameters()), list(system.netD.parameters())
+    """The G optimizer owns G, the D optimizer every discriminator (netD,
+    then time_D and hifigan_D where the system has them)."""
+    return (list(system.netG_train.parameters()),
+            [p for net in system.d_nets().values() for p in net.parameters()])
 
 
 def init_state(system: Pix2PixHDSystem, seed: int = 0) -> TrainState:
-    """Fresh N(0, 0.02) conv weights and zero biases for G and D (the JAX
-    package's init, drawn from a generator on the system's device seeded
-    with `seed`), and two fresh Adams."""
+    """Fresh N(0, 0.02) conv weights and zero biases for G and every D
+    (the JAX package's init, drawn in turn from one generator on the
+    system's device seeded with `seed`; each weight-normed conv of
+    hifigan_D gets g = |v|), and two fresh Adams."""
     gen = torch.Generator(device=system.device).manual_seed(seed)
     init_normal_(system.netG_train, gen)
-    init_normal_(system.netD, gen)
+    for key, net in system.d_nets().items():
+        (hifigan_d.init_normal_ if key == "hifigan_D" else init_normal_)(net, gen)
     pg, pd = _split_params(system)
     return TrainState(system, make_optimizer(pg, system.cfg),
                       make_optimizer(pd, system.cfg))

@@ -4,8 +4,10 @@ The reference's naming (pix2pixHD models/base_model.py): the generator of
 tag `<which_epoch>` lives at `<load_pretrain or expr_dir>/<which_epoch>_net_G.pth`.
 Keys follow models/generator.py (the flax tree's names); a JAX checkpoint
 is converted with tools/export_torch_generator.py. A training run saves,
-per tag, `<tag>_net_G.pth` (what generate loads), `<tag>_net_D.pth` and
-`<tag>_optim.pth` (both Adams' state by parameter name, their learning
+per tag, `<tag>_net_G.pth` (what generate loads), `<tag>_net_D.pth`, with
+the optional discriminators `<tag>_net_time_D.pth` and
+`<tag>_net_hifigan_D.pth`, and `<tag>_optim.pth` (both Adams' state by
+parameter name, the D Adam's for every discriminator, their learning
 rates and the step count), all on the CPU, and the resume cursor
 `iter.txt` ("epoch,epoch_iter"), as
 pix2pixhdaudiosr_tpu/utils/checkpoint.py:76-122 keeps its tags.
@@ -44,16 +46,25 @@ def load_generator(net: nn.Module, cfg) -> nn.Module:
     return net
 
 
-def _param_names(opt: torch.optim.Optimizer, net: nn.Module):
-    """The name in `net` of each parameter `opt` steps, in its order."""
-    names = {id(p): n for n, p in net.named_parameters()}
+def _d_params(system) -> Dict[str, nn.Parameter]:
+    """The D optimizer's parameters by name: netD's by their own names (as
+    optim files of runs without the optional nets hold them), time_D's and
+    hifigan_D's under "time_D." and "hifigan_D."."""
+    return {(n if key == "D" else f"{key}.{n}"): p
+            for key, net in system.d_nets().items()
+            for n, p in net.named_parameters()}
+
+
+def _param_names(opt: torch.optim.Optimizer, named: Dict[str, nn.Parameter]):
+    """The name in `named` of each parameter `opt` steps, in its order."""
+    names = {id(p): n for n, p in named.items()}
     return [names[id(p)] for group in opt.param_groups for p in group["params"]]
 
 
-def _named_adam(opt: torch.optim.Optimizer, net: nn.Module) -> Dict:
+def _named_adam(opt: torch.optim.Optimizer, named: Dict[str, nn.Parameter]) -> Dict:
     """An Adam's per-parameter state keyed by parameter name, on the CPU."""
     sd = opt.state_dict()
-    names = _param_names(opt, net)
+    names = _param_names(opt, named)
     return {"state": {names[i]: {k: v.detach().cpu() if torch.is_tensor(v)
                                  else v for k, v in s.items()}
                       for i, s in sd["state"].items()},
@@ -61,14 +72,16 @@ def _named_adam(opt: torch.optim.Optimizer, net: nn.Module) -> Dict:
 
 
 def save_train_state(state, expr_dir: str, tag: str = "latest") -> str:
-    """Write tag's net_G and net_D files (state_dicts) and optim file (both
-    Adams' state by parameter name, their learning rates, and the step) of
-    a trainer.TrainState into expr_dir, every tensor on the CPU; returns
-    the net_G path."""
+    """Write tag's net_G file, a net_<key> file for each discriminator
+    (state_dicts) and optim file (both Adams' state by parameter name,
+    their learning rates, and the step) of a trainer.TrainState into
+    expr_dir, every tensor on the CPU; returns the net_G path."""
     system = state.system
-    save_generator(system.netD, os.path.join(expr_dir, f"{tag}_net_D.pth"))
-    torch.save({"G": _named_adam(state.opt_g, system.netG_train),
-                "D": _named_adam(state.opt_d, system.netD),
+    for key, net in system.d_nets().items():
+        save_generator(net, os.path.join(expr_dir, f"{tag}_net_{key}.pth"))
+    torch.save({"G": _named_adam(state.opt_g,
+                                 dict(system.netG_train.named_parameters())),
+                "D": _named_adam(state.opt_d, _d_params(system)),
                 "step": state.step},
                os.path.join(expr_dir, f"{tag}_optim.pth"))
     return save_generator(system.netG_train,
@@ -89,9 +102,9 @@ def _merge_net(net: nn.Module, saved: Dict[str, torch.Tensor]) -> Set[str]:
     return loaded
 
 
-def _merge_adam(opt: torch.optim.Optimizer, net: nn.Module,
+def _merge_adam(opt: torch.optim.Optimizer, named: Dict[str, nn.Parameter],
                 saved: Dict) -> Set[str]:
-    names = _param_names(opt, net)
+    names = _param_names(opt, named)
     params = [p for group in opt.param_groups for p in group["params"]]
     sd = opt.state_dict()
     loaded = set()
@@ -115,26 +128,30 @@ def has(tag: str, expr_dir: str) -> bool:
 def load_train_state(state, tag: str, expr_dir: str) -> Set[str]:
     """Merge tag's files in expr_dir into a trainer.TrainState in place:
     every saved tensor whose name exists in the target with the same shape
-    (G and D weights; Adam moments, by parameter name), the learning rates
-    and the step where the optim file exists. A missing net_D or optim
-    file leaves that part as it is; a missing net_G raises
-    FileNotFoundError. Returns the names loaded: "G.<param>",
-    "D.<param>", "opt_g.<param>", "opt_d.<param>" and "step"."""
+    (G and each discriminator's weights; Adam moments, by parameter name),
+    the learning rates and the step where the optim file exists. A missing
+    net_<D> or optim file leaves that part as it is; a missing net_G
+    raises FileNotFoundError. Returns the names loaded, as the JAX
+    package's tree keys: "G.<param>", "D.<param>", "time_D.<param>",
+    "hifigan_D.<param>", "opt_g.<param>", "opt_d.<name>" (the D Adam's
+    names of _d_params) and "step"."""
     system = state.system
     path = os.path.join(expr_dir, f"{tag}_net_G.pth")
     if not os.path.exists(path):
         raise FileNotFoundError(f"no generator checkpoint at {path}")
     loaded = {f"G.{n}" for n in _merge_net(system.netG_train, _load(path))}
-    path = os.path.join(expr_dir, f"{tag}_net_D.pth")
-    if os.path.exists(path):
-        loaded |= {f"D.{n}" for n in _merge_net(system.netD, _load(path))}
+    for key, net in system.d_nets().items():
+        path = os.path.join(expr_dir, f"{tag}_net_{key}.pth")
+        if os.path.exists(path):
+            loaded |= {f"{key}.{n}" for n in _merge_net(net, _load(path))}
     path = os.path.join(expr_dir, f"{tag}_optim.pth")
     if os.path.exists(path):
         saved = _load(path)
-        for key, opt, net in (("G", state.opt_g, system.netG_train),
-                              ("D", state.opt_d, system.netD)):
+        for key, opt, named in (
+                ("G", state.opt_g, dict(system.netG_train.named_parameters())),
+                ("D", state.opt_d, _d_params(system))):
             loaded |= {f"opt_{key.lower()}.{n}"
-                       for n in _merge_adam(opt, net, saved[key])}
+                       for n in _merge_adam(opt, named, saved[key])}
         state.step = int(saved["step"])
         loaded.add("step")
     return loaded

@@ -55,6 +55,50 @@ def test_mdct_kernels_match_twins(cuda, win, hop, B):
     assert torch.equal(mk.imdct2(spec, inv.basis, hop), wav)
 
 
+@pytest.mark.parametrize("B,T", [(1, 5), (3, 37), (32, 128)])
+def test_imdct2_grad_matches_autograd_through_the_twin(cuda, B, T):
+    """B2's backward (B1's kernel on the transposed inverse basis) at
+    512/256 on the tensor-core route within 1e-5 max|dspec| of autograd
+    through imdct2's twin, one launch counted on its own counter (not
+    mdct2's); through ops/mdct.IMDCT2Fn with the codec's crop as well."""
+    from pix2pixhdaudiosr_torch.ops import framing
+    from pix2pixhdaudiosr_torch.ops import mdct_kernels as mk
+    from pix2pixhdaudiosr_torch.ops.mdct import IMDCT2
+    from pix2pixhdaudiosr_torch.ops.window import kbdwin
+    inv = IMDCT2(n_fft=512, hop_length=256, win_length=512,
+                 window=kbdwin(512), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    spec = torch.randn(B, T, 512, generator=gen, device=cuda)
+    dy = torch.randn(B, (T - 1) * 256 + 512, generator=gen, device=cuda)
+    sr = spec.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(mk.imdct2_ref(sr, inv.basis, 256), sr, dy)
+    n, n_b1 = mk.imdct2_grad.launches_tc, mk.mdct2.launches
+    got = mk.imdct2_grad(dy, inv.basis_t, 256, inv.planes_t)
+    assert (mk.imdct2_grad.launches_tc, mk.mdct2.launches) == (n + 1, n_b1)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    crop = dy[:, 256:-256]
+    sk = spec.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(inv(sk), sk, crop)
+    sr = spec.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(framing.center_crop(
+        mk.imdct2_ref(sr, inv.basis, 256), 512), sr, crop)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_hifigan_train_step_on_card_matches_cpu(cuda):
+    """chip_smoke.phase_train_reference with --use_hifigan_D: losses within
+    rtol 1e-4 of the CPU step on the card's InstanceNorm outputs, every
+    grad as the plain step's, hifigan_D's within 1e-3 of its net's max
+    against the independent CPU step, IMDCT2 and its backward launched
+    once on the tensor-core route, G's grad from G_GAN_t not 0. It raises
+    chip_smoke.SmokeFailure on a miss."""
+    import chip_smoke
+    res = chip_smoke.phase_train_reference("cuda", ["--use_hifigan_D"])
+    assert res["imdct2_grad_launches_tc"] == 1 and res["g_gan_t_grad_max"] > 0
+
+
 def test_mdct_tc_kernels_take_views_and_propagate_nan(cuda):
     """The tensor-core route on a signal whose data starts off the 16-byte
     grid (a view into a larger tensor), and a NaN sample with CUDA's

@@ -353,7 +353,9 @@ def test_generate_cli_fused_enhancer_on_cpu(tmp_path, rng_np, monkeypatch):
 
 def test_jax_free_imports():
     """In a process where jax, flax, optax and orbax cannot be imported,
-    the package (every module) and chip_smoke import, and no module of the
+    the package (every module) and chip_smoke import, the codec's training
+    inverses (to_frames, to_audio and its gradient) and the HiFi-GAN D
+    run, and no module of the
     JAX package gets loaded, by name or from a file under
     pix2pixhdaudiosr_tpu/ (a module executed by path under another name);
     nor do matplotlib and PIL, which only the gallery's first render
@@ -367,6 +369,14 @@ def test_jax_free_imports():
         "import pix2pixhdaudiosr_torch.evaluate, pix2pixhdaudiosr_torch.data.flac\n"
         "import pix2pixhdaudiosr_torch.utils.visualizer, pix2pixhdaudiosr_torch.utils.image_pool\n"
         "import pix2pixhdaudiosr_torch.utils.tb_events, pix2pixhdaudiosr_torch.utils.html\n"
+        "import pix2pixhdaudiosr_torch.models.hifigan_d as hd, torch\n"
+        "from pix2pixhdaudiosr_torch.ops.encoding import CodecConfig, SpectroCodec\n"
+        "c = SpectroCodec(CodecConfig(n_fft=64, hop_length=32, win_length=64,\n"
+        "    segment_length=480), device='cpu')\n"
+        "s, pha, n = c.to_spectro(torch.randn(1, 480), return_frames=True)\n"
+        "x = s.requires_grad_(True)\n"
+        "c.to_audio(x, n).sum().backward(); c.to_frames(x, n)\n"
+        "d = hd.HiFiGANMultiScaleMultiPeriodDiscriminator(periods=(2,), n_scales=1)\n"
         "import chip_smoke\n"
         "for info in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(info.name)\n"

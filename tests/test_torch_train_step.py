@@ -315,9 +315,6 @@ def test_training_g_is_plain_and_shares_the_serving_weights():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--use_match_loss"], "A9"),
-    (["--use_time_D"], "A9"),
-    (["--use_hifigan_D"], "A9"),
     (["--instance_feat"], "A9"),
     (["--remat_g", "full"], "A12"),
     (["--adam_mu_bf16"], "A12"),
@@ -330,7 +327,7 @@ def test_unported_training_options_raise(extra, item):
 
 @pytest.mark.parametrize("extra,item", [
     (["--fsdp"], "A11"),
-    (["--use_time_D"], "A9"),
+    (["--zero_opt_state"], "A11"),
 ])
 def test_train_loop_refuses_unported_options(tmp_path, extra, item):
     argv = TOY + ["--name", "run", "--checkpoints_dir", str(tmp_path),
