@@ -77,7 +77,10 @@ Phases, each fatal on failure (exit code 1):
      before each call, the share of the bound read from the latter),
      beside its twin, the closed form, autograd through the twin and
      through F.instance_norm (the library yardstick) and its bound (3
-     planes; the 4-plane figure of earlier records beside it);
+     planes; the 4-plane figure of earlier records beside it); then the
+     same checks at the 10 shapes Family A's netE (nef 16) and G (ngf 64)
+     add, at its batch 10, each route printed, the kernels timed without
+     the yardsticks;
  10. one train step of a toy config (n_fft 64, LocalEnhancer ngf 4,
      PatchGAN ndf 4), CUDA against CPU in f32, plain, then with the
      recipes' --use_match_loss --use_time_D --lambda_time 10 (the frames'
@@ -102,6 +105,8 @@ Phases, each fatal on failure (exit code 1):
      from G_GAN_t alone not 0. The plain step also replays the card's
      encoder output into a CPU step and reads every generator conv output
      and the feature-matching L1's signs of both steps (the G-grad gap);
+     the same reading of a toy step with the feature encoder netE
+     (TOY_FEAT: --instance_feat), netE's grads against netE's max;
  11. the flagship train step (G and the 2-scale PatchGAN at ndf 64, bf16
      compute, f32 params and Adam moments) at batch 64 through
      trainer.make_train_step: 2 warm-up and 5 timed steps (ms/step,
@@ -117,12 +122,25 @@ Phases, each fatal on failure (exit code 1):
      expected_step_launches (time-D: B3 and its backward 58, B1 2;
      HiFi-GAN: B3 40, B1 2, B2 1 and its backward 1, all on the fast
      routes) and the optional losses' codec half in f32 in the bf16 step;
+     then the flagship step with each memory knob (KNOBS: --remat_g full,
+     --remat_g dots, --adam_mu_bf16), the same measurements, B3 62 a step
+     under remat (G's 22 recomputed; the backward 40) and G's Adam moments
+     6 bytes a parameter with --adam_mu_bf16 (8 plain); and the remat
+     grads on the card (batch 16) against the card's plain step: in f32
+     within 4x the widest gap of three plain runs (+ 1e-6 of a net's
+     max|g|), in bf16 read;
  12. the training CLI (python -m pix2pixhdaudiosr_torch.train_loop) at
      flagship width on a synthetic wav corpus: 2 steps at batch 2 (B3 and
      its backward 80 launches each), then the generate CLI on the
      latest_net_G.pth it saved; then the CLI with the time-D recipe's
      flags for 2 steps at batch 2 and --continue_train from its `latest`
      (G, D and time_D equal to the saved weights before the first step);
+     then Family A's instance-feature recipe (FAMILY_A, batch 10, netE at
+     nef 16, G ngf 64, implicit encoding, --mask with no mode) through the
+     CLI on 10 FLAC files: 2 steps and a resumed third, every decode on
+     the native route, B3 and its backward as many a step as G, netE and
+     3 D forwards hold InstanceNorms, G, netE and D equal to the saved
+     weights before the resumed run's first step;
  13. the CLIs at their default behaviours, flagship width, on 8 one-second
      files, FLAC (written by the port's write_flac) and wav: where
      matplotlib or PIL is missing, the training and generate CLIs without
@@ -146,14 +164,20 @@ Phases, each fatal on failure (exit code 1):
      --no_html (the gallery's lable_* images, or the stop);
  14. FLAC input's host time: one decode of a 5 s 48 kHz file, a batch of
      64 segments from one-second FLAC files without the resample cache,
-     with it cold and warm.
+     with it cold and warm, on the native route (the port's C++ decode and
+     resample, runtime/native_audio.py; its OpenMP team at the default
+     size and at 1) and on the Python route (data/flac.py's decoder, numpy
+     resample_np); every FLAC decode of the run before it on the native
+     route, and one item of each route equal within 1e-5.
 Each phase prints its seconds ([phase] lines).
 The line before the last is {"kernels": [...]} (`launches` from one
 serve forward, for the InstanceNorm backward, which serving never
 launches, from one flagship train step, and for B2's backward from one
 HiFi-GAN recipe step; `serve_launches` from one plain serve forward,
-`train_launches_per_step` from one flagship train step and
-`recipe_launches_per_step` from one step of each recipe);
+`train_launches_per_step` from one flagship train step,
+`recipe_launches_per_step` from one step of each recipe,
+`knob_launches_per_step` from one step of each memory knob and
+`family_a_launches_per_step` from one step of Family A's CLI run);
 the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
 with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
@@ -261,6 +285,34 @@ POOL_IN_GRAD_LAUNCHES = TRAIN_IN_LAUNCHES
 # phase 13's corpus: 8 files; a 0.25 validation split keeps 2 for the eval
 # (one batch of 2) and leaves 6, 3 steps at batch 2
 CLI_FILES, CLI_STEPS = 8, 3
+# the flagship G's InstanceNorms by (H, W, C) in one forward: 22
+G_IN_BY_SHAPE = {(512, 128, 48): 2, (256, 64, 96): 7, (128, 32, 192): 2,
+                 (64, 16, 384): 2, (32, 8, 768): 2, (16, 4, 1536): 7}
+# the memory knobs' legs of the flagship train step (batch 64)
+KNOBS = (["--remat_g", "full"], ["--remat_g", "dots"], ["--adam_mu_bf16"])
+# the batch of the remat grads' card-against-card reading
+REMAT_BATCH = 16
+# Family A's instance-feature recipe (scripts/train_recipes.sh:50-54,
+# mdct_implicit_phase_coding): implicit encoding, --mask with no
+# --mask_mode, netE at nef 16 with 4 downsamples, the default
+# GlobalGenerator (ngf 64, 4 downsamples, 9 resblocks) and D, batch 10;
+# with --input_nc 1 --output_nc 1 (the widths of the family's other runs,
+# :44-45) where the script says 2: implicit encoding makes a 1-channel
+# spectrogram, and with a 2-channel G output the D pairs differ in width,
+# on which the JAX package's train step fails (system.JAX_UNTRAINABLE)
+FAMILY_A = ["--no_instance", "--no_vgg_loss", "--label_nc", "0",
+            "--output_nc", "1", "--input_nc", "1", "--mask",
+            "--instance_feat", "--feat_num", "1"]
+FAMILY_A_BATCH = 10
+# the InstanceNorm shapes netE (nef 16) and G (ngf 64) add: netE's down
+# and up paths, then G's
+FAMILY_A_IN_SHAPES = [(512, 128, 16), (256, 64, 32), (128, 32, 64),
+                      (64, 16, 128), (32, 8, 256), (512, 128, 64),
+                      (256, 64, 128), (128, 32, 256), (64, 16, 512),
+                      (32, 8, 1024)]
+# the toy CUDA-vs-CPU step's feature encoder
+TOY_FEAT = ["--instance_feat", "--feat_num", "3", "--nef", "4",
+            "--n_downsample_E", "2"]
 # the CUDA-vs-CPU train step: tests/test_torch_train_step.py's toy config
 # (n_fft 64, 480-sample segments, LocalEnhancer ngf 4, PatchGAN ndf 4), f32
 TOY_SEG = 480
@@ -1266,7 +1318,8 @@ def in_grad_bound(x) -> dict:
     return bound(3 * x.element_size() * x.numel(), 20 * x.numel(), F32_FLOPS)
 
 
-def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
+def phase_in_grad(dev, batch: int = TRAIN_BATCH, groups=None,
+                  yardsticks: bool = True) -> dict:
     """B3 with its gradient at every training InstanceNorm shape (the
     generator's with relu and none, the discriminator's and the time-domain
     discriminator's with leaky), batch
@@ -1280,14 +1333,17 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
     the closed form (instance_norm_act_backward), autograd through the
     forward's twin and, as the library yardstick, autograd through
     F.instance_norm and the activation; with the bound of 3 planes (and the
-    4-plane figure of earlier records, x, y and dy read)."""
+    4-plane figure of earlier records, x, y and dy read). `groups`:
+    (shapes, activations) pairs in place of the flagship's; without
+    `yardsticks` the twin, closed-form, autograd and library timings are
+    left out (the checks and the kernel's own timings stay)."""
     import torch
     import torch.nn.functional as F
     from pix2pixhdaudiosr_torch.ops import norm
     gen = torch.Generator(device=dev).manual_seed(12)
     fn, grad, rows = norm.instance_norm_act, norm.instance_norm_act_grad, {}
-    for shapes, acts in ((IN_SHAPES, ("relu", "none")),
-                         (D_IN_SHAPES + TIME_D_IN_SHAPES, ("leaky",))):
+    for shapes, acts in groups or ((IN_SHAPES, ("relu", "none")),
+                                   (D_IN_SHAPES + TIME_D_IN_SHAPES, ("leaky",))):
         for H, W, C in shapes:
             row = {}
             for dtype in (torch.float32, torch.bfloat16):
@@ -1296,12 +1352,14 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
                 dy = torch.randn(x.shape, generator=gen, device=dev).to(
                     dtype).contiguous(memory_format=torch.channels_last)
                 plan = norm.plan_instance_norm_grad(batch, H, W, C, dtype)
+                fplan = norm.plan_instance_norm(batch, H, W, C, dtype)
                 for act in acts:
                     n1 = fn.launches_onepass
                     n2 = grad.launches_by_route.get(plan.route, 0)
                     r = in_grad_check(x, act, dy)
-                    check(fn.launches_onepass - n1 == 1,
-                          f"IN grad {(H, W, C)}: the forward's two-pass route")
+                    check(fn.launches_onepass - n1 == (fplan.route == "onepass"),
+                          f"IN grad {(H, W, C)}: the forward left the "
+                          f"{fplan.route} route")
                     check(grad.launches_by_route.get(plan.route, 0) - n2 == 1,
                           f"IN grad {(H, W, C)}: the backward left the "
                           f"{plan.route} route")
@@ -1314,7 +1372,9 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
                 check(torch.equal(run(), run()),
                       f"IN grad {(H, W, C)} {dtype}: two runs differ")
                 if dtype == torch.bfloat16:
-                    row.update(route=plan.route, plan=plan._asdict(),
+                    row.update(forward_route=fplan.route,
+                               forward_ms=cuda_ms(lambda: fn(x, acts[0])),
+                               route=plan.route, plan=plan._asdict(),
                                backward_ms=cuda_ms(run),
                                backward_device_ms=device_ms(run),
                                backward_cold_device_ms=device_ms(run, cold=True))
@@ -1327,6 +1387,14 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
                                    other_route_ms=cuda_ms(lambda: run(other)),
                                    other_route_device_ms=device_ms(
                                        lambda: run(other)))
+                    row.update(in_grad_bound(x))
+                    row["share_of_bound"] = (row["bound_ms"]
+                                             / row["backward_cold_device_ms"])
+                    row["max_abs_err"] = max(v["max_abs_err"] for k, v in
+                                             row.items() if k.startswith("bfloat16"))
+                    if not yardsticks:
+                        del x, dy, y, saved
+                        continue
                     row["twin_ms"] = cuda_ms(
                         lambda: norm.instance_norm_act_grad_ref(
                             x, dy, saved, acts[0]), iters=5, warmup=1)
@@ -1344,12 +1412,7 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH) -> dict:
                     row["library_backward_ms"] = cuda_ms(
                         lambda: torch.autograd.grad(yl, xr, dy, retain_graph=True),
                         iters=10, warmup=2)
-                    row.update(in_grad_bound(x))
                     row["bound_4planes_ms"] = 4 * 2 * x.numel() / HBM_BPS * 1e3
-                    row["share_of_bound"] = (row["bound_ms"]
-                                             / row["backward_cold_device_ms"])
-                    row["max_abs_err"] = max(v["max_abs_err"] for k, v in
-                                             row.items() if k.startswith("bfloat16"))
                     del xr, yr, yl
                 del x, dy, y, saved
             rows[f"{H}x{W}x{C}"] = row
@@ -1613,7 +1676,7 @@ def phase_train_reference(dev, extra=(), diagnose: bool = False) -> dict:
     b, f, t, c = init.spectro_shape(2)
     noise = torch.randn(b, init.codec.mask_size(f), t, c,
                         generator=torch.Generator().manual_seed(3))
-    nets = ("G", *init.d_nets())
+    nets = ("G", *(("E",) if init.netE is not None else ()), *init.d_nets())
 
     def run(d, in_fn, in_grad=None, encoded=None, floors=None):
         """One step on device d, InstanceNorm outputs through in_fn (the
@@ -1628,6 +1691,8 @@ def phase_train_reference(dev, extra=(), diagnose: bool = False) -> dict:
         system.netG_train.load_state_dict(init.netG_train.state_dict())
         for key, net in system.d_nets().items():
             net.load_state_dict(init.d_nets()[key].state_dict())
+        if system.netE is not None:
+            system.netE.load_state_dict(init.netE.state_dict())
         enc, convs, fm_signs = [], [], []
         for i, side in enumerate(("encode_input", "encode_target")):
             fn = getattr(system, side)
@@ -1669,7 +1734,7 @@ def phase_train_reference(dev, extra=(), diagnose: bool = False) -> dict:
             del system.time_d_input
             for h in hooks:
                 h.remove()
-        named = {"G": system.netG_train, **system.d_nets()}
+        named = {**system.g_nets(), **system.d_nets()}
         return dict(losses={k: float(v) for k, v in losses.items()},
                     grads={f"{p}.{n}": w.grad.detach().cpu() for p, net in
                            named.items() for n, w in net.named_parameters()},
@@ -1730,7 +1795,7 @@ def phase_train_reference(dev, extra=(), diagnose: bool = False) -> dict:
     res["loss_rel_err_card_in"] = {k: abs(got["losses"][k] - v) / abs(v)
                                    for k, v in same["losses"].items()}
     void = set().union(*(norm_fed_biases(net, f"{key}.") for key, net in
-                         (("G", init.netG_train), *init.d_nets().items())))
+                         (*init.g_nets().items(), *init.d_nets().items())))
 
     def worst(other, rel_net=()):
         """grad_worst_of_bound of the card step against `other`, a net;
@@ -1748,6 +1813,13 @@ def phase_train_reference(dev, extra=(), diagnose: bool = False) -> dict:
     # dB of the frames, so the final conv's rounding moves the small leaves
     # (enh1_final's bias: 1.85x their own bound on an H100)
     g_rel = ("G",) if cfg.use_time_d else ()
+    # netE's leaves against netE's max: its output bias sums the pooled
+    # grads over every pixel, which nearly cancel (two f32 steps on the CPU
+    # part by ~1e-3 of that leaf, tests/test_torch_feature_encoder.py)
+    if init.netE is not None:
+        g_rel += ("E",)
+        res["pha_flips"] = int((got["encoded"][0][1].cpu()
+                                != want["encoded"][0][1]).sum())
     res["grad_worst_of_bound"] = worst(same, g_rel)
     res["grad_worst_of_bound_twin_at_card_inputs"] = worst(twin, g_rel)
     if g_rel:
@@ -1936,12 +2008,15 @@ def dy_layouts(run_step) -> dict:
 def expected_step_launches(cfg) -> dict:
     """A flagship train step's launches by kernel (all on the fast route):
     B3 and its backward 40, + 18 with the time-domain D (6 in each of its 3
-    forwards); B1 2 (the lr and the hr encode); with the HiFi-GAN D, B2 1
+    forwards); with --remat_g, B3 22 more (G's, recomputed in the
+    backward); B1 2 (the lr and the hr encode); with the HiFi-GAN D, B2 1
     (to_audio of the G output, whose detached value feeds the D side) and
     its backward 1."""
     n_in = TRAIN_IN_LAUNCHES + TIME_D_IN_LAUNCHES * cfg.use_time_d
     n_inv = int(cfg.use_hifigan_d)
-    return {"instance_norm_act": n_in, "instance_norm_act_grad": n_in,
+    n_remat = sum(G_IN_BY_SHAPE.values()) if cfg.remat_g else 0
+    return {"instance_norm_act": n_in + n_remat,
+            "instance_norm_act_grad": n_in,
             "mdct2": TRAIN_MDCT_LAUNCHES, "imdct2": n_inv, "imdct2_grad": n_inv}
 
 
@@ -1965,6 +2040,25 @@ def spy_codec_dtypes(system) -> dict:
     return seen
 
 
+def opt_state_bytes(opt) -> int:
+    """Bytes of an optimizer's moments (every state tensor but the step)."""
+    import torch
+    return sum(t.numel() * t.element_size() for st in opt.state.values()
+               for k, t in st.items() if torch.is_tensor(t) and k != "step")
+
+
+def flagship_train_batch(dev, batch: int, seed: int = 4) -> dict:
+    """A seeded batch of hr tones and their noisy lr, [batch, SEG] on dev."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(SEG, device=dev) / 48000
+    f0 = 100 + 400 * torch.rand(batch, 1, generator=gen, device=dev)
+    hr = 0.3 * torch.sin(2 * torch.pi * f0 * t) + 0.01 * torch.randn(
+        batch, SEG, generator=gen, device=dev)
+    return {"image": hr, "label": hr + 0.05 * torch.randn(
+        batch, SEG, generator=gen, device=dev)}
+
+
 def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
     """The flagship train step (+ the recipe flags `extra`) at `batch`
     through trainer.make_train_step: seeded N(0, 0.02) weights, a seeded
@@ -1976,7 +2070,10 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
     expected_step_launches (B3 all one-pass, its backward shape by shape
     as the forward's, by route and the dy copies reported; MDCT2, IMDCT2
     and IMDCT2's backward on the tensor-core route), no launch of the
-    serving-only kernels, and the optional losses' codec half in f32."""
+    serving-only kernels, and the optional losses' codec half in f32.
+    With --remat_g, B3's forward launches G's 22 again a step (shape by
+    shape, the backward's + G's); the Adams' moment bytes are read (with
+    --adam_mu_bf16 G's are 6 bytes a parameter, else 8)."""
     import torch
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
@@ -1996,13 +2093,7 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
     check((n_params["G"], n_params["D"]) == (156_050_690, 5_531_522),
           f"parameters {n_params}")
     dtypes = spy_codec_dtypes(system)
-    gen = torch.Generator(device=dev).manual_seed(4)
-    t = torch.arange(SEG, device=dev) / 48000
-    f0 = 100 + 400 * torch.rand(batch, 1, generator=gen, device=dev)
-    hr = 0.3 * torch.sin(2 * torch.pi * f0 * t) + 0.01 * torch.randn(
-        batch, SEG, generator=gen, device=dev)
-    data = {"image": hr, "label": hr + 0.05 * torch.randn(
-        batch, SEG, generator=gen, device=dev)}
+    data = flagship_train_batch(dev, batch)
     step = make_train_step(system)
     params = [p for net in (system.netG_train, *system.d_nets().values())
               for p in net.parameters()]
@@ -2051,14 +2142,19 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
                    f"{h}x{w}x{c}": n / n_steps for (h, w, c), n
                    in grad.dy_copies_by_shape.items()},
                codec_dtypes={k: sorted(v) for k, v in dtypes.items()},
+               opt_state_bytes={"G": opt_state_bytes(state.opt_g),
+                                "D": opt_state_bytes(state.opt_d)},
                losses=[{k: float(v) for k, v in l.items()} for l in losses])
     moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, params))
     res["params_moved"], res["param_tensors"] = moved, len(before)
     del before
     counts = {k: (fn.launches, getattr(fn, "launches_tc", None))
               for k, fn in counters.items()}
+    remat = {k: n * n_steps for k, n in G_IN_BY_SHAPE.items()} \
+        if cfg.remat_g else {}
     shapes_ok = ({k: n for k, n in inorm.launches_by_shape.items()}
-                 == {k: n for k, n in grad.launches_by_shape.items()})
+                 == {k: n + remat.get(k, 0) for k, n
+                     in grad.launches_by_shape.items()})
     onepass = inorm.launches_onepass
     if not extra:
         res["in_grad_dy_layouts"] = dy_layouts(run_step)
@@ -2081,9 +2177,14 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
           f"launches one-pass")
     # the backward kernel takes every InstanceNorm backward of the step:
     # as many launches as forwards, shape by shape (the closed form is on
-    # no path: layers.InstanceNormAct calls instance_norm_act_grad only)
+    # no path: layers.InstanceNormAct calls instance_norm_act_grad only),
+    # less G's recomputed forwards under --remat_g
     check(shapes_ok, f"InstanceNorm backward by shape {grad.launches_by_shape}"
           f", the forward's {inorm.launches_by_shape}")
+    check(res["opt_state_bytes"]["G"]
+          == (6 if cfg.adam_mu_bf16 else 8) * n_params["G"],
+          f"G's Adam moments take {res['opt_state_bytes']['G']} bytes for "
+          f"{n_params['G']} parameters")
     check(all(v == ["float32"] for v in res["codec_dtypes"].values())
           and ("to_frames" in dtypes) == (cfg.use_match_loss or cfg.use_time_d)
           and ("imdct2_out" in dtypes) == cfg.use_hifigan_d,
@@ -2091,6 +2192,199 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
     del system, state, data, run_step
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+def phase_remat_grads(dev, batch: int = REMAT_BATCH) -> dict:
+    """The flagship step's losses_and_grads (seeded weights, batch and mask
+    noise) on the card, three times plain, then with --remat_g full and
+    dots, in f32 and in bf16. Each net's gap between two runs is its worst
+    leaf's max|a - b| over the net's max|g|; the card's plain runs differ
+    (reflect-pad backward atomics, and in f32 the forward too), so in f32
+    the remat runs' gap to the first plain run must stay within 4x the
+    widest gap of the three plain pairs + 1e-6. bf16 is read, not checked:
+    there its rounding makes one pair's gap swing 10x between calls (0.10
+    and 0.0099 of G's max for --remat_g full, the plain pairs 0.007-0.010,
+    on an H100). B3 launches 40 a plain run and 62 a remat run (G's 22
+    recomputed), its backward 40 each."""
+    import torch
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_grad)
+    from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
+    from pix2pixhdaudiosr_torch.trainer import init_state
+
+    def gap(a, b):
+        out = {}
+        for k in a:
+            scale = max(g.abs().max().item() for g in a[k])
+            out[k] = max((x - y).abs().max().item()
+                         for x, y in zip(a[k], b[k])) / scale
+        return out
+
+    res = dict(batch=batch)
+    for dtype in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = parse_config([*FLAGSHIP, "--batchSize", str(batch),
+                            "--compute_dtype", dtype], is_train=True,
+                           save=False)
+        system = Pix2PixHDSystem(cfg, device=dev)
+        init_state(system, 0)
+        data = flagship_train_batch(dev, batch, seed=8)
+        b, f, t, c = system.spectro_shape(batch)
+        noise = torch.randn(b, system.codec.mask_size(f), t, c, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(9))
+        nets = {**system.g_nets(), **system.d_nets()}
+
+        def grads(mode):
+            system.cfg = cfg.replace(remat_g=mode)
+            for fn in (instance_norm_act, instance_norm_act_grad):
+                reset_counts(fn)
+            losses, _ = system.losses_and_grads(data, noise=noise)
+            torch.cuda.synchronize()
+            return ({k: float(v) for k, v in losses.items()},
+                    {k: [p.grad.detach().clone() for p in net.parameters()]
+                     for k, net in nets.items()},
+                    (instance_norm_act.launches, instance_norm_act_grad.launches))
+
+        plain = [grads("") for _ in range(3)]
+        remat = {m: grads(m) for m in ("full", "dots")}
+        system.cfg = cfg
+        base = plain[0][1]
+        pairs = [gap(plain[i][1], plain[j][1]) for i, j in ((0, 1), (0, 2), (1, 2))]
+        spread = {k: max(p[k] for p in pairs) for k in base}
+        row = dict(plain_gaps=pairs, plain_spread=spread,
+                   plain_launches=[r[2] for r in plain])
+        for mode, run in remat.items():
+            row[mode] = dict(
+                gap=gap(base, run[1]),
+                bit_identical=all(torch.equal(x, y) for k in base
+                                  for x, y in zip(base[k], run[1][k])),
+                loss_max_rel_err=max(abs(v - plain[0][0][k])
+                                     / abs(plain[0][0][k])
+                                     for k, v in run[0].items()),
+                launches=run[2])
+        res[dtype] = row
+        del system, plain, remat, base, data
+    print("[remat grads] " + json.dumps(res))
+    for dtype in ("float32", "bfloat16"):
+        row = res[dtype]
+        for mode in ("full", "dots"):
+            r = row[mode]
+            check(dtype != "float32" or all(
+                r["gap"][k] <= 4 * row["plain_spread"][k] + 1e-6
+                for k in r["gap"]), f"--remat_g {mode} grads off the plain "
+                f"step's in f32: {r['gap']}, plain runs {row['plain_spread']}")
+            check(r["launches"] == (TRAIN_IN_LAUNCHES
+                                    + sum(G_IN_BY_SHAPE.values()),
+                                    TRAIN_IN_LAUNCHES),
+                  f"--remat_g {mode}: B3 / its backward launched "
+                  f"{r['launches']}")
+        check(all(n == (TRAIN_IN_LAUNCHES, TRAIN_IN_LAUNCHES)
+                  for n in row["plain_launches"]),
+              f"plain: B3 / its backward launched {row['plain_launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def count_norms(net) -> int:
+    """InstanceNorms in one forward of net (a ConvIN with norm, every
+    ConvTransposeIN)."""
+    from pix2pixhdaudiosr_torch.models.layers import ConvIN, ConvTransposeIN
+    return sum(isinstance(m, ConvTransposeIN)
+               or (isinstance(m, ConvIN) and m.norm) for m in net.modules())
+
+
+def phase_family_a(dev, counters) -> dict:
+    """Family A's instance-feature recipe (FAMILY_A) through the training
+    CLI on a corpus of FLAC files (the port's write_flac): 2 steps at batch
+    10 over 10 files, 2 epochs, `latest` saved at each end, then
+    --continue_train for a third. Checks: netE built and trained (its file
+    written), every decode of the run on the native route, B3 and its
+    backward launched a step as many times as G, netE and 3 D forwards hold
+    InstanceNorms, B1 2 a step, and before the resumed run's first step G,
+    netE and D equal to the saved weights."""
+    import numpy as np
+    import torch
+    from pix2pixhdaudiosr_torch import train_loop
+    from pix2pixhdaudiosr_torch.data import flac
+    corpus = os.path.join(WORK, "family_a")
+    os.makedirs(corpus)
+    for i in range(2):
+        flac.write_flac(os.path.join(corpus, f"a{i}.flac"),
+                        synthetic_audio(1.0, 180 + 70 * i, 20 + i), 48000)
+    for i in range(2, FAMILY_A_BATCH):     # the same bytes, 10 files
+        shutil.copy(os.path.join(corpus, f"a{i % 2}.flac"),
+                    os.path.join(corpus, f"a{i}.flac"))
+    expr = os.path.join(WORK, "family_a_run")
+    argv = ["--name", "family_a_run", "--checkpoints_dir", WORK, "--dataroot",
+            corpus, "--device", dev, *FAMILY_A, "--batchSize",
+            str(FAMILY_A_BATCH), "--niter_decay", "0", "--no_html",
+            "--validation_split", "0", "--print_freq", str(FAMILY_A_BATCH),
+            "--save_latest_freq", "0", "--save_epoch_freq", "1"]
+    before = dict(flac.decodes)
+    state, out, secs = run_cli(train_loop.main, [*argv, "--niter", "2"],
+                               counters)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    system = state.system
+    n_params = {k: sum(p.numel() for p in net.parameters()) for k, net in
+                (*system.g_nets().items(), *system.d_nets().items())}
+    norms = {k: count_norms(net) for k, net in (*system.g_nets().items(),
+                                                ("D", system.netD))}
+    per_step = norms["G"] + norms["E"] + 3 * norms["D"]
+    decodes = {k: flac.decodes[k] - before[k] for k in before}
+    check(system.netE is not None and state.step == 2,
+          f"Family A: netE {system.netE is not None}, {state.step} steps")
+    check(decodes == {"native": 2 * FAMILY_A_BATCH, "python": 0},
+          f"Family A's FLAC decodes by route: {decodes}")
+    check(launches["instance_norm_act"] == 2 * per_step
+          and launches["instance_norm_act_grad"] == 2 * per_step
+          and launches["mdct2"] == 2 * TRAIN_MDCT_LAUNCHES,
+          f"Family A launches {launches}, expected {per_step} B3 a step")
+    saved = {k: torch.load(os.path.join(expr, f"latest_net_{k}.pth"),
+                           weights_only=True) for k in ("G", "E", "D")}
+    del state, system
+    first = {}
+    make_step = train_loop.make_train_step
+
+    def hooked(system):
+        step = make_step(system)
+
+        def first_step(state, *args, **kw):
+            if not first:
+                nets = {**system.g_nets(), **system.d_nets()}
+                first["equal"] = {k: all(torch.equal(v.cpu(), saved[k][n])
+                                         for n, v in nets[k].state_dict().items())
+                                  for k in saved}
+                first["step"] = state.step
+            return step(state, *args, **kw)
+        return first_step
+
+    train_loop.make_train_step = hooked
+    try:
+        state, out2, secs2 = run_cli(train_loop.main, [*argv, "--niter", "3",
+                                                        "--continue_train"])
+    finally:
+        train_loop.make_train_step = make_step
+    losses = [ln for ln in (out + out2).splitlines() if ln.startswith("(epoch")]
+    check(first.get("equal") == {k: True for k in saved} and first["step"] == 2
+          and state.step == 3, f"the resumed Family A run: before its first "
+          f"step {first}, ended at step {state.step}")
+    check(len(losses) == 3 and all(np.isfinite(float(v)) for ln in losses
+                                   for v in ln.split(") ")[1].split()[1::2]),
+          f"Family A's loss lines: {losses}")
+    res = dict(seconds=secs, resume_seconds=secs2, params=n_params,
+               norms=norms, launches=launches,
+               launches_per_step={k: n / 2 for k, n in launches.items()},
+               decodes=decodes,
+               resumed_equal=first["equal"], final_step=state.step,
+               log=losses)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[family a] " + json.dumps(res))
     return res
 
 
@@ -2531,33 +2825,82 @@ def pool_round_trip_ms(dev, batch: int = TRAIN_BATCH) -> float:
 
 
 def phase_flac() -> dict:
-    """Host time of FLAC input (data/flac.py, pure Python): one decode of a
-    5 s 48 kHz file, and one flagship batch (TRAIN_BATCH segments) from a
-    corpus of one-second FLAC files, without the resample cache, with it
-    cold and with it warm."""
+    """Host time of FLAC input: one decode of a 5 s 48 kHz file, and one
+    flagship batch (TRAIN_BATCH segments) from a corpus of one-second FLAC
+    files through the Loader (2 threads, as --nThreads), without the
+    resample cache, with it cold and with it warm; on the native route
+    (runtime/native_audio.py: C++ decode and resample), with its OpenMP
+    team at the default size and at 1 thread (3 runs each in turns, the
+    fastest kept beside the runs), and on the Python route (data/flac.py's
+    decoder, numpy resample_np). Before the Python route
+    runs, every FLAC decode of the run so far must have taken the native
+    route. An item (the dataset's first draw, no thread) by the native
+    route equals the Python route's within 1e-5, uncached and cached."""
+    import numpy as np
+    from pix2pixhdaudiosr_torch.data import flac
     from pix2pixhdaudiosr_torch.data.dataset import AudioDataset, Loader
-    from pix2pixhdaudiosr_torch.data.flac import read_flac, write_flac
+    from pix2pixhdaudiosr_torch.ops.audio import resample_np
+    from pix2pixhdaudiosr_torch.runtime import native_audio
+    check(flac.decodes["python"] == 0,
+          f"{flac.decodes['python']} FLAC decodes of this run took the "
+          f"Python route ({flac.decodes['native']} the native one)")
     corpus = os.path.join(WORK, "flac_corpus")
     os.makedirs(corpus)
     five = os.path.join(WORK, "five.flac")
-    write_flac(five, synthetic_audio(5.0, 220, 0), 48000)
-    t0 = time.perf_counter()
-    wav, rate = read_flac(five)
-    res = dict(decode_5s_s=time.perf_counter() - t0)
-    check(rate == 48000 and wav.shape == (1, 240000), f"{wav.shape} at {rate}")
+    flac.write_flac(five, synthetic_audio(5.0, 220, 0), 48000)
+    res = dict(cores=os.cpu_count())
+    native_audio.library()  # built and loaded before any timing
+    for route, native in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        wav, rate = flac.read_flac(five, use_native=native)
+        res[f"decode_5s_{route}_s"] = time.perf_counter() - t0
+        check(rate == 48000 and wav.shape == (1, 240000),
+              f"{wav.shape} at {rate}")
     one = os.path.join(corpus, "f0.flac")
-    write_flac(one, synthetic_audio(1.0, 330, 1), 48000)
+    flac.write_flac(one, synthetic_audio(1.0, 330, 1), 48000)
     for i in range(1, TRAIN_BATCH):    # the same bytes, TRAIN_BATCH files
         shutil.copy(one, os.path.join(corpus, f"f{i}.flac"))
-    for name, cache in (("batch_no_cache_s", None),
-                        ("batch_cold_cache_s", os.path.join(WORK, "cache")),
-                        ("batch_warm_cache_s", os.path.join(WORK, "cache"))):
+    read_flac, resample = flac.read_flac, native_audio.resample
+    items = {}
+
+    def timed_batch(name: str, route: str, cache):
+        """One Loader batch's seconds, appended to res[batch_<name>_<route>
+        _s_runs]; the dataset's first item kept by (name, native|python)."""
         ds = AudioDataset(corpus, 8000, 48000, SEG, cache_dir=cache)
         loader = Loader(ds, range(len(ds)), TRAIN_BATCH, shuffle=False)
         t0 = time.perf_counter()
         batch = next(iter(loader))
-        res[name] = time.perf_counter() - t0
+        res.setdefault(f"batch_{name}_{route}_s_runs", []).append(
+            time.perf_counter() - t0)
         check(batch["image"].shape == (TRAIN_BATCH, SEG), "FLAC batch shape")
+        items[name, route.split("_")[0]] = AudioDataset(
+            corpus, 8000, 48000, SEG, cache_dir=cache)[0]
+
+    caches = (("no_cache", False), ("cold_cache", True), ("warm_cache", True))
+    try:
+        # the native routes 3 times each, in turns: the OpenMP team at the
+        # default size, then at 1 thread
+        for i, route in enumerate(("native", "native_omp1") * 3):
+            native_audio.set_threads(1 if route == "native_omp1" else 0)
+            for name, cached in caches:
+                timed_batch(name, route, os.path.join(WORK, f"cache_{i}")
+                            if cached else None)
+        native_audio.set_threads(0)
+        flac.read_flac = lambda *a, **k: read_flac(*a, **k, use_native=False)
+        native_audio.resample = resample_np
+        for name, cached in caches:
+            timed_batch(name, "python", os.path.join(WORK, "cache_python")
+                        if cached else None)
+    finally:
+        native_audio.set_threads(0)
+        flac.read_flac, native_audio.resample = read_flac, resample
+    for key in [k for k in res if k.endswith("_runs")]:
+        res[key[:-5]] = min(res[key])
+    for name, _ in caches:
+        a, b = items[name, "native"], items[name, "python"]
+        err = max(float(np.abs(a[k] - b[k]).max()) for k in ("image", "label"))
+        res[f"native_vs_python_{name}_max_abs_err"] = err
+        check(err <= 1e-5, f"native and Python items differ by {err}")
     print("[flac] " + json.dumps(res))
     return res
 
@@ -2648,18 +2991,27 @@ def main() -> int:
         del system, lr, noise
         torch.cuda.empty_cache()
         in_grad = timed("in grad", phase_in_grad, dev)
+        in_grad_a = timed("in grad family A", phase_in_grad, dev,
+                          FAMILY_A_BATCH, [(FAMILY_A_IN_SHAPES,
+                                            ("relu", "none"))], False)
         train_ref = timed("train reference", phase_train_reference, dev, (),
                           True)
         recipe_ref = [timed(f"train reference {' '.join(flags)}",
                             phase_train_reference, dev, flags)
                       for flags in TOY_RECIPES]
+        feat_ref = timed("train reference instance_feat",
+                         phase_train_reference, dev, TOY_FEAT)
         train = timed("train step", phase_train_step, dev, all_counters)
         recipes = [timed(f"recipe step {' '.join(flags)}", phase_train_step,
                          dev, all_counters, flags, batch)
                    for flags, batch in RECIPES]
+        knobs = [timed(f"knob step {' '.join(flags)}", phase_train_step, dev,
+                       all_counters, flags) for flags in KNOBS]
+        remat = timed("remat grads", phase_remat_grads, dev)
         train_cli = timed("train cli", phase_train_cli, dev, train_counters,
                           wav, n_in)
         recipe_cli = timed("recipe cli", phase_recipe_cli, dev, train_counters)
+        family_a = timed("family A cli", phase_family_a, dev, train_counters)
         in_bwd = in_backward_per_step(in_grad, train)
         print("[in grad] a train step's calls: " + json.dumps(in_bwd))
         cli = timed("cli", phase_cli, dev, train_counters)
@@ -2694,6 +3046,11 @@ def main() -> int:
                     recipe_launches_per_step={
                         " ".join(r["flags"]): r["launches_per_step"].get(k, 0)
                         for r in recipes},
+                    knob_launches_per_step={
+                        " ".join(r["flags"]): r["launches_per_step"].get(k, 0)
+                        for r in knobs},
+                    family_a_launches_per_step=family_a[
+                        "launches_per_step"].get(k, 0),
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}) for k in KERNELS]
@@ -2704,8 +3061,10 @@ def main() -> int:
         fused_vs_plain=fused_err, quant_vs_plain=quant_err, serve=serve,
         sizes=sizes, b3_per_shape=b3, in_grad=in_grad,
         train_reference=train_ref, recipe_reference=recipe_ref,
-        train_step=train, recipe_steps=recipes, train_cli=train_cli,
-        recipe_cli=recipe_cli,
+        feature_reference=feat_ref, in_grad_family_a=in_grad_a,
+        train_step=train, recipe_steps=recipes, knob_steps=knobs,
+        remat_grads=remat, train_cli=train_cli, recipe_cli=recipe_cli,
+        family_a_cli=family_a,
         in_backward_per_step=in_bwd, cli=cli, flac=flac,
         phase_seconds=phase_s)))
     print(json.dumps({"kernels": kernels}))

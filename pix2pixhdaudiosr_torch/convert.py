@@ -5,7 +5,8 @@ models/hifigan_d.py), so the conversion is a walk over that tree: every
 `Conv_0` or `ConvTranspose_0` node holding {kernel, bias} becomes
 `<path>.weight` and `<path>.bias`, and every HiFi-GAN `NormConv_<k>` node
 holding {kernel, bias[, g]} `<path>.weight`, `<path>.bias` and
-`<path>.g`. The walk serves the generator and every discriminator alike
+`<path>.g`. The walk serves the generator, the feature encoder netE
+(`params["E"]`) and every discriminator alike
 (`jax_to_torch_discriminator`: netD, time_D, hifigan_D), and the Adam
 moments, which are trees of the params' shape (`load_adam_state`).
 

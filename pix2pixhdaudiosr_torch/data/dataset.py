@@ -12,9 +12,11 @@ imports jax):
     segment_length windows (the generate CLI's input).
   * Loader: batches of dataset indices, decoded by a few threads, prefetched
     and delivered in order.
-Resampling is the numpy polyphase `resample_np`; the JAX package's native
-resampler (runtime/native_audio.py) is not ported: PERF.md §3 has the
-input pipeline's host times.
+Resampling runs in the port's native C++ library (runtime/native_audio.py,
+a copy of the JAX package's, built with g++ at first use), as the JAX
+dataset's `_resample` does (:37-39); the numpy polyphase
+`resample_np` is its oracle. A library that does not build stops the
+run: nothing falls back. PERF.md §3 has the input pipeline's host times.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from ..ops.audio import resample_np
+from ..runtime import native_audio
 from .filelist import discover_files
 from .wavio import read_wav, wav_info
 
@@ -81,9 +83,10 @@ class AudioDataset:
         if not os.path.exists(cpath):
             wav, rate = read_wav(path)
             wav = wav[0]
-            hr = resample_np(wav, rate, self.hr_rate).astype(np.float32)
-            lr = resample_np(resample_np(wav, rate, self.lr_rate),
-                             self.lr_rate, self.hr_rate).astype(np.float32)
+            resample = native_audio.resample
+            hr = resample(wav, rate, self.hr_rate).astype(np.float32)
+            lr = resample(resample(wav, rate, self.lr_rate),
+                          self.lr_rate, self.hr_rate).astype(np.float32)
             np.savez(cpath, hr=hr, lr=lr[: len(hr)])
         z = np.load(cpath, mmap_mode="r")
         hr, lr = z["hr"], z["lr"]
@@ -101,9 +104,10 @@ class AudioDataset:
                     hr, lr = self._cached_pair(path)
                 else:
                     wav, rate = self._read_segment(path)
-                    hr = resample_np(wav, rate, self.hr_rate)
-                    lr = resample_np(resample_np(wav, rate, self.lr_rate),
-                                     self.lr_rate, self.hr_rate)
+                    resample = native_audio.resample
+                    hr = resample(wav, rate, self.hr_rate)
+                    lr = resample(resample(wav, rate, self.lr_rate),
+                                  self.lr_rate, self.hr_rate)
                 break
             except (OSError, ValueError, EOFError, struct.error):
                 path = self.files[(idx + i + 1) % len(self.files)]
@@ -125,10 +129,12 @@ class AudioTestDataset:
         self.audio_len = len(self.raw_audio)
         self.dataroot = dataroot
         if is_lr_input:
-            self.lr_audio = resample_np(self.raw_audio, rate, hr_sampling_rate)
+            self.lr_audio = native_audio.resample(self.raw_audio, rate,
+                                                  hr_sampling_rate)
         else:
-            lo = resample_np(self.raw_audio, rate, lr_sampling_rate)
-            self.lr_audio = resample_np(lo, lr_sampling_rate, hr_sampling_rate)
+            lo = native_audio.resample(self.raw_audio, rate, lr_sampling_rate)
+            self.lr_audio = native_audio.resample(lo, lr_sampling_rate,
+                                                  hr_sampling_rate)
         n = len(self.lr_audio)
         num_seg = max(1, int(np.ceil(n / segment_length)))
         padded = np.pad(self.lr_audio, (0, num_seg * segment_length - n))

@@ -1,8 +1,12 @@
 """Self-contained FLAC codec, numpy and stdlib only.
 
 Copied from pix2pixhdaudiosr_tpu/data/flac.py (that package's `data`
-imports jax), without its native C++ decode path: the corpora the system
-is trained on (VCTK 0.92, HiFi-TTS) ship as .flac.
+imports jax): the corpora the system is trained on (VCTK 0.92, HiFi-TTS)
+ship as .flac. `read_flac` decodes through the port's native C++ decoder
+(runtime/native_audio.py) as that module does; a stream the C++ decoder
+does not cover (it returns no frames, or a length other than STREAMINFO's,
+or STREAMINFO gives no length) takes the Python decoder below, and
+`decodes` counts both routes. A failure of the library itself raises.
 
   read_flac / flac_info  — full decoder: constant/verbatim/fixed/LPC
     subframes, 4- and 5-bit Rice partitions with escape codes, wasted bits,
@@ -17,12 +21,23 @@ from __future__ import annotations
 
 import hashlib
 import struct
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 _FIXED_COEFS = [(), (1,), (2, -1), (3, -3, 1), (4, -6, 4, -1)]
+
+# read_flac's decodes by route ("native": the C++ decoder, "python": the
+# decoder below); set an entry to 0 to count afresh
+decodes = {"native": 0, "python": 0}
+_decodes_lock = threading.Lock()
+
+
+def _count(route: str) -> None:
+    with _decodes_lock:
+        decodes[route] += 1
 
 
 @dataclass(frozen=True)
@@ -266,15 +281,29 @@ def flac_info(path: str) -> FlacInfo:
 
 
 def read_flac(path: str, frame_offset: int = 0,
-              num_frames: Optional[int] = None) -> Tuple[np.ndarray, int]:
+              num_frames: Optional[int] = None,
+              use_native: bool = True) -> Tuple[np.ndarray, int]:
     """Decode a FLAC file; returns ([C, T] float32 in [-1, 1], sample_rate).
 
     Frames are variable-length on the wire, so random access decodes from the
     start and slices (the corpora's per-utterance files are short; the
-    dataset's resample cache amortizes repeats)."""
+    dataset's resample cache amortizes repeats). use_native=True decodes
+    with the C++ decoder (runtime/native/audio_pipeline.cpp) where it covers
+    the stream, else with this Python implementation, the oracle."""
     with open(path, "rb") as f:
         buf = f.read()
     info, off = _parse_streaminfo(buf)
+    if use_native and info.num_frames:
+        from ..runtime import native_audio
+        data = native_audio.flac_decode(buf, info.num_frames,
+                                        info.num_channels)
+        if data is not None and data.shape[1] == info.num_frames:
+            _count("native")
+            end = data.shape[1] if num_frames is None else min(
+                frame_offset + num_frames, data.shape[1])
+            return (data[:, min(frame_offset, data.shape[1]):end],
+                    info.sample_rate)
+    _count("python")
     want_end = None if num_frames is None else frame_offset + num_frames
     parts: List[np.ndarray] = []
     got = 0

@@ -37,8 +37,6 @@ from .utils.visualizer import Visualizer
 _NOT_YET = (
     (lambda c: c.cp_shards > 1, "--cp_shards > 1", "parallel modes, ROADMAP A11"),
     (lambda c: c.tp_shards > 1, "--tp_shards > 1", "parallel modes, ROADMAP A11"),
-    (lambda c: c.use_features or c.net_g == "encoder",
-     "feature-encoder configs", "the feature encoder, ROADMAP A9d"),
 )
 
 
@@ -47,6 +45,12 @@ def check_supported(cfg) -> None:
         if cond(cfg):
             raise SystemExit(f"{what} is not ported to pix2pixhdaudiosr_torch "
                              f"yet; it comes with {where}")
+    if cfg.use_features:
+        raise SystemExit(
+            "feature configs (--instance_feat / --label_feat): generate and "
+            "evaluate call inference with no feature map, so G's input lacks "
+            "the feature channels; the JAX package's generate and evaluate "
+            "fail on them too")
 
 
 def resolve_device(name: str) -> torch.device:

@@ -1,6 +1,6 @@
-"""Generators: GlobalTrunk, GlobalGenerator, LocalEnhancer.
+"""Generators: GlobalTrunk, GlobalGenerator, LocalEnhancer, Encoder.
 
-Port of pix2pixhdaudiosr_tpu/models/generator.py:22-165 and
+Port of pix2pixhdaudiosr_tpu/models/generator.py:22-195 and
 `build_generator` (:201-225). With `fused_enh_blocks`, the LocalEnhancer's
 resblocks run through ops/enhancer.py (`--fused_enhancer`); with
 `int8_trunk`, the global trunk's resblocks run through ops/quant.py
@@ -13,6 +13,8 @@ io has 156,050,690 parameters.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -182,6 +184,54 @@ class LocalEnhancer(nn.Module):
         return enhancer.fused_enhancer_section(d_raw, out, blocks)
 
 
+class Encoder(nn.Module):
+    """The feature encoder (netE): a 7x7 ConvIN head, n_downsampling
+    stride-2 ConvIN, as many ConvTransposeIN (the JAX default "same"
+    deconv), and a 7x7 conv with tanh; then, given instance ids, the
+    instance-wise average pooling of the JAX module: each pixel takes the
+    mean of the output over the pixels of its id, for ids in
+    [0, max_ids); an id outside that range joins no region and pools to 0,
+    and a region's count is floored at 1. The pooling is the JAX one-hot
+    einsums, the one-hot in the output's dtype (the compute dtype under
+    autocast), so its sums, counts and means round as flax's do."""
+
+    def __init__(self, input_nc: int, output_nc: int, ngf: int = 32,
+                 n_downsampling: int = 4, max_ids: int = 64, device=None):
+        super().__init__()
+        self.max_ids = max_ids
+        self.add_module("ConvIN_0", ConvIN(input_nc, ngf, 7, reflect=3,
+                                           device=device))
+        for i in range(n_downsampling):
+            self.add_module(f"ConvIN_{i + 1}", ConvIN(
+                ngf * 2 ** i, ngf * 2 ** (i + 1), 3, stride=2, pad=1,
+                device=device))
+        for i in range(n_downsampling):
+            mult = 2 ** (n_downsampling - i)
+            self.add_module(f"ConvTransposeIN_{i}", ConvTransposeIN(
+                ngf * mult, ngf * mult // 2, device=device))
+        self.add_module(f"ConvIN_{n_downsampling + 1}", ConvIN(
+            ngf, output_nc, 7, reflect=3, norm=False, act="tanh",
+            device=device))
+
+    def forward(self, x: torch.Tensor,
+                inst: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [B, C, H, W]; inst: [B, H, W] integer ids, or None for the
+        encoder output unpooled. Returns [B, output_nc, H, W]."""
+        h = x
+        for layer in self.children():
+            h = layer(h)
+        if inst is None:
+            return h
+        ids = inst.to(torch.int64)
+        oh = (ids[..., None] == torch.arange(
+            self.max_ids, device=ids.device)).to(h.dtype)  # [B, H, W, K]
+        sums = torch.einsum("bhwk,bchw->bkc", oh, h).to(h.dtype)
+        # autocast sums in f32 on CUDA; flax's counts are in h's dtype
+        counts = torch.clamp(oh.sum(dim=(1, 2)).to(h.dtype), min=1.0)
+        means = sums / counts[..., None]                     # [B, K, C]
+        return torch.einsum("bhwk,bkc->bhwc", oh, means).permute(0, 3, 1, 2)
+
+
 def build_generator(net_g: str, input_nc: int, output_nc: int, ngf: int,
                     n_downsample_global: int, n_blocks_global: int,
                     n_local_enhancers: int, n_blocks_local: int,
@@ -202,8 +252,8 @@ def build_generator(net_g: str, input_nc: int, output_nc: int, ngf: int,
                              fused_enh_blocks=fused_enh_blocks,
                              int8_trunk=int8_trunk, device=device)
     if net_g == "encoder":
-        raise NotImplementedError("the feature Encoder is not ported yet; "
-                                  "it comes with ROADMAP A9d")
+        return Encoder(input_nc, output_nc, ngf, n_downsample_global,
+                       device=device)
     raise ValueError(f"generator not implemented: {net_g}")
 
 

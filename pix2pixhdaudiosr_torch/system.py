@@ -1,11 +1,13 @@
 """The Pix2PixHD audio-SR system: serving and the GAN train step.
 
-Port of pix2pixhdaudiosr_tpu/system.py: `frames_for`, `n_frames`,
-`spectro_shape` (:51-138), `encode_input` (:170-185), `_time_frames` and
-`_time_d_apply` (:191-205), `losses_and_grads` (:208-351: LSGAN and
-feature matching, the match loss, the time-domain and HiFi-GAN
-discriminators' losses, the fake pool's pooled pair), `_visual_slices`
-(:353-369) and `inference` (:371-383). Nets are nn.Modules that hold their
+Port of pix2pixhdaudiosr_tpu/system.py: `_maybe_remat` (:38-49, as
+`remat_forward`), `frames_for`, `n_frames`, `spectro_shape` (:51-138),
+`encode_input` (:170-185), `_time_frames` and `_time_d_apply`
+(:191-205), `losses_and_grads` (:208-351: LSGAN and feature matching,
+the match loss, the time-domain and HiFi-GAN discriminators' losses, the
+fake pool's pooled pair, the feature encoder netE, --remat_g),
+`_visual_slices` (:353-369), `inference` (:371-383) and
+`sample_features` (:385-402). Nets are nn.Modules that hold their
 weights (the JAX package passes param trees); they run in the compute
 dtype, on a channels_last view of the NHWC spectrogram.
 
@@ -14,7 +16,12 @@ and `--int8_trunk`, whose kernels have no backward. A training system
 (cfg.is_train) adds `netG_train`, the plain generator the train step
 differentiates, sharing netG's parameter tensors (netG itself when neither
 flag is set), `netD`, and with --use_time_D / --use_hifigan_D `time_D` /
-`hifigan_D` (else None); the JAX package's pair is netG / netG_infer.
+`hifigan_D` (else None), and with --instance_feat / --label_feat the
+feature encoder `netE` (else None), which the G optimizer trains; the JAX
+package's pair is netG / netG_infer. Each net's input width is what flax
+infers from the tensors the JAX step feeds it (the spectrogram's channels,
+2 with explicit encoding, else 1; + 1 without --no_instance; + feat_num
+for G with features), not --input_nc.
 Training keeps f32 parameters and computes in the compute dtype under
 autocast, as flax's dtype=bf16 modules do from f32 params; so does
 `inference` on a training system (the in-training eval). The codec half
@@ -26,10 +33,13 @@ output; only the discriminators' forwards run in the compute dtype.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .losses import (LOSS_NAMES, feature_matching_loss, filter_losses,
                      gan_loss, loss_filter_flags, match_loss)
@@ -39,22 +49,68 @@ from .models.hifigan_d import build_hifigan_discriminator
 from .ops.audio import amplitude_to_db
 from .ops.encoding import CodecConfig, SpectroCodec
 
-# (condition on the config, what it asks for, the ROADMAP item that brings it)
-NOT_YET_TRAIN = (
-    (lambda c: c.use_features or c.net_g == "encoder",
-     "feature-encoder configs (netE)", "the feature encoder, ROADMAP A9d"),
-    (lambda c: bool(c.remat_g), "--remat_g", "memory knobs, ROADMAP A12"),
-    (lambda c: c.adam_mu_bf16, "--adam_mu_bf16", "memory knobs, ROADMAP A12"),
+def spectro_channels(cfg) -> int:
+    """Channels of the codec's spectrogram: 2 with explicit encoding, else 1."""
+    return 2 if cfg.explicit_encoding else 1
+
+
+def g_input_nc(cfg) -> int:
+    """G's input channels, as flax infers them from the JAX package's G
+    input: the spectrogram's, + 1 without --no_instance, + feat_num with
+    features (not --input_nc, which flax never reads)."""
+    return (spectro_channels(cfg) + (0 if cfg.no_instance else 1)
+            + (cfg.feat_num if cfg.use_features else 0))
+
+
+# (condition on the config, what it asks for, why the JAX step fails on it)
+JAX_UNTRAINABLE = (
+    (lambda c: c.use_features and c.load_features,
+     "--load_features",
+     "G takes feat_num feature channels that no step builds (netE is off "
+     "and the batch carries no feature map)"),
+    (lambda c: c.output_nc != spectro_channels(c),
+     "--output_nc differing from the spectrogram's channels (2 with "
+     "--explicit_encoding, else 1)",
+     "D's fake pair (label + G output) and real pair (label + target) "
+     "differ in width"),
 )
 
 
 def check_trainable(cfg) -> None:
-    """Raise NotImplementedError for a training option the port lacks."""
-    for cond, what, where in NOT_YET_TRAIN:
+    """Raise ValueError for a config the JAX package's train step does not
+    run either (it fails there on a tensor's width)."""
+    for cond, what, why in JAX_UNTRAINABLE:
         if cond(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported to pix2pixhdaudiosr_torch training "
-                f"yet; it comes with {where}")
+            raise ValueError(
+                f"{what}: {why}; the JAX package's train step fails on this "
+                f"config too, so pix2pixhdaudiosr_torch does not train it")
+
+
+# the ops whose outputs --remat_g dots keeps (jax.checkpoint_policies
+# .dots_saveable: the matmul and conv outputs); everything else, the
+# InstanceNorm kernels' outputs included, is recomputed in the backward
+_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_forward(fn, remat: Optional[str]):
+    """fn's output, rematerialized in the backward per the --remat_g mode:
+    "" / None runs fn as it is; "full" saves nothing of it (non-reentrant
+    torch.utils.checkpoint, which keeps the RNG state); "dots" saves the
+    outputs of convolution, mm, bmm and addmm and recomputes the rest."""
+    if not remat:
+        return fn()
+    if remat == "full":
+        return checkpoint(fn, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat mode: {remat!r}")
 
 
 def _share_parameters(dst: torch.nn.Module, src: torch.nn.Module) -> None:
@@ -80,6 +136,8 @@ class Pix2PixHDSystem:
         self.dtype = getattr(torch, cfg.compute_dtype)
         if cfg.is_train:
             check_trainable(cfg)
+        c = spectro_channels(cfg)
+        self.g_input_nc = g_input_nc(cfg)
         # built unallocated; fill with load_state_dict / init_normal_
         self.netG = self._generator(cfg.fused_enhancer, cfg.int8_trunk)
         if not cfg.is_train:
@@ -90,7 +148,7 @@ class Pix2PixHDSystem:
             self.netG_train = self._generator(False, False)
             _share_parameters(self.netG_train, self.netG)
         self.netD = build_discriminator(
-            cfg.netd_input_nc, cfg.ndf, cfg.n_layers_d,
+            2 * c + (0 if cfg.no_instance else 1), cfg.ndf, cfg.n_layers_d,
             use_sigmoid=cfg.no_lsgan, num_d=cfg.num_d,
             get_interm_feat=not cfg.no_gan_feat_loss, device="meta"
         ).to_empty(device=self.device).to(memory_format=torch.channels_last)
@@ -104,10 +162,22 @@ class Pix2PixHDSystem:
         self.hifigan_D = build_hifigan_discriminator(
             cfg, device="meta").to_empty(device=self.device) \
             if cfg.use_hifigan_d else None
+        # the feature encoder on the target spectrogram (JAX system.py:95-100)
+        self.netE = build_generator(
+            "encoder", c, cfg.feat_num, cfg.nef, cfg.n_downsample_e, 0, 0, 0,
+            device="meta").to_empty(device=self.device).to(
+            memory_format=torch.channels_last) \
+            if cfg.use_features and not cfg.load_features else None
         self.flags = loss_filter_flags(not cfg.no_gan_feat_loss,
                                        not cfg.no_vgg_loss, cfg.use_match_loss,
                                        cfg.use_hifigan_d or cfg.use_time_d)
         self.loss_names = [n for n, f in zip(LOSS_NAMES, self.flags) if f]
+
+    def g_nets(self) -> Dict[str, torch.nn.Module]:
+        """The nets the G optimizer trains by their JAX param-tree key:
+        "G" (netG_train) and, with features, "E" (netE)."""
+        return {k: n for k, n in (("G", self.netG_train), ("E", self.netE))
+                if n is not None}
 
     def d_nets(self) -> Dict[str, torch.nn.Module]:
         """Every discriminator of a training system by its JAX param-tree
@@ -119,7 +189,7 @@ class Pix2PixHDSystem:
     def _generator(self, fused: bool, int8: bool) -> torch.nn.Module:
         cfg = self.cfg
         return build_generator(
-            cfg.net_g, cfg.netg_input_nc, cfg.output_nc, cfg.ngf,
+            cfg.net_g, self.g_input_nc, cfg.output_nc, cfg.ngf,
             cfg.n_downsample_global, cfg.n_blocks_global,
             cfg.n_local_enhancers, cfg.n_blocks_local,
             deconv_mode="torch" if cfg.torch_deconv else "same",
@@ -178,16 +248,51 @@ class Pix2PixHDSystem:
     @torch.no_grad()
     def inference(self, lr_audio: torch.Tensor,
                   noise: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  feat_map: Optional[torch.Tensor] = None):
         """[B, S] lr waveform -> (sr_spectro f32 [B,F,T,C], lr_pha,
-        lr_norm_param, lr_spectro). The G input is cast to the compute
-        dtype and the G output to f32, as in the JAX package; a training
-        system's G (f32 parameters) runs under autocast."""
+        lr_norm_param, lr_spectro). With features, `feat_map` ([B, F, T,
+        feat_num], e.g. from sample_features) is concatenated onto the G
+        input, which a feature config's G needs: without it the input is
+        too narrow, and the JAX package's inference fails the same way.
+        The G input is cast to the compute dtype and the G output to f32,
+        as in the JAX package; a training system's G (f32 parameters) runs
+        under autocast."""
         lr_spec, lr_pha, lr_norm = self.encode_input(lr_audio, noise, generator)
-        g_in = lr_spec.to(self.dtype).permute(0, 3, 1, 2)  # channels_last view
+        g_in = lr_spec if feat_map is None else torch.cat(
+            [lr_spec, feat_map.to(lr_spec)], dim=-1)
+        if g_in.shape[-1] != self.g_input_nc:
+            raise ValueError(
+                f"G takes {self.g_input_nc} input channels, got "
+                f"{g_in.shape[-1]}: a feature config (--instance_feat / "
+                f"--label_feat) needs feat_map (sample_features); the JAX "
+                f"package's inference fails without it as well")
+        g_in = g_in.to(self.dtype).permute(0, 3, 1, 2)  # channels_last view
         with self._autocast() if self.cfg.is_train else contextlib.nullcontext():
             sr = self.netG(g_in).permute(0, 2, 3, 1).float()
         return sr, lr_pha, lr_norm, lr_spec
+
+    def sample_features(self, inst: np.ndarray, cluster_path: str,
+                        rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        """Style sampling from precomputed k-means clusters on the host
+        (numpy, as in the JAX package): for each instance id, one random
+        cluster center of its label (the id, or id // 1000 from 1000 up),
+        drawn from `rng` (default: a numpy generator seeded with cfg.seed),
+        broadcast over the region. inst: [B, H, W] int ids; returns
+        [B, H, W, feat_num] float32, zero where an id's label has no
+        clusters."""
+        clusters = np.load(cluster_path, allow_pickle=True).item()
+        rng = rng or np.random.default_rng(self.cfg.seed)
+        b, h, w = inst.shape
+        feat = np.zeros((b, h, w, self.cfg.feat_num), np.float32)
+        for i in np.unique(inst):
+            label = int(i) if i < 1000 else int(i) // 1000
+            if label not in clusters:
+                continue
+            centers = clusters[label]
+            pick = centers[rng.integers(0, centers.shape[0])]
+            feat[inst == i] = pick[: self.cfg.feat_num]
+        return feat
 
     # ------------------------------------------------------------------
     def _autocast(self):
@@ -199,6 +304,15 @@ class Pix2PixHDSystem:
         """netD on the NHWC pair concat(label, image) in the compute dtype."""
         x = torch.cat([label_spec, image_spec], dim=-1).to(self.dtype)
         return self.netD(x.permute(0, 3, 1, 2))
+
+    def encode_features(self, spec: torch.Tensor,
+                        inst: Optional[torch.Tensor]) -> torch.Tensor:
+        """netE on an NHWC spectrogram in the compute dtype (under autocast),
+        pooled over the instance ids `inst` ([B, H, W]; None: unpooled):
+        [B, H, W, feat_num] in the compute dtype."""
+        with self._autocast():
+            feat = self.netE(spec.to(self.dtype).permute(0, 3, 1, 2), inst)
+        return feat.permute(0, 2, 3, 1)
 
     def time_frames(self, frames: torch.Tensor) -> torch.Tensor:
         """sqrt(up_ratio - 1) * window * the raw IDCT frames of a G output
@@ -231,9 +345,9 @@ class Pix2PixHDSystem:
                          grads: Tuple[str, ...] = ("G", "D")
                          ) -> Tuple[Dict[str, torch.Tensor], Dict]:
         """One GAN step's losses, with the grads of the nets named in
-        `grads` left in the .grad of their parameters (netG_train for "G";
-        netD, time_D and hifigan_D for "D"; set anew, not accumulated;
-        every other .grad is None).
+        `grads` left in the .grad of their parameters (netG_train and netE
+        for "G"; netD, time_D and hifigan_D for "D"; set anew, not
+        accumulated; every other .grad is None).
         batch: {"label": lr [B, S], "image": hr [B, S]}; the lr mask noise
         is `noise` or drawn from `generator` (so are the random phase
         encodings' draws and, without explicit encoding, to_audio's
@@ -241,6 +355,12 @@ class Pix2PixHDSystem:
         ([B, F, T, 2C], the fake pool's pairs) where one is given, else on
         the pair of this step's G output; the time-domain and HiFi-GAN Ds
         always see this step's G output.
+
+        With netE, the G input is the lr spectrogram and netE's pooled
+        encoding of the hr one (instance ids lr_pha + 1); D sees the raw
+        lr spectrogram. With cfg.remat_g, the G forward (netE's included)
+        is rematerialized in the backward (remat_forward); the mask noise
+        is drawn in the encode, before it, so the recompute draws nothing.
 
         Every loss is computed whatever `grads` holds, as in the JAX
         package, whose pool steps differentiate one net each and return
@@ -267,15 +387,24 @@ class Pix2PixHDSystem:
                                                          generator)
             hr_spec, hr_pha, hr_norm = self.encode_target(batch["image"],
                                                           generator)
-        for p in (*self.netG_train.parameters(), *(
-                q for net in self.d_nets().values() for q in net.parameters())):
+        for p in (q for nets in (self.g_nets(), self.d_nets())
+                  for net in nets.values() for q in net.parameters()):
             p.grad = None
         zero = torch.zeros((), device=self.device)
 
+        def g_forward():
+            g_in = lr_spec.to(self.dtype)
+            if self.netE is not None:
+                # the encoder's instance map is lr_pha shifted to ids >= 0
+                feat = self.encode_features(hr_spec, (lr_pha + 1.0).to(
+                    torch.int32))
+                g_in = torch.cat([g_in, feat.to(self.dtype)], dim=-1)
+            out = self.netG_train(g_in.permute(0, 3, 1, 2))
+            return out.permute(0, 2, 3, 1).float()
+
         with self._autocast():
-            g_in = lr_spec.to(self.dtype).permute(0, 3, 1, 2)
             with torch.set_grad_enabled(train_g):
-                sr = self.netG_train(g_in).permute(0, 2, 3, 1).float()
+                sr = remat_forward(g_forward, cfg.remat_g if train_g else None)
             sr_leaf = sr.detach().requires_grad_(train_g)
             with torch.set_grad_enabled(train_d):
                 pred_real = self.d_apply(lr_spec, hr_spec)

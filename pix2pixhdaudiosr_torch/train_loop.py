@@ -68,7 +68,7 @@ def check_supported(cfg) -> None:
                              f"yet; it comes with {where}")
     try:
         check_trainable(cfg)
-    except NotImplementedError as e:
+    except ValueError as e:
         raise SystemExit(str(e)) from None
 
 
@@ -167,6 +167,12 @@ def main(argv=None) -> TrainState:
     eval_loader = Loader(dataset, val_idx, cfg.batch_size, shuffle=False,
                          seed=cfg.seed, n_threads=cfg.n_threads,
                          drop_last=False) if val_idx else None
+    if cfg.use_features and val_idx and cfg.eval_freq > 0:
+        raise SystemExit(
+            "the in-training eval of a feature config (--instance_feat / "
+            "--label_feat): its inference takes no feature map, so G's input "
+            "lacks the feature channels, and the JAX package's eval fails on "
+            "it too; pass --eval_freq 0 or --validation_split 0")
     dataset_size = len(loader) * cfg.batch_size
     print("#training data = %d" % dataset_size)
     print("#evaluating data = %d" % len(val_idx))

@@ -1,8 +1,11 @@
 """Two-optimizer GAN training: state, optimizers, the train step, the fake
 pool's split steps and the eval step.
 
-Port of pix2pixhdaudiosr_tpu/trainer.py: Adam(lr, beta1, 0.999) for G and
-for D from one forward pass (`make_train_step`, :98-137), the learning
+Port of pix2pixhdaudiosr_tpu/trainer.py: Adam(lr, beta1, 0.999) for G
+(and the feature encoder netE where the system has one) and for D from
+one forward pass (`make_train_step`, :98-137), with --adam_mu_bf16 the
+optax Adam whose first moment is stored in bf16 (`AdamMuBF16`, :43-48),
+the learning
 rate set on both for the linear decay (`set_learning_rate`), the
 `niter_fix_global` phase, which zeroes every non-enhancer G grad (so a
 fresh Adam leaves those weights where they are) until `reset_opt_g`
@@ -26,38 +29,126 @@ from .models.generator import init_normal_
 from .system import Pix2PixHDSystem
 
 
+class AdamMuBF16(torch.optim.Optimizer):
+    """optax.adam(lr, b1, b2, eps, mu_dtype=bfloat16) as the JAX package's
+    --adam_mu_bf16 runs it (optax scale_by_adam + scale(-lr)): in f32,
+
+        mu = (1 - b1) g + b1 mu_stored;  nu = (1 - b2) g^2 + b2 nu
+        p += -lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+
+    with mu_stored the bf16 first moment (the update uses the f32 mu; only
+    the stored one is rounded) and nu f32; b1, b2, 1 - b1 and 1 - b2 are
+    the f32 values optax's injected hyperparameters hold. State per
+    parameter as torch.optim.Adam names it ("step", "exp_avg" in bf16,
+    "exp_avg_sq"), so that checkpoints cross between the two; a loaded
+    exp_avg is cast back to bf16 (load_state_dict casts it to the
+    parameter's dtype first, exactly, from bf16). The learning rate is the
+    param group's, for set_learning_rate and reset_opt_g. foreach ops."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        self.register_load_state_dict_post_hook(AdamMuBF16._mu_to_bf16)
+
+    @staticmethod
+    def _mu_to_bf16(opt) -> None:
+        for st in opt.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamMuBF16 takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(
+                        p, dtype=torch.bfloat16,
+                        memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                st["step"] += 1
+            grads = [p.grad for p in params]
+            states = [self.state[p] for p in params]
+            b1, b2 = (np.float32(b) for b in group["betas"])
+            one = np.float32(1)
+            # the first moment in f32 from the stored bf16 one (each product
+            # rounded, then the sum, as optax's update_moment)
+            mu = torch._foreach_mul(grads, float(one - b1))
+            prev = [st["exp_avg"].float() for st in states]
+            torch._foreach_mul_(prev, float(b1))
+            torch._foreach_add_(mu, prev)
+            del prev
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, float(one - b2))
+            nus = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(nus, float(b2))
+            torch._foreach_add_(nus, sq)
+            del sq
+            for st, m in zip(states, mu):
+                st["exp_avg"].copy_(m)  # round to nearest even
+            # per-step scalars as 0-d f32 tensors on the parameters' device
+            t = int(states[0]["step"].item())
+            dev = params[0].device
+            bc1 = torch.tensor(one - b1 ** np.float32(t), device=dev)
+            bc2 = torch.tensor(one - b2 ** np.float32(t), device=dev)
+            neg_lr = torch.tensor(-np.float32(group["lr"]), device=dev)
+            torch._foreach_div_(mu, bc1)                     # mu_hat
+            den = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, float(np.float32(group["eps"])))
+            torch._foreach_div_(mu, den)
+            del den
+            torch._foreach_mul_(mu, neg_lr)
+            torch._foreach_add_(params, mu)
+        return None
+
+
 @dataclass
 class TrainState:
-    """The nets live in `system` (netG_train, and system.d_nets(): netD,
-    time_D, hifigan_D); `step` counts steps."""
+    """The nets live in `system` (system.g_nets(): netG_train and netE;
+    system.d_nets(): netD, time_D, hifigan_D); `step` counts steps."""
     system: Pix2PixHDSystem
-    opt_g: torch.optim.Adam
-    opt_d: torch.optim.Adam
+    opt_g: torch.optim.Optimizer
+    opt_d: torch.optim.Optimizer
     step: int = 0
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg,
-                   lr: Optional[float] = None) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=cfg.lr if lr is None else lr,
-                            betas=(cfg.beta1, 0.999), eps=1e-8)
+                   lr: Optional[float] = None) -> torch.optim.Optimizer:
+    """Adam(lr, (beta1, 0.999), eps 1e-8); with cfg.adam_mu_bf16 the
+    bf16-first-moment AdamMuBF16 (both optimizers, as make_optimizer of
+    the JAX package builds both)."""
+    cls = AdamMuBF16 if cfg.adam_mu_bf16 else torch.optim.Adam
+    return cls(params, lr=cfg.lr if lr is None else lr,
+               betas=(cfg.beta1, 0.999), eps=1e-8)
 
 
 def _split_params(system: Pix2PixHDSystem) -> Tuple[List, List]:
-    """The G optimizer owns G, the D optimizer every discriminator (netD,
-    then time_D and hifigan_D where the system has them)."""
-    return (list(system.netG_train.parameters()),
+    """The G optimizer owns G and netE, the D optimizer every
+    discriminator (netD, then time_D and hifigan_D where the system has
+    them)."""
+    return ([p for net in system.g_nets().values() for p in net.parameters()],
             [p for net in system.d_nets().values() for p in net.parameters()])
 
 
 def init_state(system: Pix2PixHDSystem, seed: int = 0) -> TrainState:
-    """Fresh N(0, 0.02) conv weights and zero biases for G and every D
-    (the JAX package's init, drawn in turn from one generator on the
+    """Fresh N(0, 0.02) conv weights and zero biases for G, every D and
+    netE (the JAX package's init, drawn in turn from one generator on the
     system's device seeded with `seed`; each weight-normed conv of
     hifigan_D gets g = |v|), and two fresh Adams."""
     gen = torch.Generator(device=system.device).manual_seed(seed)
     init_normal_(system.netG_train, gen)
     for key, net in system.d_nets().items():
         (hifigan_d.init_normal_ if key == "hifigan_D" else init_normal_)(net, gen)
+    if system.netE is not None:
+        init_normal_(system.netE, gen)
     pg, pd = _split_params(system)
     return TrainState(system, make_optimizer(pg, system.cfg),
                       make_optimizer(pd, system.cfg))
@@ -81,7 +172,8 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
 @torch.no_grad()
 def _mask_fixed_global(net_g: torch.nn.Module) -> None:
     """Zero (not drop: Adam steps every parameter) the grad of every G
-    parameter whose top module is not an enhancer branch (`enh<n>_*`)."""
+    parameter whose top module is not an enhancer branch (`enh<n>_*`).
+    netE is not net_g: it keeps training, as in the JAX package."""
     for name, p in net_g.named_parameters():
         if not name.split(".")[0].startswith("enh"):
             if p.grad is None:

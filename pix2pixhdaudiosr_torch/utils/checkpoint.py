@@ -6,14 +6,17 @@ Keys follow models/generator.py (the flax tree's names); a JAX checkpoint
 is converted with tools/export_torch_generator.py. A training run saves,
 per tag, `<tag>_net_G.pth` (what generate loads), `<tag>_net_D.pth`, with
 the optional discriminators `<tag>_net_time_D.pth` and
-`<tag>_net_hifigan_D.pth`, and `<tag>_optim.pth` (both Adams' state by
-parameter name, the D Adam's for every discriminator, their learning
-rates and the step count), all on the CPU, and the resume cursor
+`<tag>_net_hifigan_D.pth`, with the feature encoder `<tag>_net_E.pth`, and
+`<tag>_optim.pth` (both Adams' state by parameter name, the G Adam's for
+netE too, the D Adam's for every discriminator, their learning rates and
+the step count; --adam_mu_bf16's first moments stay bf16), all on the
+CPU, and the resume cursor
 `iter.txt` ("epoch,epoch_iter"), as
 pix2pixhdaudiosr_tpu/utils/checkpoint.py:76-122 keeps its tags.
 `load_train_state` merges a tag back as that module's `merge_matching`
 (:26-72) does: every saved leaf whose name exists in the target with the
-same shape is taken, every other target leaf is kept.
+same shape is taken, every other target leaf is kept, and a moment takes
+the target optimizer's dtype (the JAX merge casts to the target's).
 """
 
 from __future__ import annotations
@@ -44,6 +47,14 @@ def load_generator(net: nn.Module, cfg) -> nn.Module:
     state = torch.load(path, map_location="cpu", weights_only=True)
     net.load_state_dict(state)
     return net
+
+
+def _g_params(system) -> Dict[str, nn.Parameter]:
+    """The G optimizer's parameters by name: netG_train's by their own
+    names, netE's under "E."."""
+    return {(n if key == "G" else f"{key}.{n}"): p
+            for key, net in system.g_nets().items()
+            for n, p in net.named_parameters()}
 
 
 def _d_params(system) -> Dict[str, nn.Parameter]:
@@ -77,10 +88,10 @@ def save_train_state(state, expr_dir: str, tag: str = "latest") -> str:
     their learning rates, and the step) of a trainer.TrainState into
     expr_dir, every tensor on the CPU; returns the net_G path."""
     system = state.system
-    for key, net in system.d_nets().items():
-        save_generator(net, os.path.join(expr_dir, f"{tag}_net_{key}.pth"))
-    torch.save({"G": _named_adam(state.opt_g,
-                                 dict(system.netG_train.named_parameters())),
+    for key, net in (*system.d_nets().items(), ("E", system.netE)):
+        if net is not None:
+            save_generator(net, os.path.join(expr_dir, f"{tag}_net_{key}.pth"))
+    torch.save({"G": _named_adam(state.opt_g, _g_params(system)),
                 "D": _named_adam(state.opt_d, _d_params(system)),
                 "step": state.step},
                os.path.join(expr_dir, f"{tag}_optim.pth"))
@@ -128,19 +139,23 @@ def has(tag: str, expr_dir: str) -> bool:
 def load_train_state(state, tag: str, expr_dir: str) -> Set[str]:
     """Merge tag's files in expr_dir into a trainer.TrainState in place:
     every saved tensor whose name exists in the target with the same shape
-    (G and each discriminator's weights; Adam moments, by parameter name),
-    the learning rates and the step where the optim file exists. A missing
-    net_<D> or optim file leaves that part as it is; a missing net_G
-    raises FileNotFoundError. Returns the names loaded, as the JAX
-    package's tree keys: "G.<param>", "D.<param>", "time_D.<param>",
-    "hifigan_D.<param>", "opt_g.<param>", "opt_d.<name>" (the D Adam's
-    names of _d_params) and "step"."""
+    (G's, netE's and each discriminator's weights; Adam moments, by
+    parameter name), the learning rates and the step where the optim file
+    exists. A missing net_<D>, net_E or optim file leaves that part as it
+    is; a missing net_G raises FileNotFoundError. Returns the names loaded,
+    as the JAX package's tree keys: "G.<param>", "E.<param>", "D.<param>",
+    "time_D.<param>", "hifigan_D.<param>", "opt_g.<name>" (the G Adam's
+    names of _g_params), "opt_d.<name>" (the D Adam's names of _d_params)
+    and "step"."""
     system = state.system
     path = os.path.join(expr_dir, f"{tag}_net_G.pth")
     if not os.path.exists(path):
         raise FileNotFoundError(f"no generator checkpoint at {path}")
     loaded = {f"G.{n}" for n in _merge_net(system.netG_train, _load(path))}
-    for key, net in system.d_nets().items():
+    nets = dict(system.d_nets())
+    if system.netE is not None:
+        nets["E"] = system.netE
+    for key, net in nets.items():
         path = os.path.join(expr_dir, f"{tag}_net_{key}.pth")
         if os.path.exists(path):
             loaded |= {f"{key}.{n}" for n in _merge_net(net, _load(path))}
@@ -148,7 +163,7 @@ def load_train_state(state, tag: str, expr_dir: str) -> Set[str]:
     if os.path.exists(path):
         saved = _load(path)
         for key, opt, named in (
-                ("G", state.opt_g, dict(system.netG_train.named_parameters())),
+                ("G", state.opt_g, _g_params(system)),
                 ("D", state.opt_d, _d_params(system))):
             loaded |= {f"opt_{key.lower()}.{n}"
                        for n in _merge_adam(opt, named, saved[key])}

@@ -172,11 +172,17 @@ def test_convert_covers_every_tensor():
 
 def test_flagship_parameter_count():
     """LocalEnhancer G3L2 at ngf 48, 2-channel io: 156,050,690 parameters
-    (the JAX package's ladder oracle), built on the meta device."""
+    (the JAX package's ladder oracle), built on the meta device; and
+    "encoder" builds the feature Encoder with as many parameters as the
+    JAX package's."""
     m = build_generator("local", 2, 2, 48, 4, 3, 1, 2, device="meta")
     assert sum(p.numel() for p in m.parameters()) == 156_050_690
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_generator("encoder", 2, 2, 48, 4, 3, 1, 2)
+    from pix2pixhdaudiosr_tpu.models.generator import Encoder as JEncoder
+    e = build_generator("encoder", 2, 2, 48, 4, 3, 1, 2, device="meta")
+    want = JEncoder(2, 2, 48, 4).init(jax.random.PRNGKey(0),
+                                      jnp.zeros((1, 32, 16, 2)))
+    assert sum(p.numel() for p in e.parameters()) == sum(
+        x.size for x in jax.tree.leaves(want))
 
 
 def test_flax_conv_is_the_reference_layout():

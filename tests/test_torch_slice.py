@@ -166,7 +166,7 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
     (["--cp_shards", "2"], "A11"),
     (["--int8_trunk", "--cp_shards", "2"], "A11"),
     (["--tp_shards", "2"], "A11"),
-    (["--instance_feat"], "A9"),
+    (["--instance_feat"], "the JAX package's generate and evaluate fail"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):
     argv = TOY + ["--name", "run", "--checkpoints_dir", str(tmp_path),
@@ -355,13 +355,14 @@ def test_jax_free_imports():
     """In a process where jax, flax, optax and orbax cannot be imported,
     the package (every module) and chip_smoke import, the codec's training
     inverses (to_frames, to_audio and its gradient) and the HiFi-GAN D
-    run, and no module of the
-    JAX package gets loaded, by name or from a file under
-    pix2pixhdaudiosr_tpu/ (a module executed by path under another name);
-    nor do matplotlib and PIL, which only the gallery's first render
-    imports."""
+    run, the native audio library decodes a FLAC file and resamples, the
+    feature tools import, and no module of the JAX package gets loaded, by
+    name or from a file under pix2pixhdaudiosr_tpu/ (a module executed by
+    path under another name), and no file under it is mapped into the
+    process (/proc/self/maps: its libaudio_pipeline.so); nor do matplotlib
+    and PIL, which only the gallery's first render imports."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, os\n"
         "for m in ('jax', 'flax', 'optax', 'orbax'):\n"
         "    sys.modules[m] = None\n"
         "import pix2pixhdaudiosr_torch as p\n"
@@ -377,17 +378,28 @@ def test_jax_free_imports():
         "x = s.requires_grad_(True)\n"
         "c.to_audio(x, n).sum().backward(); c.to_frames(x, n)\n"
         "d = hd.HiFiGANMultiScaleMultiPeriodDiscriminator(periods=(2,), n_scales=1)\n"
+        "import numpy as np, tempfile\n"
+        "from pix2pixhdaudiosr_torch.data import flac\n"
+        "from pix2pixhdaudiosr_torch.runtime import native_audio\n"
+        "f = os.path.join(tempfile.mkdtemp(), 'a.flac')\n"
+        "flac.write_flac(f, np.zeros(500, np.float32), 48000)\n"
+        "assert flac.read_flac(f)[0].shape == (1, 500)\n"
+        "assert flac.decodes['native'] == 1\n"
+        "native_audio.resample(np.ones(480, np.float32), 48000, 8000)\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import encode_features_torch, precompute_feature_maps_torch\n"
         "import chip_smoke\n"
         "for info in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(info.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('pix2pixhdaudiosr_tpu', 'jax', 'flax', 'matplotlib', 'PIL') "
         "and sys.modules[m]]\n"
-        "import os\n"
         "tpu = os.path.realpath('pix2pixhdaudiosr_tpu') + os.sep\n"
         "bad += [m for m, mod in list(sys.modules.items()) if mod is not None "
         "and os.path.realpath(getattr(mod, '__file__', None) or os.sep)"
         ".startswith(tpu)]\n"
+        "maps = open('/proc/self/maps').read().split()\n"
+        "bad += [f for f in maps if f.startswith(tpu)]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,7 +1,7 @@
 """The PyTorch port's train step against the JAX package (CPU, f32, toy
 size): losses_and_grads, one and two make_train_step steps against optax,
 the fix-global grad mask, the learning-rate hooks, the options the port
-does not train yet, and a CPU run of the training CLI whose checkpoint the
+refuses or newly trains, and a CPU run of the training CLI whose checkpoint the
 generate CLI serves.
 
 Toy configuration: n_fft 64 / hop 32 / win 64, 480-sample segments (16
@@ -314,15 +314,25 @@ def test_training_g_is_plain_and_shares_the_serving_weights():
     assert not hasattr(serving, "netD") and not hasattr(serving, "netG_train")
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--instance_feat"], "A9"),
-    (["--remat_g", "full"], "A12"),
-    (["--adam_mu_bf16"], "A12"),
-])
-def test_unported_training_options_raise(extra, item):
+@pytest.mark.parametrize("extra", [
+    ["--instance_feat"], ["--remat_g", "full"], ["--adam_mu_bf16"]])
+def test_feature_and_memory_options_train(extra):
+    """The options earlier slices refused now build and run a toy CPU step
+    with finite losses that moves G (held to the JAX package in
+    tests/test_torch_feature_encoder.py and test_torch_memory_knobs.py)."""
     cfg = parse_config(TOY + extra, is_train=True, save=False)
-    with pytest.raises(NotImplementedError, match=item):
-        Pix2PixHDSystem(cfg, device="cpu")
+    system = Pix2PixHDSystem(cfg, device="cpu")
+    assert (system.netE is not None) == cfg.instance_feat
+    state = trainer.init_state(system, 3)
+    before = [p.detach().clone() for p in system.netG_train.parameters()]
+    batch = {k: torch.randn(2, SEG, generator=torch.Generator()
+                            .manual_seed(i)) * 0.2
+             for i, k in enumerate(("label", "image"))}
+    losses, _ = trainer.make_train_step(system)(
+        state, batch, torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    assert any(not torch.equal(a, b) for a, b in
+               zip(before, system.netG_train.parameters()))
 
 
 @pytest.mark.parametrize("extra,item", [

@@ -28,6 +28,7 @@ def main(argv=None) -> str:
 
     from pix2pixhdaudiosr_torch.convert import jax_to_torch_generator
     from pix2pixhdaudiosr_torch.models.generator import build_generator
+    from pix2pixhdaudiosr_torch.system import g_input_nc
     from pix2pixhdaudiosr_torch.utils.checkpoint import save_generator
 
     ap = argparse.ArgumentParser(add_help=False)
@@ -41,7 +42,7 @@ def main(argv=None) -> str:
     state_dict = jax_to_torch_generator(saved["params"]["G"])
 
     net = build_generator(
-        cfg.net_g, cfg.netg_input_nc, cfg.output_nc, cfg.ngf,
+        cfg.net_g, g_input_nc(cfg), cfg.output_nc, cfg.ngf,
         cfg.n_downsample_global, cfg.n_blocks_global, cfg.n_local_enhancers,
         cfg.n_blocks_local,
         deconv_mode="torch" if cfg.torch_deconv else "same",

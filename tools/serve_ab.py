@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The flagship batch-128 serve times of two trees of the port, side by side
-on one card.
+on one card; with --step, the flagship batch-64 train step's.
 
-    python3 tools/serve_ab.py PARENT_DIR CHANGE_DIR
+    python3 tools/serve_ab.py [--step] PARENT_DIR CHANGE_DIR
 
 Each directory is a checkout of the repo (e.g. from `git archive`). The
 script runs one child process a turn, in the order parent, change, change,
@@ -13,7 +13,9 @@ generator with seeded N(0, 0.02) weights, and times the serve forward
 2 warm-ups, the paths in turns: plain, fused, int8, int8, fused, plain
 (chip_smoke phase 8's order). It prints one JSON line a turn and a summary
 line: ms/batch of each path for each turn, with the card's name and power
-limit.
+limit. With --step each child runs chip_smoke.phase_train_step (the plain
+flagship step at batch 64: 5 timed steps after 2, CUDA events) instead,
+and the summary holds its ms/step runs.
 """
 
 from __future__ import annotations
@@ -59,10 +61,32 @@ def child(root: str) -> dict:
     return dict(root=root, ms=runs)
 
 
+def step_child(root: str) -> dict:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+    import chip_smoke as cs
+    from pix2pixhdaudiosr_torch.ops import mdct_kernels, norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"mdct2": mdct_kernels.mdct2, "imdct2": mdct_kernels.imdct2,
+                "instance_norm_act": norm.instance_norm_act,
+                "instance_norm_act_grad": norm.instance_norm_act_grad}
+    res = cs.phase_train_step("cuda", counters)
+    return dict(root=root, ms={"train_step": res["ms_runs"]})
+
+
 def main(argv) -> int:
     if len(argv) == 2 and argv[0] == "--child":
         print(json.dumps(child(argv[1])))
         return 0
+    if len(argv) == 2 and argv[0] == "--step-child":
+        print(json.dumps(step_child(argv[1])))
+        return 0
+    step = argv[:1] == ["--step"]
+    argv = argv[1:] if step else argv
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -74,7 +98,8 @@ def main(argv) -> int:
     for label, root in (("parent", argv[0]), ("change", argv[1]),
                         ("change", argv[1]), ("parent", argv[0])):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", root], capture_output=True,
+                              "--step-child" if step else "--child", root],
+                             capture_output=True,
                              text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout[-3000:], res.stderr[-3000:], file=sys.stderr)
@@ -85,8 +110,10 @@ def main(argv) -> int:
         turns.append(rec)
     summary = {path: {label: [ms for t in turns if t["label"] == label
                               for ms in t["ms"][path]]
-                      for label in ("parent", "change")} for path in PATHS}
-    print(json.dumps(dict(card=smi, batch=128, ms_per_batch=summary)))
+                      for label in ("parent", "change")}
+               for path in (["train_step"] if step else PATHS)}
+    print(json.dumps(dict(card=smi, batch=64 if step else 128,
+                          ms_per_batch=summary)))
     return 0
 
 
