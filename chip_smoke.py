@@ -22,8 +22,12 @@ Phases, each fatal on failure (exit code 1):
      routes, within one bf16 ulp (+ the same floor), both routes timed
      beside F.conv2d (B5) and cuDNN's bare conv (B4), with each entry's
      bound and share of it; the stochastic quantizer at [13824, 1536]
-     (a flagship trunk conv weight as 2-D) and [1000, 136], q and scale
-     bit-identical and q * scale within one step of x), and time both with
+     (a flagship trunk conv weight as 2-D) and [1000, 136] on the
+     planner's strip route (one launch, one read of x) and on the
+     three-launch route, each call counted on its route, q and scale
+     bit-identical and q * scale within one step of x, both routes timed
+     (CUDA events; device time with the L2 evicted) beside the bound and
+     its share), and time both with
      CUDA events, beside one PyTorch call computing the same function where
      there is one (library_ms) and the kernel's bound (bound_ms: bytes over
      HBM bandwidth or operations over their peak rate, the larger); then
@@ -70,14 +74,18 @@ Phases, each fatal on failure (exit code 1):
      against the twin's, dx against the backward's twin and against
      autograd through the forward's twin (1e-4 max|dx| in f32, one bf16
      ulp + that floor in bf16), one backward launch a call on the
-     planner's route, two runs bit-identical, 0 elements whose slope from
-     the recomputed x^ differs from the slope read off y; the backward
-     kernel timed a shape in bf16 on both routes where the shape has two
+     planner's route and no dy copy, two runs bit-identical, 0 elements
+     whose slope from the recomputed x^ differs from the slope read off
+     y; the same checks with dy NCHW (as the reflect pad's backward and
+     the feature-matching L1 hand it), read in place, its dx equal to its
+     channels_last copy's; the backward kernel timed a shape in bf16
      (CUDA events; device time with the L2 warm and with it evicted
-     before each call, the share of the bound read from the latter),
-     beside its twin, the closed form, autograd through the twin and
-     through F.instance_norm (the library yardstick) and its bound (3
-     planes; the 4-plane figure of earlier records beside it); then the
+     before each call, the share of the bound read from the latter) on
+     every route the shape has (one-pass, one-pass at a 16-byte tile,
+     two-pass), dy channels_last and NCHW, beside its twin, the closed
+     form, autograd through the twin and through F.instance_norm (the
+     library yardstick) and its bound (3 planes; the 4-plane figure of
+     earlier records beside it); then the
      same checks at the 10 shapes Family A's netE (nef 16) and G (ngf 64)
      add, at its batch 10, each route printed, the kernels timed without
      the yardsticks;
@@ -112,10 +120,11 @@ Phases, each fatal on failure (exit code 1):
      trainer.make_train_step: 2 warm-up and 5 timed steps (ms/step,
      segments/s, peak GiB), B3 launches a step (40, all one-pass), its
      backward kernel's (40, shape by shape as the forward's; by route, and
-     the dy it copied) and B1 tensor-core launches a step (2), every loss
-     finite and every parameter moved, and a torch.profiler trace of one
-     step split into forward, backward and optimizer, with the InstanceNorm
-     backward's device ms and share; then the two recipe steps at full
+     no dy copied: the 12 NCHW dy are read in place) and B1 tensor-core
+     launches a step (2), every loss finite and every parameter moved,
+     and a torch.profiler trace of one step split into forward, backward
+     and optimizer, with the InstanceNorm backward's device ms (kernels
+     and copies) and share; then the two recipe steps at full
      width: --use_match_loss --use_time_D --lambda_time 10 at batch 64 and
      --use_hifigan_D at batch 32 (RECIPES), each the same measurements,
      every parameter of every net moved, launches a step as
@@ -807,32 +816,54 @@ def phase_quant_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(9)
     rec, detail = {}, {}
+    fn = quant.stochastic_quantize_2d
     for shape in (TRUNK_W2D, (1000, 136)):
         x = torch.randn(shape, generator=gen, device=dev) * 0.02
-        q, s = quant.stochastic_quantize_2d(x, 1234)
         q_ref, s_ref = quant.stochastic_quantize_2d_ref(x, 1234)
-        torch.cuda.synchronize()
-        err = max((q.int() - q_ref.int()).abs().max().item(),
-                  (s - s_ref).abs().max().item())
-        steps = ((q.float() * s - x).abs() / s).max().item()
-        print(f"[kernels] stochastic_quantize_2d {list(shape)}: max|err| "
-              f"{err}, max|q*s - x| {steps:.6f} steps")
-        check(torch.equal(q, q_ref) and torch.equal(s, s_ref),
-              f"stochastic_quantize_2d {shape}: not bit-identical ({err})")
-        check(steps <= 1 + 1e-6, f"stochastic_quantize_2d {shape}: "
-              f"{steps} steps from x")
-        detail[f"stochastic_quantize_2d {list(shape)}"] = dict(
-            max_abs_err=err, max_steps=steps,
-            ms=cuda_ms(lambda: quant.stochastic_quantize_2d(x, 1234)),
-            plain_ms=cuda_ms(lambda: quant.stochastic_quantize_2d_ref(x, 1234),
-                             iters=5))
+        plan = quant.plan_quantize(*shape)
+        check(plan.route == "strip", f"stochastic_quantize_2d {shape}: the "
+              f"planner's route is {plan.route}, not the strip route")
+        row = dict(plan=plan._asdict())
+        for name, p in (("strip", plan),
+                        ("threepass", quant.QuantPlan("threepass"))):
+            n1, n2 = fn.launches, fn.launches_by_route.get(name, 0)
+            q, s = fn(x, 1234, p)
+            torch.cuda.synchronize()
+            check(fn.launches - n1 == 1
+                  and fn.launches_by_route[name] - n2 == 1,
+                  f"stochastic_quantize_2d {shape}: one call left the "
+                  f"{name} route")
+            err = max((q.int() - q_ref.int()).abs().max().item(),
+                      (s - s_ref).abs().max().item())
+            steps = ((q.float() * s - x).abs() / s).max().item()
+            print(f"[kernels] stochastic_quantize_2d {list(shape)} {name}: "
+                  f"max|err| {err}, max|q*s - x| {steps:.6f} steps")
+            check(torch.equal(q, q_ref) and torch.equal(s, s_ref),
+                  f"stochastic_quantize_2d {shape} {name}: not "
+                  f"bit-identical ({err})")
+            check(steps <= 1 + 1e-6, f"stochastic_quantize_2d {shape} "
+                  f"{name}: {steps} steps from x")
+            row[name] = dict(
+                max_abs_err=err, max_steps=steps,
+                ms=cuda_ms(lambda: fn(x, 1234, p)),
+                cold_device_ms=device_ms(lambda: fn(x, 1234, p), cold=True))
+        # reads x (f32) and writes q (int8) and a scale a column; ~30
+        # integer ops an element for the hashes. No PyTorch call computes it.
+        n = shape[0] * shape[1]
+        row.update(bound(5 * n + 4 * shape[1], 30 * n, INT32_OPS),
+                   plain_ms=cuda_ms(lambda: quant.stochastic_quantize_2d_ref(
+                       x, 1234), iters=5))
+        for name in ("strip", "threepass"):
+            row[name]["share_of_bound"] = (row["bound_ms"]
+                                           / row[name]["cold_device_ms"])
+        print(f"[kernels] stochastic_quantize_2d {list(shape)} timing "
+              + json.dumps(row))
+        detail[f"stochastic_quantize_2d {list(shape)}"] = row
     main = detail[f"stochastic_quantize_2d {list(TRUNK_W2D)}"]
-    # reads x (f32) and writes q (int8) and a scale a column; ~30 integer
-    # ops an element for the three hashes. No PyTorch call computes it.
-    n = TRUNK_W2D[0] * TRUNK_W2D[1]
     rec["stochastic_quantize_2d"] = dict(
-        main, library_ms=None,
-        **bound(5 * n + 4 * TRUNK_W2D[1], 30 * n, INT32_OPS))
+        max_abs_err=main["strip"]["max_abs_err"], ms=main["strip"]["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None)
 
     B, C, H, W = TRUNK_SHAPE
     cpu = torch.Generator().manual_seed(10)
@@ -1247,7 +1278,8 @@ def in_grad_check(x, act: str, dy) -> dict:
     ulp + that floor in bf16, of the backward's twin on the same x, dy and
     saved statistics, and of autograd through the forward's twin in f32
     with the activation's slope read off the kernel's y (as the closed form
-    reads it); one backward launch. Returns the errors, `ok`, `slope_flips`
+    reads it); one backward launch and no copy of dy (channels_last or
+    NCHW, read in place). Returns the errors, `ok`, `slope_flips`
     (elements whose slope, taken by the kernel from the recomputed x^,
     differs from the slope read off y: must be 0) and `side_flips`
     (elements on another side of 0 in the kernel's y than in the twin's: a
@@ -1259,9 +1291,9 @@ def in_grad_check(x, act: str, dy) -> dict:
     xk = x.detach().requires_grad_(True)
     y = InstanceNormAct.apply(xk, act)
     _, saved = y.grad_fn.saved_tensors
-    n = grad.launches
+    n, copies = grad.launches, grad.dy_copies
     (dx,) = torch.autograd.grad(y, xk, dy)
-    launched = grad.launches - n
+    launched, copied = grad.launches - n, grad.dy_copies - copies
     x = x.detach()
     want = norm.instance_norm_act_grad_ref(x, dy, saved, act)
     g = dy.float()
@@ -1291,10 +1323,10 @@ def in_grad_check(x, act: str, dy) -> dict:
                mean_max_abs_err=(saved[0] - mean).abs().max().item(),
                var_max_rel_err=((saved[1] - var).abs().max()
                                 / var.abs().max().clamp_min(1e-30)).item(),
-               launches=launched, slope_flips=slope_flips,
+               launches=launched, dy_copies=copied, slope_flips=slope_flips,
                side_flips=int(((y > 0) != (y_twin > 0)).sum())
                if act != "none" else 0)
-    ok = (launched == 1 and slope_flips == 0
+    ok = (launched == 1 and copied == 0 and slope_flips == 0
           and res["mean_max_abs_err"] <= 1e-5
           and res["var_max_rel_err"] <= 1e-5)
     if x.dtype == torch.float32:
@@ -1365,35 +1397,56 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH, groups=None,
                           f"{plan.route} route")
                     row[f"{str(dtype)[6:]} {act}"] = r
                     check(r["ok"], f"IN grad {(H, W, C)} {dtype} {act}: {r}")
+                # dy as the reflect pad's backward and the feature-matching
+                # L1 hand it: NCHW, read in place on the planner's route
+                dy_nchw = dy.contiguous()
+                r = in_grad_check(x, acts[0], dy_nchw)
+                row[f"{str(dtype)[6:]} {acts[0]} nchw dy"] = r
+                check(r["ok"], f"IN grad {(H, W, C)} {dtype} NCHW dy: {r}")
                 y, saved = fn(x, acts[0], with_stats=True)
 
-                def run(plan=plan):
+                def run(plan=plan, dy=dy):
                     return grad(x, dy, saved, acts[0], plan=plan)
                 check(torch.equal(run(), run()),
                       f"IN grad {(H, W, C)} {dtype}: two runs differ")
+                check(torch.equal(run(dy=dy_nchw), run()),
+                      f"IN grad {(H, W, C)} {dtype}: an NCHW dy's dx differs "
+                      f"from its channels_last copy's")
                 if dtype == torch.bfloat16:
                     row.update(forward_route=fplan.route,
                                forward_ms=cuda_ms(lambda: fn(x, acts[0])),
                                route=plan.route, plan=plan._asdict(),
                                backward_ms=cuda_ms(run),
                                backward_device_ms=device_ms(run),
-                               backward_cold_device_ms=device_ms(run, cold=True))
-                    other = (norm.INPlan("twopass") if plan.route == "onepass"
-                             else norm.plan_instance_norm_grad(
-                                 batch, H, W, C, dtype, narrow=True))
-                    if other.route != plan.route:
-                        row.update(other_route=other.route,
-                                   other_plan=other._asdict(),
-                                   other_route_ms=cuda_ms(lambda: run(other)),
-                                   other_route_device_ms=device_ms(
-                                       lambda: run(other)))
-                    row.update(in_grad_bound(x))
+                               backward_cold_device_ms=device_ms(run, cold=True),
+                               **in_grad_bound(x))
+                    # every route the shape has, dy channels_last and NCHW:
+                    # device time with the L2 cold and warm, share of the
+                    # bound from the cold one
+                    routes = {"twopass": norm.INPlan("twopass")}
+                    for narrow in (False, True):
+                        p = norm.plan_instance_norm_grad(
+                            batch, H, W, C, dtype, narrow=narrow)
+                        if p.route == "onepass":
+                            narrow_tile = p.tile * x.element_size() < 32
+                            routes["onepass" + " narrow" * narrow_tile] = p
+                    row["routes"] = {}
+                    for name, p in routes.items():
+                        for layout, d in (("nhwc", dy), ("nchw", dy_nchw)):
+                            cold = device_ms(lambda: run(p, d), cold=True)
+                            row["routes"][f"{name} {layout} dy"] = dict(
+                                plan=p._asdict(), cold_device_ms=cold,
+                                device_ms=device_ms(lambda: run(p, d)),
+                                share_of_bound=row["bound_ms"] / cold)
+                    row["nchw_dy_cold_device_ms"] = row["routes"][
+                        f"{next(k for k, p in routes.items() if p == plan)}"
+                        f" nchw dy"]["cold_device_ms"]
                     row["share_of_bound"] = (row["bound_ms"]
                                              / row["backward_cold_device_ms"])
                     row["max_abs_err"] = max(v["max_abs_err"] for k, v in
                                              row.items() if k.startswith("bfloat16"))
                     if not yardsticks:
-                        del x, dy, y, saved
+                        del x, dy, dy_nchw, y, saved
                         continue
                     row["twin_ms"] = cuda_ms(
                         lambda: norm.instance_norm_act_grad_ref(
@@ -1414,7 +1467,7 @@ def phase_in_grad(dev, batch: int = TRAIN_BATCH, groups=None,
                         iters=10, warmup=2)
                     row["bound_4planes_ms"] = 4 * 2 * x.numel() / HBM_BPS * 1e3
                     del xr, yr, yl
-                del x, dy, y, saved
+                del x, dy, dy_nchw, y, saved
             rows[f"{H}x{W}x{C}"] = row
             print(f"[in grad] {H}x{W}x{C} B={batch}: " + json.dumps(row))
     torch.cuda.empty_cache()
@@ -1988,8 +2041,8 @@ def dy_layouts(run_step) -> dict:
     from pix2pixhdaudiosr_torch.ops import norm
     seen, readable = {}, norm._readable_dy
 
-    def spy(x, dy, onepass):
-        out = readable(x, dy, onepass)
+    def spy(x, dy, vectors):
+        out = readable(x, dy, vectors)
         B, C, H, W = x.shape
         key = f"{H}x{W}x{C} {str(dy.dtype)[6:]} strides {tuple(dy.stride())}"
         row = seen.setdefault(key, dict(calls=0, copied=0))
@@ -2181,6 +2234,17 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
     # less G's recomputed forwards under --remat_g
     check(shapes_ok, f"InstanceNorm backward by shape {grad.launches_by_shape}"
           f", the forward's {inorm.launches_by_shape}")
+    # every dy autograd hands the backward is read in place: the plain
+    # step's 12 NCHW ones (G's reflect pads, D's feature-matching L1) too
+    print(f"[in grad] the step's InstanceNorm backward "
+          f"{' '.join(extra) or 'plain'}: "
+          f"{res['profile']['in_backward_ms']:.3f} device ms (kernels and "
+          f"copies), dy copies a step "
+          f"{res['in_grad_dy_copies_by_shape_per_step']}")
+    if not extra:
+        check(not res["in_grad_dy_copies_by_shape_per_step"],
+              f"the plain step copied dy: "
+              f"{res['in_grad_dy_copies_by_shape_per_step']}")
     check(res["opt_state_bytes"]["G"]
           == (6 if cfg.adam_mu_bf16 else 8) * n_params["G"],
           f"G's Adam moments take {res['opt_state_bytes']['G']} bytes for "

@@ -1,8 +1,10 @@
 // What the one-pass InstanceNorm kernels share (instance_norm.cu, the
-// forward, and instance_norm_bwd.cu, its gradient): a (sample, channel
-// tile) plane staged by 16-byte cp.async copies into the shared memory of a
-// thread-block cluster, whose blocks exchange per-channel sums through
-// distributed shared memory; and the checks before a cluster launch.
+// forward, and instance_norm_bwd.cu, its gradient), and quant.cu's strip
+// route with them: a (sample, channel tile) plane, or a strip of columns,
+// staged by 16-byte cp.async copies into the shared memory of a
+// thread-block cluster, whose blocks exchange per-channel (per-column)
+// reductions through distributed shared memory; and the checks before a
+// cluster launch.
 #pragma once
 
 #include <stdint.h>
@@ -74,13 +76,13 @@ int max_active_clusters(const void* kernel, const cudaLaunchConfig_t& cfg,
 }
 
 // Fills cfg (and its one attribute, attr) for a launch of `kernel` on
-// `grid` in clusters of K blocks along x, kOnepassThreads threads and
-// `smem` bytes of dynamic shared memory each, after allowing both on the
-// kernel. Returns cudaErrorInvalidConfiguration when no cluster of the
-// plan fits the card.
+// `grid` in clusters of K blocks along x, `threads` threads and `smem`
+// bytes of dynamic shared memory each, after allowing both on the kernel.
+// Returns cudaErrorInvalidConfiguration when no cluster of the plan fits
+// the card.
 int cluster_config(const void* kernel, dim3 grid, unsigned K, size_t smem,
                    cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                   cudaLaunchAttribute* attr) {
+                   cudaLaunchAttribute* attr, int threads = kOnepassThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (!err)
@@ -93,7 +95,7 @@ int cluster_config(const void* kernel, dim3 grid, unsigned K, size_t smem,
   attr->val.clusterDim.z = 1;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = grid;
-  cfg->blockDim = dim3(kOnepassThreads, 1, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   cfg->attrs = attr;

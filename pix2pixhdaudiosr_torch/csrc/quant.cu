@@ -16,24 +16,38 @@
 //
 // What bounds it on this card: device-memory bandwidth. It does a few
 // operations per element; at [13824, 1536] (one flagship trunk conv weight
-// as 2-D) it reads 85 MB twice and writes 21 MB: ~190 MB, ~0.06 ms at
-// 3.35 TB/s.
+// as 2-D) it must read 85 MB and write 21 MB: ~106 MB, 0.032 ms at
+// 3.35 TB/s. The TPU kernel held all of x in VMEM and read it once; a
+// column's scale needs every row of it before any q of that column.
 //
-// Design: three launches on the wrapper's stream.
+// Strip route (p2p_stochastic_quantize_strip, quantize_strip_kernel): one
+// launch, one read of x. A thread-block cluster of K <= 16 blocks owns a
+// strip of `cols` columns (16 to 128 bytes a row; 128 at the flagship
+// shape, measured fastest), each block a run of its rows, which it stages
+// in shared memory with 16-byte cp.async copies (the row pitch is N * 4
+// bytes). Each block takes its columns' max |x| (as
+// bits: non-negative floats order as their bit patterns, so the max is
+// exact in any order), the cluster's blocks read each other's through
+// distributed shared memory, every block computes the same scale, and then
+// writes q of its rows from shared memory (rank 0 writes the scale). The
+// planner in ops/quant.py (plan_quantize) picks cols and K.
+//
+// Three-launch route (p2p_stochastic_quantize_2d), for shapes whose strip
+// no cluster holds (or a row pitch of no 16-byte multiple):
 //   1. absmax: each block owns a tile of up to 256 columns and a chunk of
 //      rows. Neighbouring threads read neighbouring columns (coalesced); a
 //      shared-memory max over the block's row groups, then one atomicMax a
-//      column on the bits of |x|. Non-negative floats order as their bit
-//      patterns, so the max is exact and the same in any order
-//      (deterministic). The TPU kernel held the whole array in VMEM; one
-//      block per column tile would leave most of the 132 SMs idle at
-//      N = 1536, hence the row chunks (about 8 blocks an SM).
+//      column on the bits of |x| (exact and order-free, as above).
 //   2. scale: one thread a column.
 //   3. quantize: elementwise over the flat array, 4 elements a thread
 //      (16-byte loads) when the sizes and pointers allow it.
+// x is read twice.
+#include <cooperative_groups.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "in_cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -131,12 +145,107 @@ void launch_quantize(const float* x, const float* scale, signed char* q,
       x, scale, q, n_vec, N, key);
 }
 
+
+// Strip route. Grid (K * N / cols), cluster (K, 1, 1), kStripThreads
+// threads: cluster blockIdx.x / K owns columns [n0, n0 + cols), its block
+// of rank r the rows [r * rows, min(M, (r + 1) * rows)), staged [rows][cols]
+// in dynamic shared memory. A thread takes column tid % cols of the rows
+// tid / cols, + kStripThreads / cols, ... for the max, and 4 neighbouring
+// columns of a row (one 16-byte shared read, one 4-byte store) for q.
+constexpr int kStripThreads = 512;
+
+template <int COLS>
+__global__ void __launch_bounds__(kStripThreads)
+    quantize_strip_kernel(const float* __restrict__ x,
+                          signed char* __restrict__ q,
+                          float* __restrict__ scale, int M, int N, int rows,
+                          unsigned key) {
+  extern __shared__ __align__(16) float sx[];  // [rows][COLS]
+  __shared__ unsigned s_max[kStripThreads];
+  __shared__ unsigned part[COLS];  // this block's column max, as bits
+  __shared__ float s_scale[COLS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned K = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int n0 = (int)(blockIdx.x / K) * COLS;
+  const int m0 = (int)rank * rows;
+  const int nr = max(0, min(rows, M - m0));
+  constexpr int kChunks = COLS / 4;  // 16-byte copies a row
+
+  // 1. Stage the block's rows of the strip.
+  const float* src = x + (size_t)m0 * N + n0;
+  for (int i = tid; i < nr * kChunks; i += kStripThreads) {
+    const int r = i / kChunks, ch = i - r * kChunks;
+    p2p::cp_async16(sx + r * COLS + ch * 4, src + (size_t)r * N + ch * 4);
+  }
+  p2p::cp_async_wait_all();
+  __syncthreads();
+
+  // 2. The block's max |x| a column, then the cluster's.
+  constexpr int kGroups = kStripThreads / COLS;
+  const int col = tid % COLS;
+  unsigned m = 0;
+  for (int r = tid / COLS; r < nr; r += kGroups)
+    m = max(m, __float_as_uint(fabsf(sx[r * COLS + col])));
+  s_max[tid] = m;
+  __syncthreads();
+  if (tid < COLS) {
+    for (int g = 1; g < kGroups; ++g) m = max(m, s_max[g * COLS + tid]);
+    part[tid] = m;
+  }
+  cluster.sync();  // every block's column max is in its shared memory
+  if (tid < COLS) {
+    unsigned a = 0;
+    for (unsigned r = 0; r < K; ++r)
+      a = max(a, cluster.map_shared_rank(part, r)[tid]);
+    const float af = __uint_as_float(a);
+    // af < 1e-12 is false for NaN, which passes through as in torch.clamp_min
+    const float s = __fdiv_rn(af < 1e-12f ? 1e-12f : af, 127.f);
+    s_scale[tid] = s;
+    if (rank == 0) scale[n0 + tid] = s;
+  }
+  p2p::cluster_arrive_release();  // done reading the other blocks
+  __syncthreads();
+
+  // 3. q of the block's rows, 4 columns a thread.
+  for (int i = tid; i < nr * kChunks; i += kStripThreads) {
+    const int r = i / kChunks, c4 = (i - r * kChunks) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(sx + r * COLS + c4);
+    const unsigned long long i0 = (unsigned long long)(m0 + r) * N + n0 + c4;
+    char4 out;
+    out.x = quantize(v.x, s_scale[c4], i0, key);
+    out.y = quantize(v.y, s_scale[c4 + 1], i0 + 1, key);
+    out.z = quantize(v.z, s_scale[c4 + 2], i0 + 2, key);
+    out.w = quantize(v.w, s_scale[c4 + 3], i0 + 3, key);
+    *reinterpret_cast<char4*>(q + i0) = out;
+  }
+  p2p::cluster_wait_acquire();  // no block leaves while another reads it
+}
+
+template <int COLS>
+int launch_strip(const float* x, signed char* q, float* scale, int M, int N,
+                 int K, int rows, unsigned key, cudaStream_t stream) {
+  const size_t smem = (size_t)rows * COLS * sizeof(float);
+  if (smem > (size_t)p2p::kSmemLimit - 8192) return cudaErrorInvalidValue;
+  const auto kernel = quantize_strip_kernel<COLS>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = p2p::cluster_config((const void*)kernel, dim3(K * (N / COLS)),
+                                K, smem, stream, &cfg, &attr, kStripThreads);
+  if (err) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, q, scale, M, N, rows, key);
+  if (err) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// x: f32 [M, N] row-major; q: int8 [M, N]; scale: f32 [N]; amax: [N] 32-bit
-// words set to 0 by the caller (the column absmax bits on return).
+// The three-launch route. x: f32 [M, N] row-major; q: int8 [M, N]; scale:
+// f32 [N]; amax: [N] 32-bit words set to 0 by the caller (the column
+// absmax bits on return).
 int p2p_stochastic_quantize_2d(const void* x, void* q, void* scale, void* amax,
                                int M, int N, unsigned seed, void* stream) {
   if (M <= 0 || N <= 0) return cudaGetLastError();
@@ -169,6 +278,35 @@ int p2p_stochastic_quantize_2d(const void* x, void* q, void* scale, void* amax,
     launch_quantize<1>((const float*)x, (const float*)scale, (signed char*)q,
                        n, N, key, s);
   return cudaGetLastError();
+}
+
+
+// The strip route: x f32 [M, N] row-major, 16-byte aligned, N a multiple
+// of 4; q int8 [M, N] (4-byte aligned); scale f32 [N]. cols (4, 8, 16 or
+// 32) divides N; K blocks a cluster, `rows` rows a block (K * rows >= M >
+// (K - 1) * rows): ops/quant.py plan_quantize's plan. Returns
+// cudaErrorInvalidValue for a plan it cannot run, and
+// cudaErrorInvalidConfiguration when no cluster of the plan fits the card.
+int p2p_stochastic_quantize_strip(const void* x, void* q, void* scale, int M,
+                                  int N, unsigned seed, int cols, int K,
+                                  int rows, void* stream) {
+  if (M <= 0 || N <= 0) return cudaGetLastError();
+  if (cols < 4 || N % cols || K < 1 || K > p2p::kMaxCluster || rows < 1 ||
+      (long long)K * rows < M || (long long)(K - 1) * rows >= M ||
+      (uintptr_t)x % 16 || (uintptr_t)q % 4)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned key = hash32(seed ^ kGolden);
+  const float* xf = (const float*)x;
+  signed char* qc = (signed char*)q;
+  float* sc = (float*)scale;
+  switch (cols) {
+    case 4: return launch_strip<4>(xf, qc, sc, M, N, K, rows, key, s);
+    case 8: return launch_strip<8>(xf, qc, sc, M, N, K, rows, key, s);
+    case 16: return launch_strip<16>(xf, qc, sc, M, N, K, rows, key, s);
+    case 32: return launch_strip<32>(xf, qc, sc, M, N, K, rows, key, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -40,9 +40,10 @@ _SIGNATURES = {
     "p2p_instance_norm_act": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                               _P),
     "p2p_instance_norm_grad_onepass": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
-                                       _L, _L, _I, _I, _F, _I, _I, _I, _P),
+                                       _I, _L, _L, _I, _I, _F, _I, _I, _I,
+                                       _P),
     "p2p_instance_norm_grad_twopass": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _L, _L, _L, _L, _I, _I, _F, _I, _I,
+                                       _L, _L, _I, _L, _L, _I, _I, _F, _I, _I,
                                        _P),
     "p2p_instance_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "p2p_conv3x3_in": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -53,6 +54,7 @@ _SIGNATURES = {
                           _I, _I, _F, _I, _I, _I, _P),
     "p2p_conv3x3_valid_wg": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "p2p_stochastic_quantize_2d": (_P, _P, _P, _P, _I, _I, _U, _P),
+    "p2p_stochastic_quantize_strip": (_P, _P, _P, _I, _I, _U, _I, _I, _I, _P),
 }
 
 _lib = None

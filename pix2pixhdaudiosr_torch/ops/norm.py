@@ -23,9 +23,12 @@ reads, [2, B, C]: the mean and the clamped variance of each plane.
 (csrc/instance_norm_bwd.cu; the JAX package has none, it differentiates
 layers.instance_norm through XLA): dx from x, dy and the saved statistics,
 on a one-pass (cluster) or a two-pass route chosen by the shape
-(`plan_instance_norm_grad`), counted in `instance_norm_act_grad.launches`,
-`.launches_by_route` and `.launches_by_shape`; a dy that the kernels cannot
-read in place is copied and counted in `.dy_copies`. Its twin,
+(`plan_instance_norm_grad`), counted in
+`instance_norm_act_grad.launches`, `.launches_by_route` and
+`.launches_by_shape`. dy is read in the layout autograd hands it,
+channels_last or NCHW (`dy_layout`); one the kernels cannot read (another
+dtype than x's, or neither layout) is copied and counted in `.dy_copies`.
+Its twin,
 `instance_norm_act_grad_ref`, is the same formulation in plain PyTorch.
 `instance_norm_act_backward` is the closed form that recomputes the
 statistics and reads the slope off y: a second twin, on no path.
@@ -152,18 +155,21 @@ def plan_instance_norm_grad(B: int, H: int, W: int, C: int,
                             max_cluster: int = MAX_CLUSTER,
                             tile_bytes: int = TILE_BYTES) -> INPlan:
     """The route of `instance_norm_act_grad` for x [B, C, H, W] of `dtype`
-    (a function of the shape alone), as `plan_instance_norm` with x and dy
-    both staged: a plane of 2 * H*W * tile bytes. A 16-byte tile is taken
-    only with `narrow`: at 512 x 128 x 48, the one training shape where
-    only such a tile fits a cluster, the two-pass route measured faster on
-    an H100 (tools/in_grad_ablation.py, PERF.md). A shape no cluster holds
-    takes the two-pass route."""
+    (a function of the shape alone), as measured on an H100 at every
+    training shape (tools/in_grad_ablation.py, PERF.md): the one-pass route
+    as `plan_instance_norm` with x and dy both staged (a plane of 2 * H*W *
+    tile bytes); a 16-byte tile where a position's row is one 32-byte
+    sector at most (its two tiles then split each sector: Family A's 512 x
+    128 x 16 bf16, 0.061 against 0.078 ms two-pass) or with `narrow`; else
+    the two-pass route, which at 512 x 128 x 48 and x 64 beat that narrow
+    one-pass plan and three 3-plane designs (PERF.md), and takes rows that
+    are no multiple of 16 bytes."""
     hw, row = H * W, C * dtype.itemsize
     if B < 1 or hw < 1 or row % _VEC:
         return INPlan("twopass")
     return _onepass_plan(hw, row, dtype.itemsize, 2, grad_onepass_smem,
                          block_bytes, max_cluster, tile_bytes,
-                         narrow) or INPlan("twopass")
+                         narrow or row <= _SECTOR) or INPlan("twopass")
 
 
 def activate(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -387,25 +393,56 @@ def grad_chunks(B: int, HW: int, nv: int) -> int:
     return max(1, min(HW, max(fill, accuracy)))
 
 
-def _readable_dy(x: torch.Tensor, dy: torch.Tensor, onepass: bool):
-    """(dy, its pitches): dy as autograd hands it where the kernels read it
-    in place (x's dtype, rows of W*C contiguous, 16-byte pitches and start
-    on the one-pass route), else a channels_last copy, counted in
-    `instance_norm_act_grad.dy_copies` (and by (H, W, C))."""
-    if dy.dtype == x.dtype:
-        try:
-            pitches = nhwc_pitches("instance_norm_act_grad", dy)
-        except ValueError:
-            pitches = None
-        if pitches is not None and not (onepass and dy.data_ptr() % _VEC):
-            return dy, pitches
+# how the backward kernels read dy (csrc/instance_norm_bwd.cu kDyNHWC,
+# kDyPlanar)
+DY_LAYOUTS = {"nhwc": 0, "planar": 1}
+
+
+def dy_layout(x_dtype: torch.dtype, dy_dtype: torch.dtype, shape, strides,
+              misalign: int, vectors: bool):
+    """How `instance_norm_act_grad` reads a dy of `shape` [B, C, H, W],
+    `strides` (elements) and a start `misalign` bytes past a 16-byte
+    boundary: ("nhwc", sample pitch, row pitch) where rows of W*C are
+    contiguous, ("planar", sample pitch, channel pitch) where each channel's
+    H*W positions are (an NCHW tensor, as the reflect pad's backward and
+    the feature-matching L1 hand it: read in place at any alignment), or
+    None where the wrapper copies it (another dtype than x's, or neither
+    layout). With `vectors` (the one-pass route copies an nhwc dy 16 bytes
+    at a time) an nhwc dy needs a 16-byte start and pitches, else it is
+    read as planar where its strides allow, or copied."""
+    if dy_dtype != x_dtype:
+        return None
+    B, C, H, W = shape
+    sb, sc, sh, sw = strides
+    elem = dy_dtype.itemsize
+    if (C == 1 or sc == 1) and (W == 1 or sw == C):
+        row = sh if H > 1 else W * C
+        sample = sb if B > 1 else H * row
+        if not vectors or (misalign == 0 and (sample * elem) % _VEC == 0
+                           and (row * elem) % _VEC == 0):
+            return "nhwc", sample, row
+    if (W == 1 or sw == 1) and (H == 1 or sh == W):
+        chan = sc if C > 1 else H * W
+        return "planar", sb if B > 1 else C * chan, chan
+    return None
+
+
+def _readable_dy(x: torch.Tensor, dy: torch.Tensor, vectors: bool):
+    """(dy, its layout, sample pitch, row or channel pitch): dy as autograd
+    hands it where `dy_layout` reads it in place, else a channels_last copy
+    in x's dtype, counted in `instance_norm_act_grad.dy_copies` (and by
+    (H, W, C))."""
+    layout = dy_layout(x.dtype, dy.dtype, tuple(dy.shape), dy.stride(),
+                       dy.data_ptr() % _VEC, vectors)
+    if layout is not None:
+        return (dy, *layout)
     dy = dy.to(x.dtype, memory_format=torch.channels_last)
     fn = instance_norm_act_grad
     fn.dy_copies += 1
     B, C, H, W = x.shape
     fn.dy_copies_by_shape[(H, W, C)] = fn.dy_copies_by_shape.get((H, W, C),
                                                                  0) + 1
-    return dy, nhwc_pitches("instance_norm_act_grad", dy)
+    return (dy, "nhwc", H * W * C, W * C)
 
 
 def instance_norm_act_grad(x: torch.Tensor, dy: torch.Tensor,
@@ -416,9 +453,9 @@ def instance_norm_act_grad(x: torch.Tensor, dy: torch.Tensor,
     the forward saved (`instance_norm_act(..., with_stats=True)`: f32
     [2, B, C], mean and clamped variance). x: [B, C, H, W] as the forward
     took it (on CUDA: rows of W*C contiguous, `nhwc_pitches`; a cropped
-    view is read in place); dy: x's shape. Returns x's dtype and shape,
-    channels_last. `plan` forces a route (`plan_instance_norm_grad`'s by
-    default)."""
+    view is read in place); dy: x's shape, read in place channels_last or
+    NCHW (`dy_layout`). Returns x's dtype and shape, channels_last. `plan`
+    forces a route (`plan_instance_norm_grad`'s by default)."""
     if x.device.type == "cpu":
         return instance_norm_act_grad_ref(x, dy, saved, act, eps)
     name = "instance_norm_act_grad"
@@ -435,33 +472,33 @@ def instance_norm_act_grad(x: torch.Tensor, dy: torch.Tensor,
                          f"[2, {B}, {C}], got {saved.dtype} "
                          f"{tuple(saved.shape)}")
     plan = plan or plan_instance_norm_grad(B, H, W, C, x.dtype)
-    onepass = plan.route == "onepass"
-    if onepass and x.data_ptr() % _VEC:
+    vectors = plan.route == "onepass"  # 16-byte copies of x and an nhwc dy
+    if vectors and x.data_ptr() % _VEC:
         raise ValueError(f"{name}: the one-pass route needs a 16-byte "
                          f"aligned x")
-    dy, dy_pitches = _readable_dy(x, dy, onepass)
+    dy, layout, dy_sample, dy_pitch = _readable_dy(x, dy, vectors)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device,
                      memory_format=torch.channels_last)
-    dtype = int(x.dtype == torch.bfloat16)
-    if onepass:
-        _cuda.launch("p2p_instance_norm_grad_onepass", x.device, x.data_ptr(),
-                     dy.data_ptr(), dx.data_ptr(), saved.data_ptr(), B, H, W,
-                     C, *x_pitches, *dy_pitches, dtype, ACTS[act], float(eps),
-                     plan.tile, plan.cluster, plan.positions)
+    head = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), saved.data_ptr())
+    dims = (B, H, W, C, *x_pitches, DY_LAYOUTS[layout], dy_sample, dy_pitch,
+            int(x.dtype == torch.bfloat16), ACTS[act], float(eps))
+    if plan.route == "onepass":
+        _cuda.launch("p2p_instance_norm_grad_onepass", x.device, *head,
+                     *dims, plan.tile, plan.cluster, plan.positions)
     else:
         vec = _VEC // x.element_size()
-        if (C % vec or any(p % vec for p in (*x_pitches, *dy_pitches))
-                or any(t.data_ptr() % _VEC for t in (x, dy))):
+        pitches = (*x_pitches, dy_sample, dy_pitch) if layout == "nhwc" \
+            else x_pitches
+        starts = (x, dy) if layout == "nhwc" else (x,)
+        if (C % vec or any(p % vec for p in pitches)
+                or any(t.data_ptr() % _VEC for t in starts)):
             vec = 1
         P = grad_chunks(B, H * W, C // vec)
         partial = torch.empty(B, P, C, 2, dtype=torch.float32,
                               device=x.device)
         coef = torch.empty(B, C, 4, dtype=torch.float32, device=x.device)
-        _cuda.launch("p2p_instance_norm_grad_twopass", x.device, x.data_ptr(),
-                     dy.data_ptr(), dx.data_ptr(), saved.data_ptr(),
-                     partial.data_ptr(), coef.data_ptr(), B, H, W, C,
-                     *x_pitches, *dy_pitches, dtype, ACTS[act], float(eps), P,
-                     vec)
+        _cuda.launch("p2p_instance_norm_grad_twopass", x.device, *head,
+                     partial.data_ptr(), coef.data_ptr(), *dims, P, vec)
     fn = instance_norm_act_grad
     fn.launches += 1
     fn.launches_by_route[plan.route] = fn.launches_by_route.get(plan.route,

@@ -20,12 +20,17 @@ Port of pix2pixhdaudiosr_tpu/ops/quant.py.
 * `stochastic_quantize_2d` replaces the Pallas kernel of the same name. Its
   random bits come from a counter-based hash of (seed, flat index) that the
   twin computes too, so the kernel and the twin agree bit for bit. The TPU
-  kernel drew from the chip's own PRNG, which nothing else reproduces.
+  kernel drew from the chip's own PRNG, which nothing else reproduces. On
+  the card it takes one of two routes, chosen by the shape
+  (`plan_quantize`): one launch and one read of x, a strip of columns
+  staged in a thread-block cluster's shared memory, or three launches
+  (absmax, scale, quantize) where no cluster holds a strip.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -223,13 +228,58 @@ def stochastic_quantize_2d_ref(x: torch.Tensor, seed: int
     return q.to(torch.int8), scale
 
 
-def stochastic_quantize_2d(x: torch.Tensor, seed: int
+# The strip route (csrc/quant.cu quantize_strip_kernel): `STRIP_COLS`
+# columns a strip (128 bytes of each row), a cluster of at most
+# `STRIP_MAX_CLUSTER` blocks, each `STRIP_BLOCK_BYTES` of it or more. At
+# [13824, 1536] on an H100, 32 columns in clusters of 16 took 0.078 ms,
+# 16 columns 0.086, 8 columns 0.109-0.113, three launches 0.092
+# (tools/quant_strip_ablation.py, PERF.md).
+STRIP_COLS = 32
+STRIP_BLOCK_BYTES = 32768
+STRIP_MAX_CLUSTER = 16
+_STRIP_SMEM = 232448 - 8192   # the block's dynamic shared memory at most
+
+
+class QuantPlan(NamedTuple):
+    """How `stochastic_quantize_2d` runs [M, N]. route "strip": a cluster
+    of `cluster` blocks owns `cols` columns, each block `rows` rows; route
+    "threepass": the other fields are 0."""
+    route: str
+    cols: int = 0
+    cluster: int = 0
+    rows: int = 0
+
+
+@functools.lru_cache(maxsize=64)
+def plan_quantize(M: int, N: int, aligned: bool = True,
+                  cols: int = STRIP_COLS,
+                  block_bytes: int = STRIP_BLOCK_BYTES,
+                  max_cluster: int = STRIP_MAX_CLUSTER) -> QuantPlan:
+    """The route for f32 x [M, N] (`aligned`: its start on 16 bytes): the
+    strip route at `cols` columns, or fewer (a power of two of at least 4
+    that divides N), whose strip, M rows of them, a cluster of at most
+    `max_cluster` blocks holds, K the fewest blocks of `block_bytes` that
+    do; the three-launch route where none does, or where the rows' pitch
+    (N * 4 bytes) or x's start is no multiple of 16 bytes."""
+    if M < 1 or N < 1 or N % 4 or not aligned:
+        return QuantPlan("threepass")
+    for w in (w for w in (32, 16, 8, 4) if w <= cols and N % w == 0):
+        k = min(max_cluster, max(1, -(-M * w * 4 // block_bytes)))
+        rows = -(-M // k)
+        if rows * w * 4 <= _STRIP_SMEM:
+            return QuantPlan("strip", w, -(-M // rows), rows)
+    return QuantPlan("threepass")
+
+
+def stochastic_quantize_2d(x: torch.Tensor, seed: int,
+                           plan: QuantPlan = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[M, N] f32 -> (int8 [M, N], per-column scale f32 [1, N]):
     scale = max(absmax over rows, 1e-12) / 127 and
     q = clip(floor(x / scale + u), -127, 127), u = (bits >> 8) * 2^-24 with
     the bits of `random_bits(seed, m * N + n)`. On CUDA x is contiguous
-    float32."""
+    float32; `plan` forces a route (`plan_quantize`'s by default). Counted
+    in `stochastic_quantize_2d.launches` and `.launches_by_route`."""
     if x.device.type == "cpu":
         return stochastic_quantize_2d_ref(x, seed)
     _cuda.check_cuda("stochastic_quantize_2d", x)
@@ -238,14 +288,24 @@ def stochastic_quantize_2d(x: torch.Tensor, seed: int
                          f"float32 [M, N], got {x.dtype} {tuple(x.shape)} "
                          f"contiguous={x.is_contiguous()}")
     M, N = x.shape
+    plan = plan or plan_quantize(M, N, x.data_ptr() % 16 == 0)
     q = torch.empty(M, N, dtype=torch.int8, device=x.device)
     scale = torch.empty(1, N, dtype=torch.float32, device=x.device)
-    amax = torch.zeros(N, dtype=torch.int32, device=x.device)  # f32 bits
-    _cuda.launch("p2p_stochastic_quantize_2d", x.device, x.data_ptr(),
-                 q.data_ptr(), scale.data_ptr(), amax.data_ptr(), M, N,
-                 seed & _MASK32)
-    stochastic_quantize_2d.launches += 1
+    if plan.route == "strip":
+        _cuda.launch("p2p_stochastic_quantize_strip", x.device, x.data_ptr(),
+                     q.data_ptr(), scale.data_ptr(), M, N, seed & _MASK32,
+                     plan.cols, plan.cluster, plan.rows)
+    else:
+        amax = torch.zeros(N, dtype=torch.int32, device=x.device)  # f32 bits
+        _cuda.launch("p2p_stochastic_quantize_2d", x.device, x.data_ptr(),
+                     q.data_ptr(), scale.data_ptr(), amax.data_ptr(), M, N,
+                     seed & _MASK32)
+    fn = stochastic_quantize_2d
+    fn.launches += 1
+    fn.launches_by_route[plan.route] = fn.launches_by_route.get(plan.route,
+                                                                0) + 1
     return q, scale
 
 
 stochastic_quantize_2d.launches = 0
+stochastic_quantize_2d.launches_by_route = {}

@@ -268,14 +268,22 @@ def _assert_grad_close(got, want):
         assert chip_smoke.ulp_excess(got, want, floor) <= 0
 
 
+def _grad_plan(route, B, H, W, C, dtype):
+    """The backward's plan on `route`: one-pass with 16-byte tiles admitted
+    (so every training shape has one), or two-pass."""
+    from pix2pixhdaudiosr_torch.ops import norm
+    if route == "onepass":
+        return norm.plan_instance_norm_grad(B, H, W, C, dtype, narrow=True)
+    return norm.INPlan("twopass")
+
+
 @pytest.mark.parametrize("route", ["onepass", "twopass"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hwc,act", [(s, "relu") for s in IN_SHAPES]
                          + [(s, "leaky") for s in D_IN_SHAPES])
 def test_instance_norm_grad_kernel_matches_twin(cuda, hwc, act, dtype, route):
     """The backward kernel at every training InstanceNorm shape, batch 2, on
-    both routes (one-pass with 16-byte tiles admitted, so every shape has
-    one): dx within tolerance of the twin from the forward's saved
+    every route: dx within tolerance of the twin from the forward's saved
     statistics, channels_last in x's dtype, bit-identical over two runs,
     each launch counted on its route; the forward's saved statistics equal
     to the twin's (mean within 1e-5, variance within 1e-5 relative)."""
@@ -287,8 +295,7 @@ def test_instance_norm_grad_kernel_matches_twin(cuda, hwc, act, dtype, route):
     mean, var = norm.instance_moments_ref(x)
     torch.testing.assert_close(saved[0], mean, atol=1e-5, rtol=0)
     torch.testing.assert_close(saved[1], var, atol=0, rtol=1e-5)
-    plan = (norm.plan_instance_norm_grad(2, H, W, C, x.dtype, narrow=True)
-            if route == "onepass" else norm.INPlan("twopass"))
+    plan = _grad_plan(route, 2, H, W, C, x.dtype)
     assert plan.route == route
     n = norm.instance_norm_act_grad.launches_by_route.get(route, 0)
     got = norm.instance_norm_act_grad(x, dy, saved, act, plan=plan)
@@ -311,8 +318,7 @@ def test_instance_norm_grad_reads_crop_and_padded_dy(cuda, dtype, route):
     full = _in_input(cuda, (2, 48, 65, 33), dtype).requires_grad_(True)
     x = full[..., :64, :32]
     dy = _in_input(cuda, (2, 48, 66, 34), dtype, seed=9)[..., 1:65, :32]
-    plan = (norm.plan_instance_norm_grad(2, 64, 32, 48, x.dtype, narrow=True)
-            if route == "onepass" else norm.INPlan("twopass"))
+    plan = _grad_plan(route, 2, 64, 32, 48, x.dtype)
     grad = norm.instance_norm_act_grad
     copies, n = grad.dy_copies, grad.launches
 
@@ -332,22 +338,69 @@ def test_instance_norm_grad_reads_crop_and_padded_dy(cuda, dtype, route):
         assert not full.grad[..., 64:, :].any() and not full.grad[..., 32:].any()
 
 
-def test_instance_norm_grad_copies_an_nchw_dy_and_counts_it(cuda):
-    """A dy that is no channels_last tensor (NCHW-contiguous, an expanded
-    one) is copied by the wrapper, counted in dy_copies by shape, and gives
-    the dx of its channels_last copy."""
+@pytest.mark.parametrize("route", ["onepass", "twopass"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hwc", [(16, 8, 96), (129, 33, 128)])
+def test_instance_norm_grad_reads_an_nchw_dy_in_place(cuda, hwc, dtype, route):
+    """An NCHW-contiguous dy, as the reflect pad's backward and the
+    feature-matching L1 hand it, is read in place on every route (no copy):
+    a plane of 16 x 8 (16-byte aligned channel planes) and a discriminator
+    plane of 129 x 33 (8514 bytes in bf16: 2-byte aligned), at a start one
+    element past the storage's too; dx equals that of its channels_last
+    copy bit for bit. A dy of another dtype, and an expanded one, are still
+    copied and counted by shape."""
     from pix2pixhdaudiosr_torch.ops import norm
     grad = norm.instance_norm_act_grad
-    x = _in_input(cuda, (2, 96, 16, 8), "bfloat16")
-    y, saved = norm.instance_norm_act(x, "none", with_stats=True)
-    for dy in (_in_input(cuda, (2, 96, 16, 8), "bfloat16", seed=9).contiguous(),
-               torch.ones(1, 1, 1, 1, device=cuda,
-                          dtype=torch.bfloat16).expand(2, 96, 16, 8)):
-        copies = grad.dy_copies_by_shape.get((16, 8, 96), 0)
-        got = grad(x, dy, saved, "none")
-        assert grad.dy_copies_by_shape[(16, 8, 96)] == copies + 1
-        assert torch.equal(got, grad(
-            x, dy.contiguous(memory_format=torch.channels_last), saved, "none"))
+    H, W, C = hwc
+    x = _in_input(cuda, (2, C, H, W), dtype)
+    y, saved = norm.instance_norm_act(x, "leaky", with_stats=True)
+    plan = _grad_plan(route, 2, H, W, C, x.dtype)
+    dy = _in_input(cuda, (2, C, H, W), dtype, seed=9)
+    want = grad(x, dy, saved, "leaky", plan=plan)
+    shifted = torch.empty(dy.numel() + 1, dtype=dy.dtype, device=cuda)
+    shifted[1:] = dy.contiguous().flatten()
+    for nchw in (dy.contiguous(), shifted[1:].view(dy.shape)):
+        assert not nchw.is_contiguous(memory_format=torch.channels_last)
+        copies, n = grad.dy_copies, grad.launches_by_route.get(route, 0)
+        got = grad(x, nchw, saved, "leaky", plan=plan)
+        assert grad.dy_copies == copies
+        assert grad.launches_by_route[route] == n + 1
+        assert torch.equal(got, want)
+    other = torch.float32 if dtype == "bfloat16" else torch.bfloat16
+    for dy_c in (dy.to(other), torch.ones(1, 1, 1, 1, device=cuda,
+                                          dtype=x.dtype).expand(x.shape)):
+        copies = grad.dy_copies_by_shape.get((H, W, C), 0)
+        got = grad(x, dy_c, saved, "leaky", plan=plan)
+        assert grad.dy_copies_by_shape[(H, W, C)] == copies + 1
+        assert torch.equal(got, grad(x, dy_c.to(x.dtype).contiguous(
+            memory_format=torch.channels_last), saved, "leaky", plan=plan))
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+def test_instance_norm_grad_at_512x128x48_reads_dy_in_place(cuda, layout):
+    """The flagship's largest plane, 512 x 128 x 48 bf16 at batch 4, on the
+    planner's route there (two-pass, which an H100 measured faster than the
+    one-pass plan at a 16-byte tile and than three 3-plane designs): dy
+    channels_last or NCHW, as the reflect pad's backward hands it, read in
+    place (no copy); dx within one bf16 ulp + 1e-4 max|dx| of the twin and
+    bit-identical over two runs."""
+    from pix2pixhdaudiosr_torch.ops import norm
+    grad = norm.instance_norm_act_grad
+    shape = (4, 48, 512, 128)
+    x = _in_input(cuda, shape, "bfloat16")
+    dy = _in_input(cuda, shape, "bfloat16", seed=9)
+    if layout == "nchw":
+        dy = dy.contiguous()
+    y, saved = norm.instance_norm_act(x, "relu", with_stats=True)
+    route = norm.plan_instance_norm_grad(4, 512, 128, 48, x.dtype).route
+    assert route == "twopass"
+    copies, n = grad.dy_copies, grad.launches_by_route.get(route, 0)
+    got = grad(x, dy, saved, "relu")
+    assert grad.dy_copies == copies
+    assert grad.launches_by_route[route] == n + 1
+    _assert_grad_close(got, norm.instance_norm_act_grad_ref(x, dy, saved,
+                                                            "relu"))
+    assert torch.equal(grad(x, dy, saved, "relu"), got)
 
 
 def test_instance_norm_grad_constant_plane_drops_the_variance_term(cuda):
@@ -640,18 +693,27 @@ def test_fused_section_launches_and_refusals(cuda):
                                                                     device=cuda))
 
 
+@pytest.mark.parametrize("route", ["strip", "threepass"])
 @pytest.mark.parametrize("shape", [(13824, 1536), (1000, 136), (7, 3),
                                    (5, 1)])
-def test_stochastic_quantize_kernel_matches_twin(cuda, shape):
-    """q and scale bit-identical to the twin on the card; the dequantized
-    values within one step of x. (7, 3) and (5, 1) take the scalar quantize
-    path (M * N not a multiple of 4)."""
+def test_stochastic_quantize_kernel_matches_twin(cuda, shape, route):
+    """q and scale bit-identical to the twin on the card, on both routes;
+    the dequantized values within one step of x. The strip route is the
+    planner's at (13824, 1536) and (1000, 136) (one launch); (7, 3) and
+    (5, 1) have no strip (rows of no 16-byte multiple), so there the
+    planner's three-launch route runs, on its scalar quantize path (M * N
+    not a multiple of 4)."""
     from pix2pixhdaudiosr_torch.ops import quant
     gen = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn(shape, generator=gen, device=cuda) * 0.02
-    n = quant.stochastic_quantize_2d.launches
-    q, s = quant.stochastic_quantize_2d(x, 1234)
-    assert quant.stochastic_quantize_2d.launches == n + 1
+    plan = (quant.plan_quantize(*shape) if route == "strip"
+            else quant.QuantPlan("threepass"))
+    assert plan.route == route or shape[1] % 4
+    fn = quant.stochastic_quantize_2d
+    n, n_route = fn.launches, fn.launches_by_route.get(plan.route, 0)
+    q, s = fn(x, 1234, plan)
+    assert fn.launches == n + 1
+    assert fn.launches_by_route[plan.route] == n_route + 1
     q_ref, s_ref = quant.stochastic_quantize_2d_ref(x, 1234)
     torch.cuda.synchronize()
     assert q.dtype == torch.int8 and s.shape == (1, shape[1])

@@ -28,6 +28,13 @@ G_SHAPES = [(512, 128, 48), (256, 64, 96), (128, 32, 192), (64, 16, 384),
             (32, 8, 768), (16, 4, 1536)]
 D_SHAPES = [(129, 33, 128), (65, 17, 256), (66, 18, 512), (65, 17, 128),
             (33, 9, 256), (34, 10, 512)]
+# the time-domain discriminator's (--use_time_D), on [B, 2, 128, 512]
+TIME_D_SHAPES = [(w, h, c) for h, w, c in D_SHAPES]
+# Family A's netE (nef 16) and GlobalGenerator (ngf 64), at batch 10
+FAMILY_A_SHAPES = [(512, 128, 16), (256, 64, 32), (128, 32, 64),
+                   (64, 16, 128), (32, 8, 256), (512, 128, 64),
+                   (256, 64, 128), (128, 32, 256), (64, 16, 512),
+                   (32, 8, 1024)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -154,15 +161,29 @@ def test_saved_statistics_equal_the_forwards(rng_np, dtype):
     assert torch.equal(y, norm.instance_norm_act(xt, "relu"))
 
 
+def _assert_onepass_plan(plan, H, W, C, dtype):
+    """A one-pass plan keeps x and dy of its plane in one cluster (K <= 16
+    blocks, every position owned, a tile of at least a 32-byte sector)
+    within SMEM_LIMIT."""
+    elem = dtype.itemsize
+    assert plan.route == "onepass" and 1 <= plan.cluster <= norm.MAX_CLUSTER
+    assert plan.tile * elem >= 32 and C % plan.tile == 0
+    assert plan.cluster * plan.positions >= H * W
+    assert (plan.cluster - 1) * plan.positions < H * W
+    assert plan.smem_bytes == norm.grad_onepass_smem(plan.positions,
+                                                     plan.tile, elem)
+    assert plan.smem_bytes <= norm.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hwc", G_SHAPES + D_SHAPES)
 def test_grad_plan_takes_every_training_shape(hwc, dtype):
-    """At batch 64 every training shape gets a route; a one-pass plan keeps
-    x and dy of its plane in one cluster (K <= 16 blocks, every position
-    owned, a tile of at least a 32-byte sector) within SMEM_LIMIT. Only
-    512 x 128 x 48 takes the two-pass route: there only a 16-byte tile
-    fits a cluster, and that measured slower than the two-pass kernels on
-    an H100 (tools/in_grad_ablation.py, PERF.md)."""
+    """At batch 64 every training shape gets a route: the one-pass cluster
+    route wherever a tile of a 32-byte sector or more fits a cluster; at
+    512 x 128 x 48, where only a 16-byte tile does, the two-pass route,
+    which an H100 measured faster there than that narrow one-pass plan and
+    than three 3-plane designs tried for it (tools/in_grad_ablation.py,
+    PERF.md)."""
     H, W, C = hwc
     plan = norm.plan_instance_norm_grad(64, H, W, C, DTYPES[dtype])
     if hwc == (512, 128, 48):
@@ -172,14 +193,82 @@ def test_grad_plan_takes_every_training_shape(hwc, dtype):
         assert narrow.route == "onepass"
         assert narrow.tile * DTYPES[dtype].itemsize == 16
         return
-    elem = DTYPES[dtype].itemsize
-    assert plan.route == "onepass" and 1 <= plan.cluster <= norm.MAX_CLUSTER
-    assert plan.tile * elem >= 32 and C % plan.tile == 0
-    assert plan.cluster * plan.positions >= H * W
-    assert (plan.cluster - 1) * plan.positions < H * W
-    assert plan.smem_bytes == norm.grad_onepass_smem(plan.positions,
-                                                     plan.tile, elem)
-    assert plan.smem_bytes <= norm.SMEM_LIMIT
+    _assert_onepass_plan(plan, H, W, C, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("batch,hwc", [(64, s) for s in TIME_D_SHAPES]
+                         + [(10, s) for s in FAMILY_A_SHAPES])
+def test_grad_plan_routes_time_d_and_family_a_shapes(batch, hwc):
+    """The time-domain D's 6 shapes (batch 64) take the one-pass route as
+    D's; Family A's 10 (batch 10, bf16) too, the 512 x 128 x 16 plane at a
+    16-byte tile (a position's 32 bytes are one sector, which its two tiles
+    split: 0.061 ms against the two-pass route's 0.078 on an H100), but
+    for 512 x 128 x 64, where the
+    two-pass route measured fastest."""
+    H, W, C = hwc
+    plan = norm.plan_instance_norm_grad(batch, H, W, C, torch.bfloat16)
+    if hwc == (512, 128, 64):
+        assert plan == norm.INPlan("twopass")
+    elif hwc == (512, 128, 16):
+        assert plan.route == "onepass" and plan.tile * 2 == 16
+        assert plan.cluster * plan.positions >= H * W
+        assert plan.smem_bytes <= norm.SMEM_LIMIT
+    else:
+        _assert_onepass_plan(plan, H, W, C, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [
+    # (x dtype, dy dtype, shape, strides, misalign, vectors) -> decision
+    ("aligned nchw", torch.bfloat16, (64, 48, 512, 128), None, 0, True,
+     ("planar", 48 * 65536, 65536)),
+    ("odd-plane nchw", torch.bfloat16, (64, 128, 129, 33), None, 0, True,
+     ("planar", 128 * 4257, 4257)),
+    ("odd-plane nchw, 2-byte start", torch.bfloat16, (64, 128, 129, 33),
+     None, 2, True, ("planar", 128 * 4257, 4257)),
+    ("channels_last", torch.bfloat16, (64, 48, 512, 128), "cl", 0, True,
+     ("nhwc", 512 * 128 * 48, 128 * 48)),
+    ("padded-row crop", torch.bfloat16, (2, 48, 64, 32), (66 * 34 * 48, 1,
+                                                          34 * 48, 48),
+     0, True, ("nhwc", 66 * 34 * 48, 34 * 48)),
+    ("channels_last, 2-byte start", torch.bfloat16, (2, 96, 16, 8), "cl",
+     2, True, None),
+    ("channels_last, 2-byte start, two-pass", torch.bfloat16, (2, 96, 16, 8),
+     "cl", 2, False, ("nhwc", 16 * 8 * 96, 8 * 96)),
+    ("another dtype", torch.float32, (2, 96, 16, 8), None, 0, True, None),
+    ("expanded", torch.bfloat16, (2, 96, 16, 8), (0, 0, 0, 0), 0, True,
+     None),
+], ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_dy_layout_decides_by_dtype_and_strides(case):
+    """The backward reads an NCHW bf16 dy in place, its channel planes
+    16-byte aligned (G: 512 x 128) or not (D: 129 x 33, at any start), and
+    a channels_last one or a crop of one with padded rows; it copies a dy
+    of another dtype than x's, an expanded one, and a channels_last one
+    whose start the 16-byte vector loads cannot take."""
+    _, dy_dtype, shape, strides, misalign, vectors, want = case
+    B, C, H, W = shape
+    if strides is None:
+        strides = (C * H * W, H * W, W, 1)
+    elif strides == "cl":
+        strides = (H * W * C, 1, W * C, C)
+    assert norm.dy_layout(torch.bfloat16, dy_dtype, shape, strides, misalign,
+                          vectors) == want
+
+
+def test_readable_dy_copies_only_what_it_cannot_read():
+    """_readable_dy hands an NCHW dy of x's dtype back uncopied and counts
+    a copy of a dy of another dtype, channels_last in x's dtype."""
+    x = torch.zeros(2, 8, 6, 5, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.randn(2, 8, 6, 5).to(torch.bfloat16)
+    got, layout, sample, pitch = norm._readable_dy(x, dy, True)
+    assert got is dy and (layout, sample, pitch) == ("planar", 240, 30)
+    fn = norm.instance_norm_act_grad
+    n = fn.dy_copies_by_shape.get((6, 5, 8), 0)
+    got, layout, _, _ = norm._readable_dy(x, dy.float(), True)
+    assert fn.dy_copies_by_shape[(6, 5, 8)] == n + 1
+    assert layout == "nhwc" and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, dy)
 
 
 def test_grad_plan_routes_ragged_rows_two_pass_and_keeps_the_forwards():

@@ -372,3 +372,30 @@ def test_random_bits_hash_reference_values():
     got = T.random_bits(seed, torch.tensor(index, dtype=torch.int64))
     assert got.tolist() == [h(h((i & 0xFFFFFFFF) ^ k) ^ (i >> 32) ^ k)
                             for i in index]
+
+
+@pytest.mark.parametrize("M,N", [(13824, 1536), (1000, 136)])
+def test_quantize_plan_takes_the_strip_route(M, N):
+    """B6 at a flagship trunk conv weight's 2-D shape and a ragged one: one
+    launch, a cluster of at most 16 blocks owning the widest strip of at
+    most STRIP_COLS columns that divides N (32 columns, 128 bytes a row, at
+    1536; 8 at 136), every row owned by one block, its rows within the
+    block's shared memory."""
+    plan = T.plan_quantize(M, N)
+    assert plan.route == "strip"
+    assert plan.cols == max(w for w in (4, 8, 16, 32)
+                            if w <= T.STRIP_COLS and N % w == 0)
+    assert N % plan.cols == 0 and 1 <= plan.cluster <= T.STRIP_MAX_CLUSTER
+    assert plan.cluster * plan.rows >= M > (plan.cluster - 1) * plan.rows
+    assert plan.rows * plan.cols * 4 <= T._STRIP_SMEM
+
+
+@pytest.mark.parametrize("M,N,aligned", [(1_000_000, 8, True),
+                                         (250_000, 4, True), (7, 3, True),
+                                         (5, 1, True), (13824, 1536, False)])
+def test_quantize_plan_takes_three_launches_where_no_cluster_holds_a_strip(
+        M, N, aligned):
+    """The three-launch route where a strip of even 4 columns is more than
+    16 blocks' shared memory, where a row is no multiple of 16 bytes, and
+    for an x whose start is not on 16 bytes."""
+    assert T.plan_quantize(M, N, aligned) == T.QuantPlan("threepass")
