@@ -37,7 +37,16 @@ Phases, each fatal on failure (exit code 1):
      [32, 128, 512] f32 against autograd through imdct2's twin (atol 1e-5
      max|dspec|, on the tensor-core route, and through ops/mdct.IMDCT2Fn
      with the codec's crop), timed beside its twin and autograd through
-     the twin;
+     the twin; B3's cross-shard entries (instance_moments,
+     instance_apply: the context-parallel InstanceNorm's local moments and
+     its normalize from all-reduced ones) at two flagship CP blocks
+     ([1, 48, 512, 256], [1, 96, 256, 128]) and a TP shape ([16, 768, 16,
+     4]) in f32 and bf16: the moments within 1e-6 of float64 moments
+     relative to each plane's scale (or no farther than the twin's f32
+     reduction), the apply
+     within 1e-5 (f32) and one bf16 ulp (bf16) of its twin, both composed
+     as close to the one-launch norm's twin, each timed beside its twin,
+     its bound and (the moments) torch.var_mean;
   4. write a 5 s synthetic 48 kHz wav;
   5. build the flagship generator (LocalEnhancer G3L2, ngf 48, 156,050,690
      parameters) with seeded N(0, 0.02) weights, saved and loaded as .pth;
@@ -178,6 +187,23 @@ Phases, each fatal on failure (exit code 1):
      size and at 1) and on the Python route (data/flac.py's decoder, numpy
      resample_np); every FLAC decode of the run before it on the native
      route, and one item of each route equal within 1e-5.
+ 15. (run after phase 8) the serving parallel modes: generate --cp_shards
+     4 in this process (one rank, one shard: the seamless full-length
+     forward; B1, B2 and B3's cross-shard entries launched, no one- or
+     two-pass B3); CP at 4 ranks and TP at 2 ranks, each a process of this
+     script (`--rank-worker cp|tp`) joined over gloo on cuda:0 (ranks
+     sharing a card cannot use NCCL) with a wall limit of its own, a rank
+     that fails or hangs failing the phase: every layer kind at flagship
+     width split over the ranks against its unsharded output in f32 within
+     1e-5 max|y| (CP: the enhancer's and the trunk's layers and the pool;
+     TP: a trunk and an enhancer resblock), the flagship G in f32 and bf16
+     against the plain G in one process within 2x its rounding floor (how
+     far the plain G's own output moves for a one-ulp change of its input
+     or its InstanceNorms on the two-pass route; 1e-5 max|y| is read
+     beside it), the cross-shard entries launched on every CP rank and
+     none of the one-launch norm, B3 at C/N channels on the TP ranks, the
+     gloo transport's bytes and each rank's wall time, and the generate
+     CLI at those ranks (rank 0 writes the file).
 Each phase prints its seconds ([phase] lines).
 The line before the last is {"kernels": [...]} (`launches` from one
 serve forward, for the InstanceNorm backward, which serving never
@@ -186,7 +212,8 @@ HiFi-GAN recipe step; `serve_launches` from one plain serve forward,
 `train_launches_per_step` from one flagship train step,
 `recipe_launches_per_step` from one step of each recipe,
 `knob_launches_per_step` from one step of each memory knob and
-`family_a_launches_per_step` from one step of Family A's CLI run);
+`family_a_launches_per_step` from one step of Family A's CLI run; for
+B3's cross-shard entries, from the one-rank generate --cp_shards 4 run);
 the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
 with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
@@ -196,6 +223,7 @@ torch.backends.cudnn.allow_tf32 both False).
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -239,6 +267,12 @@ KERNELS = {
                       "pix2pixhdaudiosr_tpu/ops/conv_pallas.py:78"),
     "stochastic_quantize_2d": ("pix2pixhdaudiosr_torch/csrc/quant.cu",
                                "pix2pixhdaudiosr_tpu/ops/quant.py:152"),
+    # B3's cross-shard entries: the moments pmean'd under CP
+    # (pix2pixhdaudiosr_tpu/models/layers.py:189-208), then the normalize
+    "instance_moments": ("pix2pixhdaudiosr_torch/csrc/instance_norm.cu",
+                         "pix2pixhdaudiosr_tpu/ops/norm_pallas.py:49"),
+    "instance_apply": ("pix2pixhdaudiosr_torch/csrc/instance_norm.cu",
+                       "pix2pixhdaudiosr_tpu/ops/norm_pallas.py:49"),
 }
 # the flagship enhancer resblock activation [B, C, H, W]
 ENH_SHAPE = (128, 96, 256, 64)
@@ -1305,7 +1339,7 @@ def in_grad_check(x, act: str, dy) -> dict:
     (want_ad,) = torch.autograd.grad(norm.instance_norm_act_ref(xr, "none"),
                                      xr, g)
     y_twin = norm.instance_norm_act_ref(x, act)
-    mean, var = norm.instance_moments_ref(x)
+    mean, var = norm.instance_mean_var_ref(x)
     # x^ = (x - mean) rstd with rstd > 0: its sign is that of x - mean
     centred = x.float() - saved[0][:, :, None, None]
     if act == "relu":
@@ -2969,6 +3003,578 @@ def phase_flac() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The serving parallel modes (parallel/): B3's cross-shard entries, CP in one
+# process, CP at 4 ranks and TP at 2 ranks sharing cuda:0 over gloo.
+# the cross-shard InstanceNorm entries' shapes: two flagship CP blocks (the
+# enhancer's and the trunk head's at 256 and 128 frames) and the trunk
+# resblocks' 1536 channels over 2 TP ranks at batch 16
+CP_IN_SHAPES = [(1, 48, 512, 256), (1, 96, 256, 128), (16, 768, 16, 4)]
+CP_SHARDS, TP_SHARDS = 4, 2
+# the flagship G's total stride (2^4 downsamples x 2^1 enhancer)
+G_STRIDE = 32
+# a rank of the multi-rank phases: its own wall limit, seconds
+RANK_LIMIT = 420
+
+
+def one_rank_group(dev):
+    """The group of a world of this process alone (CP with one shard)."""
+    import torch
+    from pix2pixhdaudiosr_torch.parallel import mesh
+    return mesh.make_group(mesh.World(0, 1, None, torch.device(dev)), 1)
+
+
+def moments_f64(x):
+    """The mean and E[x^2] of each plane of x [B, C, H, W] in float64."""
+    import torch
+    xd = x.double()
+    return torch.stack((xd.mean(dim=(2, 3)), (xd * xd).mean(dim=(2, 3))))
+
+
+def moments_err(got, exact) -> float:
+    """The moments' error relative to each plane's scale: |mean - mean64|
+    over the plane's RMS, sqrt(E[x^2]), and |E[x^2] - E64[x^2]| over
+    E64[x^2] (a mean near 0 is rounded at the scale of the values summed,
+    not at its own); the largest over every plane."""
+    import torch
+    scale = torch.stack((exact[1].sqrt(), exact[1]))
+    return ((got.double() - exact).abs() / scale).max().item()
+
+
+def phase_cp_kernels(dev):
+    """B3's cross-shard entries (instance_moments, instance_apply) against
+    their twins at CP_IN_SHAPES, bf16 and f32: the moments within 1e-6 of
+    float64 moments relative to each plane's scale (`moments_err`; or no
+    farther than the twin's f32 reduction, where that is farther), the
+    apply (from the twin's moments,
+    ReLU and none) within one bf16 ulp in bf16 and 1e-5 in f32, and the two
+    composed (one shard) as close to the one-launch norm's twin; each timed with CUDA events beside its twin and
+    its bound (bytes at 3.35 TB/s), the moments also beside torch.var_mean
+    (the library yardstick: the same two moments of each plane). Returns
+    {name: record of the largest shape} and one row a shape."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import norm
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rec, detail = {}, {}
+    for shape in CP_IN_SHAPES:
+        B, C, H, W = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(
+                dtype).contiguous(memory_format=torch.channels_last)
+            n = norm.instance_moments.launches, norm.instance_apply.launches
+            got = norm.instance_moments(x)
+            want = norm.instance_moments_ref(x)
+            exact = moments_f64(x)
+            m_err = moments_err(got, exact)
+            twin_err = moments_err(want, exact)
+            check(m_err <= max(1e-6, twin_err), f"instance_moments {shape} "
+                  f"{dtype}: relative error {m_err} against float64 (the "
+                  f"twin's {twin_err})")
+            a_err = 0.0
+            for act in ("relu", "none"):
+                y = norm.instance_apply(x, want, act)
+                ref = norm.instance_apply_ref(x, want, act)
+                if dtype == torch.float32:
+                    a_err = max(a_err, (y - ref).abs().max().item())
+                    check(a_err <= 1e-5, f"instance_apply {shape} f32 {act}: "
+                          f"{a_err}")
+                else:
+                    over = ulp_excess(y, ref)
+                    a_err = max(a_err, (y.float() - ref.float()).abs().max().item())
+                    check(over <= 0, f"instance_apply {shape} bf16 {act}: "
+                          f"beyond 1 ulp by {over}")
+            # one shard: the kernels' own moments, then the apply, against
+            # the one-launch norm's twin
+            y = norm.instance_apply(x, got, "relu")
+            ref = norm.instance_norm_act_ref(x, "relu")
+            check((y - ref).abs().max().item() <= 1e-5
+                  if dtype == torch.float32 else ulp_excess(y, ref) <= 0,
+                  f"one-shard moments + apply at {shape} {dtype} disagree "
+                  f"with instance_norm_act's twin")
+            launched = (norm.instance_moments.launches - n[0],
+                        norm.instance_apply.launches - n[1])
+            check(launched == (1, 3), f"cross-shard entries launched "
+                  f"{launched}, expected (1, 3)")
+            nb = x.numel() * x.element_size()
+            key = f"{B}x{C}x{H}x{W} {str(dtype)[6:]}"
+            rows = {
+                "instance_moments": dict(
+                    max_abs_err=(got - want).abs().max().item(),
+                    max_rel_err_f64=m_err, twin_max_rel_err_f64=twin_err,
+                    ms=cuda_ms(lambda: norm.instance_moments(x)),
+                    device_ms=device_ms(lambda: norm.instance_moments(x)),
+                    plain_ms=cuda_ms(lambda: norm.instance_moments_ref(x),
+                                     iters=5),
+                    library_ms=cuda_ms(lambda: torch.var_mean(
+                        x, dim=(2, 3))),
+                    **bound(nb + 4 * got.numel(), 3 * x.numel(), F32_FLOPS)),
+                "instance_apply": dict(
+                    max_abs_err=a_err,
+                    ms=cuda_ms(lambda: norm.instance_apply(x, want, "relu")),
+                    device_ms=device_ms(
+                        lambda: norm.instance_apply(x, want, "relu")),
+                    plain_ms=cuda_ms(lambda: norm.instance_apply_ref(
+                        x, want, "relu"), iters=5),
+                    library_ms=None,
+                    **bound(2 * nb + 4 * got.numel(), 8 * x.numel(),
+                            F32_FLOPS)),
+            }
+            for name, r in rows.items():
+                r.update(shape=key, share_of_bound=r["bound_ms"] / r["ms"])
+                detail[f"{name} {key}"] = r
+                print(f"[kernels] {name} {key}: " + json.dumps(r))
+                if shape == CP_IN_SHAPES[0] and dtype == torch.bfloat16:
+                    rec[name] = r
+            del x, got, want
+    return rec, detail
+
+
+def full_length_spec(system, wav: str, shards: int):
+    """The whole file's lr spectrogram as cp_generate encodes it for
+    `shards` ranks (f32 [1, 512, T, 2], T a multiple of shards x 32), and
+    the full-length system it was encoded with."""
+    import torch
+    from pix2pixhdaudiosr_torch import generate
+    from pix2pixhdaudiosr_torch.data.dataset import AudioTestDataset
+    cfg = system.cfg
+    lr = AudioTestDataset(wav, cfg.lr_sampling_rate, cfg.hr_sampling_rate,
+                          cfg.segment_length).lr_audio
+    need, t = generate.plan_cp_padding(lr.size, cfg.hop_length,
+                                       cfg.win_length, cfg.center, shards,
+                                       G_STRIDE)
+    full = generate.full_length_system(system, need)
+    lr_full = torch.zeros(1, need, device=system.device)
+    lr_full[0, :lr.size] = torch.from_numpy(lr)
+    shape = (1, full.codec.mask_size(cfg.n_fft), t, 2)
+    with torch.no_grad():
+        spec = full.encode_input(lr_full, noise=generate.seeded_noise(
+            full, cfg.seed)(0, shape))[0]
+    return full, spec.contiguous()
+
+
+def unsharded_forward(system, spec):
+    """The plain generator (no cp, no tp) on spec NHWC: f32 NHWC."""
+    import torch
+    with torch.no_grad():
+        return system.netG(spec.to(system.dtype).permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1).float()
+
+
+def ulp_reading(got, want) -> dict:
+    """How far a forward's output is from the reference's: max|err|,
+    its share of max|want|, the largest error in ulps of the larger value,
+    and the share of elements beyond one ulp."""
+    err = (got - want).abs()
+    ulp = __import__("torch").maximum(bf16_ulp(got), bf16_ulp(want))
+    return dict(max_abs_err=err.max().item(),
+                rel_to_max=err.max().item() / want.abs().max().item(),
+                max_ulps=(err / ulp).max().item(),
+                share_beyond_1_ulp=(err > ulp).float().mean().item())
+
+
+def rounding_floor(system, spec, want) -> dict:
+    """How far the plain generator's output (`want`, on spec) moves under
+    changes of rounding alone, which is what splitting it over ranks
+    makes: the input scaled by 1 + 2^-23 (one f32 ulp) and every
+    InstanceNorm on the two-pass route (the same statistics summed in
+    another order); `floor` is the larger. At flagship width with seeded
+    weights the generator amplifies a one-ulp change of its input to
+    ~6e-5 of max|y| in f32 and ~0.08 in bf16 (an H100, this script)."""
+    from pix2pixhdaudiosr_torch.ops import norm
+    moved = unsharded_forward(system, spec * (1 + 2 ** -23))
+    plan = norm.plan_instance_norm
+    norm.plan_instance_norm = lambda *a, **k: norm.INPlan("twopass")
+    try:
+        two = unsharded_forward(system, spec)
+    finally:
+        norm.plan_instance_norm = plan
+    r = dict(input_ulp=(moved - want).abs().max().item(),
+             two_pass_in=(two - want).abs().max().item())
+    r["floor"] = max(r.values())
+    return r
+
+
+def check_against_floor(what: str, reading: dict, floor: dict,
+                        scale: float) -> None:
+    """A split forward's output within 2x the rounding floor of the plain
+    one (it changes the rounding in more places than either change of the
+    floor alone: every layer's conv shapes, every InstanceNorm's sums, the
+    all-reduce's order); 1e-5 max|y| is read beside it."""
+    reading["floor"] = floor
+    reading["within_2x_floor"] = reading["max_abs_err"] <= 2 * floor["floor"]
+    reading["within_1e-5_of_max"] = reading["max_abs_err"] <= 1e-5 * scale
+    check(reading["within_2x_floor"], f"{what}: max|err| "
+          f"{reading['max_abs_err']} beyond 2x the rounding floor {floor}")
+
+
+def phase_cp_one_rank(dev, wav: str, n_in: int) -> dict:
+    """generate --cp_shards 4 in this process (one rank, so one shard: the
+    seamless full-length forward), every count set to 0 just before it: B1,
+    B2 and B3's cross-shard entries launched, no one-pass B3 (the CP path
+    never reaches it); then the CP generator against the plain generator on
+    the same whole-file spectrogram, f32 and bf16, read in ulps, each within 2x the rounding floor (check_against_floor)."""
+    import torch
+    from pix2pixhdaudiosr_torch.generate import cp_forward
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_apply,
+                                                 instance_moments,
+                                                 instance_norm_act)
+    from pix2pixhdaudiosr_torch.parallel.halo import make_cp_generator
+    reset_counts(instance_norm_act)
+    counters = {"mdct2": mdct2, "imdct2": imdct2,
+                "instance_moments": instance_moments,
+                "instance_apply": instance_apply}
+    res = phase_generate(dev, counters, wav, n_in,
+                         ["--cp_shards", str(CP_SHARDS)],
+                         [f"context-parallel inference: 960 frames over 1 "
+                          f"shards"])
+    res["instance_norm_act_launches"] = instance_norm_act.launches
+    res["in_launches_by_shape"] = {
+        k: {str(s): n for s, n in counters[k].launches_by_shape.items()}
+        for k in ("instance_moments", "instance_apply")}
+    check(instance_norm_act.launches == 0, f"the CP run launched "
+          f"{instance_norm_act.launches} one-/two-pass InstanceNorms")
+    group = one_rank_group(dev)
+    for dtype in ("float32", "bfloat16"):
+        full, spec = full_length_spec(flagship_system(
+            dev, ["--compute_dtype", dtype]), wav, 1)
+        got = cp_forward(make_cp_generator(full, group), spec, group)
+        want = unsharded_forward(full, spec)
+        r = ulp_reading(got, want)
+        r["bit_identical"] = bool(torch.equal(got, want))
+        check_against_floor(f"one-rank CP G {dtype}", r,
+                            rounding_floor(full, spec, want),
+                            want.abs().max().item())
+        res[dtype] = r
+        print(f"[cp 1 rank] {dtype} T={spec.shape[2]}: " + json.dumps(r))
+        del full, spec, got, want
+    torch.cuda.empty_cache()
+    print("[cp 1 rank] " + json.dumps({k: v for k, v in res.items()
+                                       if k != "metric"}))
+    return res
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(mode: str, n: int) -> list:
+    """n processes of this script (`--rank-worker mode`), ranks of one
+    gloo group on cuda:0 (the launcher's variables set as torchrun sets
+    them), under a wall limit of their own: a rank that fails, hangs or
+    exits non-zero fails the phase, and every rank is stopped. Returns
+    each rank's record."""
+    port, procs = free_port(), []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   OMP_NUM_THREADS="2")
+        log = open(os.path.join(WORK, f"{mode}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker", mode],
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log))
+    deadline, failed = time.monotonic() + RANK_LIMIT, None
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            bad = [r for r, (p, _) in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited with {procs[bad[0]][0].poll()}"
+                break
+            if time.monotonic() > deadline:
+                failed = f"ranks ran past {RANK_LIMIT} s"
+                break
+            time.sleep(0.5)
+        else:
+            bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+            if bad:
+                failed = f"rank {bad[0]} exited with {procs[bad[0]][0].returncode}"
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for r in range(n):
+        with open(os.path.join(WORK, f"{mode}_rank{r}.log")) as f:
+            text = f.read()
+        lines = [ln for ln in text.splitlines() if ln.startswith(
+            ("distributed:", "[rank", "context-parallel", "tensor-parallel"))]
+        print(f"[{mode} rank {r}] " + " | ".join(lines[-8:]))
+        if failed:
+            print(f"[{mode} rank {r}] log tail:\n{text[-3000:]}")
+    check(failed is None, f"{mode} at {n} ranks: {failed}")
+    recs = []
+    for r in range(n):
+        with open(os.path.join(WORK, f"{mode}_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def flagship_layers():
+    """(name, module, input shape [B, C, H, W]) of each layer kind with a
+    CP path at flagship width on a 1024-frame file: the enhancer's head,
+    down, resblock, deconv and final conv, its input's pool, and the
+    trunk's resblock and first deconv; N(0, 0.02) weights, N(0, 0.1)
+    biases."""
+    import torch
+    from pix2pixhdaudiosr_torch.models import layers as L
+    torch.manual_seed(21)
+    out = [
+        ("enh1_down0", L.ConvIN(2, 48, 7, reflect=3), (1, 2, 512, 1024)),
+        ("enh1_down1", L.ConvIN(48, 96, 3, stride=2, pad=1),
+         (1, 48, 512, 1024)),
+        ("enh1_block", L.ResnetBlock(96), (1, 96, 256, 512)),
+        ("enh1_up", L.ConvTransposeIN(96, 48), (1, 96, 256, 512)),
+        ("enh1_final", L.ConvIN(48, 2, 7, reflect=3, norm=False, act="tanh"),
+         (1, 48, 512, 1024)),
+        ("pool", None, (1, 2, 512, 1024)),
+        ("trunk_block", L.ResnetBlock(1536), (1, 1536, 16, 32)),
+        ("trunk_up", L.ConvTransposeIN(1536, 768), (1, 1536, 16, 32)),
+    ]
+    with torch.no_grad():
+        for _, m, _ in out:
+            for name, p in (m.named_parameters() if m else ()):
+                p.normal_(0.0, 0.02 if name.endswith("weight") else 0.1)
+    return out
+
+
+def cp_layer_checks(group, dev) -> dict:
+    """Each flagship_layers layer, f32, on this rank's block of its input
+    (the frames split over the group) against its unsharded output on rank
+    0: {name: (max|err|, max|y|)} on rank 0, {} elsewhere."""
+    import torch
+    from pix2pixhdaudiosr_torch.models.layers import avg_pool_3s2
+    from pix2pixhdaudiosr_torch.parallel.halo import set_cp
+    res = {}
+    gen = torch.Generator().manual_seed(22)
+    for name, module, shape in flagship_layers():
+        x = torch.randn(shape, generator=gen).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        per = shape[3] // group.size
+        block = x[..., group.rank * per:(group.rank + 1) * per].contiguous(
+            memory_format=torch.channels_last)
+        with torch.no_grad():
+            if module is None:
+                got = avg_pool_3s2(block, group)
+            else:
+                module = module.to(dev, memory_format=torch.channels_last)
+                got = set_cp(module, group)(block)
+            parts = group.gather_to_first(got)
+            if parts is not None:
+                if module is None:
+                    want = avg_pool_3s2(x)
+                else:
+                    want = set_cp(module, None)(x)
+                err = (torch.cat(parts, dim=3) - want).abs().max().item()
+                res[name] = (err, want.abs().max().item())
+    return res
+
+
+def tp_block_checks(group, dev) -> dict:
+    """A trunk resblock (1536 channels, 16 x 4) and an enhancer resblock
+    (96 channels, 256 x 64) at batch 16, f32, split over the group against
+    the whole block on every rank: {name: (max|err|, max|y|)}."""
+    import torch
+    from pix2pixhdaudiosr_torch.models.layers import ResnetBlock
+    from pix2pixhdaudiosr_torch.parallel.tp import shard_generator
+    res = {}
+    gen = torch.Generator().manual_seed(23)
+    torch.manual_seed(24)
+    for name, dim, (h, w) in (("ResnetBlock_0", 1536, (16, 4)),
+                              ("enh1_block0", 96, (256, 64))):
+        holder = torch.nn.Module()
+        holder.add_module(name, ResnetBlock(dim))
+        with torch.no_grad():
+            for pname, p in holder.named_parameters():
+                p.normal_(0.0, 0.02 if pname.endswith("weight") else 0.1)
+        holder.to(dev, memory_format=torch.channels_last)
+        x = torch.randn(16, dim, h, w, generator=gen).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        with torch.no_grad():
+            want = getattr(holder, name)(x)
+            shard_generator(holder, group)
+            got = getattr(holder, name)(x)
+        res[name] = ((got - want).abs().max().item(),
+                     want.abs().max().item())
+    return res
+
+
+def rank_worker(mode: str) -> int:
+    """One rank of run_ranks: joins the group through the port's
+    parallel.mesh (gloo, the ranks sharing cuda:0), runs the generator in
+    f32 and bf16 on the spectrogram the parent saved (CP: this rank's
+    frames, the blocks gathered on rank 0; TP: the resblocks split), once
+    to warm up and once timed with every count set to 0 just before it,
+    then the generate CLI in the mode at bf16; rank 0 saves the outputs.
+    Writes its record to WORK/<mode>_rank<r>.json."""
+    import torch
+    from pix2pixhdaudiosr_torch import generate
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_apply,
+                                                 instance_moments,
+                                                 instance_norm_act)
+    from pix2pixhdaudiosr_torch.parallel import mesh
+    from pix2pixhdaudiosr_torch.parallel.halo import make_cp_generator
+    from pix2pixhdaudiosr_torch.parallel.tp import shard_generator
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"instance_norm_act": instance_norm_act,
+                "instance_moments": instance_moments,
+                "instance_apply": instance_apply, "mdct2": mdct2,
+                "imdct2": imdct2}
+    world = mesh.initialize(torch.device("cuda:0"))
+    group = mesh.make_group(world, world.size)
+    rec = dict(rank=world.rank, size=world.size, backend=world.backend,
+               device=str(world.device))
+    spec = torch.load(os.path.join(WORK, f"{mode}_spec.pt")).to(world.device)
+
+    def counts():
+        return {k: dict(launches=fn.launches, by_shape={
+            str(s): v for s, v in fn.launches_by_shape.items()})
+            for k, fn in counters.items() if hasattr(fn, "launches_by_shape")}
+
+    for dtype in ("float32", "bfloat16"):
+        system = flagship_system(world.device, ["--compute_dtype", dtype])
+        if mode == "cp":
+            run = functools.partial(generate.cp_forward,
+                                    make_cp_generator(system, group), spec,
+                                    group)
+        else:
+            rec["sharded"] = shard_generator(system.netG, group)
+            run = functools.partial(unsharded_forward, system, spec)
+        run()
+        for fn in counters.values():
+            reset_counts(fn)
+        group.reset_traffic()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        rec[dtype] = dict(wall_s=time.perf_counter() - t0, counts=counts(),
+                          traffic=group.traffic())
+        if world.rank == 0:
+            torch.save(out.cpu(), os.path.join(WORK, f"{mode}_out_{dtype}.pt"))
+        del system, run, out
+        torch.cuda.empty_cache()
+    rec["layers"] = (cp_layer_checks if mode == "cp" else tp_block_checks)(
+        group, world.device)
+    for fn in counters.values():
+        reset_counts(fn)
+    argv = ["--name", f"{mode}{world.size}", "--checkpoints_dir", WORK,
+            "--dataroot", os.path.join(WORK, "input_48k.wav"),
+            "--load_pretrain", os.path.join(WORK, "smoke"), "--batchSize",
+            "16", "--no_html", "--device", "cuda:0", *FLAGSHIP,
+            f"--{mode}_shards", str(world.size)]
+    t0 = time.perf_counter()
+    audio = generate.main(argv)
+    rec["cli"] = dict(seconds=time.perf_counter() - t0, counts=counts(),
+                      returned_audio=audio is not None)
+    with open(os.path.join(WORK, f"{mode}_rank{world.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    mesh.shutdown()
+    return 0
+
+
+def phase_cp_ranks(dev, wav: str) -> dict:
+    """CP at CP_SHARDS ranks sharing cuda:0 over gloo (ranks 1 and 2
+    interior shards), flagship width, on the whole file's spectrogram: the
+    gathered output against the plain generator's in one process, f32 and
+    bf16 within 2x the rounding floor; every layer kind at flagship width
+    (f32) against its unsharded output within 1e-5 max|y|; on every rank B3's cross-shard entries
+    launched and no one- or two-pass B3 in the CP G; the CLI at these
+    ranks wrote the file (rank 0 alone returned it)."""
+    import torch
+    full, spec = full_length_spec(flagship_system(dev, ["--compute_dtype",
+                                                        "float32"]),
+                                  wav, CP_SHARDS)
+    torch.save(spec.cpu(), os.path.join(WORK, "cp_spec.pt"))
+    want, floor = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            full = flagship_system(dev)
+        ref = unsharded_forward(full, spec)
+        floor[dtype] = rounding_floor(full, spec, ref)
+        want[dtype] = ref.cpu()
+    del full, ref
+    torch.cuda.empty_cache()
+    recs = run_ranks("cp", CP_SHARDS)
+    res = dict(frames=spec.shape[2], ranks=recs)
+    for dtype, ref in want.items():
+        got = torch.load(os.path.join(WORK, f"cp_out_{dtype}.pt"))
+        res[dtype] = ulp_reading(got, ref)
+        check_against_floor(f"CP at {CP_SHARDS} ranks, {dtype}", res[dtype],
+                            floor[dtype], ref.abs().max().item())
+        print(f"[cp {CP_SHARDS} ranks] {dtype}: " + json.dumps(res[dtype]))
+    for r in recs:
+        for name, (err, scale) in r["layers"].items():
+            check(err <= 1e-5 * scale, f"rank 0, CP layer {name} at "
+                  f"flagship width, f32: {err} > 1e-5 x {scale}")
+        for dtype in want:
+            c = r[dtype]["counts"]
+            check(c["instance_moments"]["launches"] > 0
+                  and c["instance_apply"]["launches"] > 0,
+                  f"rank {r['rank']} {dtype}: B3's cross-shard entries not "
+                  f"launched: {c}")
+            check(c["instance_norm_act"]["launches"] == 0,
+                  f"rank {r['rank']} {dtype}: one-/two-pass B3 in the CP G")
+        check(r["cli"]["returned_audio"] == (r["rank"] == 0),
+              f"rank {r['rank']}: the CLI's return")
+    check(os.path.exists(os.path.join(WORK, f"cp{CP_SHARDS}", "sr_audio.wav")),
+          "the CP CLI at 4 ranks wrote no sr_audio.wav")
+    print(f"[cp {CP_SHARDS} ranks] " + json.dumps(res))
+    return res
+
+
+def phase_tp_ranks(dev) -> dict:
+    """TP at TP_SHARDS ranks sharing cuda:0 over gloo, flagship width, on a
+    seeded batch of 16 segments: rank 0's output against the plain
+    generator's in one process, f32 and bf16 within 2x the rounding floor;
+    a trunk and an enhancer resblock at flagship width split over the
+    ranks against the whole block, f32 within 1e-5 max|y|; B3's
+    launches by shape at C/N channels (the trunk's 1536 / 2 = 768 and the
+    enhancer's 96 / 2 = 48); the CLI at these ranks wrote the file."""
+    import torch
+    system = flagship_system(dev, ["--compute_dtype", "float32"])
+    lr, noise = seeded_batch(system, dev, 16)
+    with torch.no_grad():
+        spec = system.encode_input(lr, noise)[0].contiguous()
+    torch.save(spec.cpu(), os.path.join(WORK, "tp_spec.pt"))
+    want, floor = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            system = flagship_system(dev)
+        ref = unsharded_forward(system, spec)
+        floor[dtype] = rounding_floor(system, spec, ref)
+        want[dtype] = ref.cpu()
+    del system, ref
+    torch.cuda.empty_cache()
+    recs = run_ranks("tp", TP_SHARDS)
+    res = dict(ranks=recs)
+    for dtype, ref in want.items():
+        got = torch.load(os.path.join(WORK, f"tp_out_{dtype}.pt"))
+        res[dtype] = ulp_reading(got, ref)
+        check_against_floor(f"TP at {TP_SHARDS} ranks, {dtype}", res[dtype],
+                            floor[dtype], ref.abs().max().item())
+        print(f"[tp {TP_SHARDS} ranks] {dtype}: " + json.dumps(res[dtype]))
+    for r in recs:
+        for name, (err, scale) in r["layers"].items():
+            check(err <= 1e-5 * scale, f"rank {r['rank']}, TP block {name} "
+                  f"at flagship width, f32: {err} > 1e-5 x {scale}")
+        shapes = r["bfloat16"]["counts"]["instance_norm_act"]["by_shape"]
+        for s in ("(16, 4, 768)", "(256, 64, 48)"):
+            check(shapes.get(s, 0) > 0, f"rank {r['rank']}: no B3 launch at "
+                  f"{s} (C/N channels): {shapes}")
+    check(os.path.exists(os.path.join(WORK, f"tp{TP_SHARDS}", "sr_audio.wav")),
+          "the TP CLI at 2 ranks wrote no sr_audio.wav")
+    print(f"[tp {TP_SHARDS} ranks] " + json.dumps(res))
+    return res
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3014,7 +3620,8 @@ def main() -> int:
             return out
 
         rec, detail = timed("kernels", phase_kernels, dev)
-        for phase in (phase_conv_kernels, phase_quant_kernels):
+        for phase in (phase_conv_kernels, phase_quant_kernels,
+                      phase_cp_kernels):
             rec_p, detail_p = timed(phase.__name__[6:], phase, dev)
             rec.update(rec_p)
             detail.update(detail_p)
@@ -3054,6 +3661,9 @@ def main() -> int:
         sizes = phase_sizes(pth)
         del system, lr, noise
         torch.cuda.empty_cache()
+        cp1 = timed("cp one rank", phase_cp_one_rank, dev, wav, n_in)
+        cpn = timed("cp ranks", phase_cp_ranks, dev, wav)
+        tpn = timed("tp ranks", phase_tp_ranks, dev)
         in_grad = timed("in grad", phase_in_grad, dev)
         in_grad_a = timed("in grad family A", phase_in_grad, dev,
                           FAMILY_A_BATCH, [(FAMILY_A_IN_SHAPES,
@@ -3101,7 +3711,10 @@ def main() -> int:
                     instance_norm_act_grad=train["launches"][
                         "instance_norm_act_grad"] // train["steps"],
                     imdct2_grad=recipes[1]["launches"]["imdct2_grad"]
-                    // recipes[1]["steps"])
+                    // recipes[1]["steps"],
+                    # the CP path's: one generate --cp_shards 4 run
+                    instance_moments=cp1["launches"]["instance_moments"],
+                    instance_apply=cp1["launches"]["instance_apply"])
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
                     serve_launches=serve["plain"]["launches"].get(k, 0),
@@ -3129,8 +3742,8 @@ def main() -> int:
         train_step=train, recipe_steps=recipes, knob_steps=knobs,
         remat_grads=remat, train_cli=train_cli, recipe_cli=recipe_cli,
         family_a_cli=family_a,
-        in_backward_per_step=in_bwd, cli=cli, flac=flac,
-        phase_seconds=phase_s)))
+        in_backward_per_step=in_bwd, cli=cli, flac=flac, cp_one_rank=cp1,
+        cp_ranks=cpn, tp_ranks=tpn, phase_seconds=phase_s)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3139,4 +3752,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

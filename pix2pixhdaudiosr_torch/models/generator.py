@@ -5,6 +5,8 @@ Port of pix2pixhdaudiosr_tpu/models/generator.py:22-195 and
 resblocks run through ops/enhancer.py (`--fused_enhancer`); with
 `int8_trunk`, the global trunk's resblocks run through ops/quant.py
 (`--int8_trunk`). Either way the modules and state_dict stay the same.
+Under context parallelism (a `cp` set by parallel/halo.py `set_cp`) both
+take the plain path, as the JAX package's do (generator.py:44, :130).
 Module names follow the flax param tree (`global.ConvIN_0`, `global.ResnetBlock_2.ConvIN_1`, `enh1_down1`,
 `enh1_block0`, `enh1_up`, `enh1_final`, ...). Forward takes and returns
 logical NCHW; the system feeds a channels_last view of its NHWC
@@ -39,6 +41,7 @@ class GlobalTrunk(nn.Module):
         super().__init__()
         self.n_pre, self.n_blocks = 1 + n_downsampling, n_blocks
         self.int8_blocks = int8_blocks
+        self.cp = None  # the int8 stack has no context-parallel path
         self._int8_cache = None  # (weights, their versions, quantized)
         self.add_module("ConvIN_0", ConvIN(input_nc, ngf, 7, reflect=3,
                                            device=device))
@@ -59,7 +62,7 @@ class GlobalTrunk(nn.Module):
         n_pre, n_post = self.n_pre, self.n_pre + self.n_blocks
         for layer in layers[:n_pre]:
             x = layer(x)
-        if self.int8_blocks and self.n_blocks > 0:
+        if self.int8_blocks and self.cp is None and self.n_blocks > 0:
             x = quant.int8_resblock_stack(x, self._int8_blocks(
                 layers[n_pre:n_post]))
         else:
@@ -124,6 +127,7 @@ class LocalEnhancer(nn.Module):
         self.n_local_enhancers = nle = n_local_enhancers
         self.n_blocks_local = n_blocks_local
         self.fused_enh_blocks = fused_enh_blocks
+        self.cp = None  # the pyramid's pool; the fused section has no cp path
         self.add_module("global", GlobalTrunk(
             input_nc, ngf * 2 ** nle, n_downsample_global, n_blocks_global,
             deconv_mode, int8_trunk, device=device))
@@ -147,7 +151,7 @@ class LocalEnhancer(nn.Module):
         nle = self.n_local_enhancers
         pyramid = [x]
         for _ in range(nle):
-            pyramid.append(avg_pool_3s2(pyramid[-1]))
+            pyramid.append(avg_pool_3s2(pyramid[-1], self.cp))
         out = getattr(self, "global")(pyramid[-1])
         for n in range(1, nle + 1):
             down = getattr(self, f"enh{n}_down0")(pyramid[nle - n])
@@ -167,7 +171,8 @@ class LocalEnhancer(nn.Module):
         """The JAX gate (generator.py:130-135), on the shape down1 gives."""
         B, _, H, W = down.shape
         ch = getattr(self, f"enh{n}_down1").Conv_0.out_channels
-        return (self.fused_enh_blocks and self.n_blocks_local > 0
+        return (self.fused_enh_blocks and self.cp is None
+                and self.n_blocks_local > 0
                 and enhancer.supports((B, (H + 1) // 2, (W + 1) // 2, ch),
                                       down.dtype))
 

@@ -46,6 +46,8 @@ _SIGNATURES = {
                                        _L, _L, _I, _L, _L, _I, _I, _F, _I, _I,
                                        _P),
     "p2p_instance_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "p2p_instance_moments": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "p2p_instance_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "p2p_conv3x3_in": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _F, _I, _I, _I, _I, _P),
     "p2p_conv3x3_valid": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

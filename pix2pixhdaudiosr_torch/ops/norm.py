@@ -34,6 +34,16 @@ Its twin,
 statistics and reads the slope off y: a second twin, on no path.
 `instance_stats` runs the statistics passes alone (the fused enhancer folds
 the normalize into its next conv).
+
+For a frame axis split over ranks (context parallelism, models/layers.py
+`instance_norm(..., cp=)`) the statistics must span every shard, so the
+norm splits in two: `instance_moments` (the local f32 mean and E[x^2],
+[2, B, C], which the caller averages over the shards) and
+`instance_apply` (the normalize from such moments: var = max(E[x^2] -
+mean^2, 0), eps 1e-5, then the activation), counted in their own
+`.launches` and `.launches_by_shape`. Their twins are
+`instance_moments_ref` and `instance_apply_ref`, of which
+`instance_norm_act_ref` is made.
 """
 
 from __future__ import annotations
@@ -186,25 +196,44 @@ def activate(y: torch.Tensor, act: str) -> torch.Tensor:
 def instance_norm_act_ref(x: torch.Tensor, act: str = "none",
                           eps: float = 1e-5, with_stats: bool = False):
     """Twin of `instance_norm_act`. x: [B, C, H, W], any layout."""
-    mean, var = instance_moments_ref(x)
+    moments = instance_moments_ref(x)
+    y = instance_apply_ref(x, moments, act, eps)
+    return (y, torch.stack(mean_var(moments))) if with_stats else y
+
+
+def instance_moments_ref(x: torch.Tensor) -> torch.Tensor:
+    """Twin of `instance_moments`: f32 [2, B, C], the mean and E[x^2] of
+    each plane of x [B, C, H, W] (any layout)."""
+    xf = x.float()
+    return torch.stack((xf.mean(dim=(2, 3)), (xf * xf).mean(dim=(2, 3))))
+
+
+def mean_var(moments: torch.Tensor):
+    """(mean, max(E[x^2] - mean^2, 0)), each [B, C], of moments [2, B, C]:
+    the statistics `instance_norm_act` saves for its backward."""
+    mean, ex2 = moments[0], moments[1]
+    return mean, torch.clamp(ex2 - mean * mean, min=0.0)
+
+
+def instance_mean_var_ref(x: torch.Tensor):
+    """f32 (mean, clamped variance), each [B, C], of x [B, C, H, W]."""
+    return mean_var(instance_moments_ref(x))
+
+
+def instance_apply_ref(x: torch.Tensor, moments: torch.Tensor,
+                       act: str = "none", eps: float = 1e-5) -> torch.Tensor:
+    """Twin of `instance_apply`: act((x - mean) * rsqrt(max(E[x^2] -
+    mean^2, 0) + eps)) in f32, cast to x's dtype, from moments f32
+    [2, B, C] (mean, E[x^2])."""
+    mean, var = mean_var(moments)
     rstd = torch.rsqrt(var + eps)
     y = (x.float() - mean[:, :, None, None]) * rstd[:, :, None, None]
-    y = activate(y, act).to(x.dtype)
-    return (y, torch.stack((mean, var))) if with_stats else y
-
-
-def instance_moments_ref(x: torch.Tensor):
-    """f32 (mean, max(E[x^2] - mean^2, 0)), each [B, C], of x [B, C, H, W]:
-    the statistics `instance_norm_act` saves for its backward."""
-    xf = x.float()
-    mean = xf.mean(dim=(2, 3))
-    ex2 = (xf * xf).mean(dim=(2, 3))
-    return mean, torch.clamp(ex2 - mean * mean, min=0.0)
+    return activate(y, act).to(x.dtype)
 
 
 def instance_stats_ref(x: torch.Tensor, eps: float = 1e-5):
     """Twin of `instance_stats`. x: [B, C, H, W], any layout."""
-    mean, var = instance_moments_ref(x)
+    mean, var = instance_mean_var_ref(x)
     return mean, torch.rsqrt(var + eps)
 
 
@@ -349,6 +378,74 @@ def instance_stats(x: torch.Tensor, eps: float = 1e-5):
 
 
 instance_stats.launches = 0
+
+
+def _count_shape(fn, x: torch.Tensor) -> None:
+    B, C, H, W = x.shape
+    fn.launches += 1
+    fn.launches_by_shape[(H, W, C)] = fn.launches_by_shape.get((H, W, C), 0) + 1
+
+
+def instance_moments(x: torch.Tensor) -> torch.Tensor:
+    """The local moments of x [B, C, H, W]: f32 [2, B, C], the mean and
+    E[x^2] of each plane, neither clamped nor finalized, so that the
+    caller can average them over the shards of a split axis. On CUDA x must
+    be channels_last-contiguous float32 or bfloat16 (a cropped view is
+    copied by the caller); one launch of p2p_instance_moments (the
+    two-pass route's statistics pass, then a compensated sum of its
+    partials, a warp a plane), counted in `instance_moments.launches` and
+    by (H, W, C)."""
+    if x.device.type == "cpu":
+        return instance_moments_ref(x)
+    _cuda.check_cuda("instance_moments", x)
+    _check_input("instance_moments", x)
+    B, C, H, W = x.shape
+    P = stat_chunks(B, H * W, C)
+    partial = torch.empty(B, P, C, 2, dtype=torch.float32, device=x.device)
+    moments = torch.empty(2, B, C, dtype=torch.float32, device=x.device)
+    _cuda.launch("p2p_instance_moments", x.device, x.data_ptr(),
+                 partial.data_ptr(), moments.data_ptr(), B, H * W, C,
+                 int(x.dtype == torch.bfloat16), P)
+    _count_shape(instance_moments, x)
+    return moments
+
+
+instance_moments.launches = 0
+instance_moments.launches_by_shape = {}
+
+
+def instance_apply(x: torch.Tensor, moments: torch.Tensor, act: str = "none",
+                   eps: float = 1e-5) -> torch.Tensor:
+    """act((x - mean) * rsqrt(max(E[x^2] - mean^2, 0) + eps)) from moments
+    f32 [2, B, C] (mean, E[x^2]; `instance_moments`, averaged over shards
+    by the caller). x as `instance_moments` takes it; returns x's dtype,
+    channels_last. One launch of p2p_instance_apply (a finalize of the
+    moments, then the two-pass route's apply pass), counted in
+    `instance_apply.launches` and by (H, W, C)."""
+    if x.device.type == "cpu":
+        return instance_apply_ref(x, moments, act, eps)
+    name = "instance_apply"
+    _cuda.check_cuda(name, x, moments)
+    _check_input(name, x)
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    B, C, H, W = x.shape
+    if (moments.shape != (2, B, C) or moments.dtype != torch.float32
+            or not moments.is_contiguous()):
+        raise ValueError(f"{name}: moments must be contiguous f32 "
+                         f"[2, {B}, {C}], got {moments.dtype} "
+                         f"{tuple(moments.shape)}")
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = torch.empty(B, C, 2, dtype=torch.float32, device=x.device)
+    _cuda.launch("p2p_instance_apply", x.device, x.data_ptr(), y.data_ptr(),
+                 moments.data_ptr(), stats.data_ptr(), B, H * W, C,
+                 int(x.dtype == torch.bfloat16), ACTS[act], float(eps))
+    _count_shape(instance_apply, x)
+    return y
+
+
+instance_apply.launches = 0
+instance_apply.launches_by_shape = {}
 
 
 def _slope_times(g: torch.Tensor, xhat: torch.Tensor, act: str):

@@ -113,7 +113,7 @@ def remat_forward(fn, remat: Optional[str]):
     raise ValueError(f"unknown remat mode: {remat!r}")
 
 
-def _share_parameters(dst: torch.nn.Module, src: torch.nn.Module) -> None:
+def share_parameters(dst: torch.nn.Module, src: torch.nn.Module) -> None:
     """Make every parameter of dst the very Parameter of src under its
     name (the two nets have one param tree)."""
     params = dict(src.named_parameters())
@@ -122,17 +122,30 @@ def _share_parameters(dst: torch.nn.Module, src: torch.nn.Module) -> None:
             module._parameters[key] = params[f"{prefix}.{key}" if prefix else key]
 
 
+def generator_stride(cfg) -> int:
+    """Input frames per frame of the generator's coarsest grid."""
+    stride = 2 ** cfg.n_downsample_global
+    if cfg.net_g == "local":
+        stride *= 2 ** cfg.n_local_enhancers
+    return stride
+
+
+def make_codec(cfg, device) -> SpectroCodec:
+    """The codec of a config (its segment_length sets the inverse's crop)."""
+    return SpectroCodec(CodecConfig(
+        n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+        win_length=cfg.win_length, center=cfg.center,
+        segment_length=cfg.segment_length, up_ratio=cfg.up_ratio,
+        alpha=cfg.alpha, min_value=cfg.min_value,
+        explicit_encoding=cfg.explicit_encoding, mask_mode=cfg.mask_mode,
+        phase_encoding_mode=cfg.phase_encoding_mode), device=device)
+
+
 class Pix2PixHDSystem:
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.codec = SpectroCodec(CodecConfig(
-            n_fft=cfg.n_fft, hop_length=cfg.hop_length,
-            win_length=cfg.win_length, center=cfg.center,
-            segment_length=cfg.segment_length, up_ratio=cfg.up_ratio,
-            alpha=cfg.alpha, min_value=cfg.min_value,
-            explicit_encoding=cfg.explicit_encoding, mask_mode=cfg.mask_mode,
-            phase_encoding_mode=cfg.phase_encoding_mode), device=device)
+        self.codec = make_codec(cfg, device)
         self.dtype = getattr(torch, cfg.compute_dtype)
         if cfg.is_train:
             check_trainable(cfg)
@@ -146,7 +159,7 @@ class Pix2PixHDSystem:
         self.netG_train = self.netG
         if cfg.fused_enhancer or cfg.int8_trunk:
             self.netG_train = self._generator(False, False)
-            _share_parameters(self.netG_train, self.netG)
+            share_parameters(self.netG_train, self.netG)
         self.netD = build_discriminator(
             2 * c + (0 if cfg.no_instance else 1), cfg.ndf, cfg.n_layers_d,
             use_sigmoid=cfg.no_lsgan, num_d=cfg.num_d,
@@ -214,9 +227,7 @@ class Pix2PixHDSystem:
     def spectro_shape(self, batch: int) -> Tuple[int, int, int, int]:
         cfg = self.cfg
         c = 2 if cfg.explicit_encoding else 1
-        stride = 2 ** cfg.n_downsample_global
-        if cfg.net_g == "local":
-            stride *= 2 ** cfg.n_local_enhancers
+        stride = generator_stride(cfg)
         if self.n_frames % stride:
             raise ValueError(
                 f"segment_length {cfg.segment_length} gives {self.n_frames} "

@@ -57,7 +57,7 @@ from .utils.visualizer import Visualizer
 # (condition on the config, what it asks for, the ROADMAP item that brings it)
 _NOT_YET = (
     (lambda c: c.zero_opt_state or c.fsdp, "--zero_opt_state / --fsdp",
-     "parallel modes, ROADMAP A11"),
+     "the training half of the parallel modes, ROADMAP A11b"),
 )
 
 

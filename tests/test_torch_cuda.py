@@ -164,6 +164,46 @@ def _assert_in_close(got, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 48, 512, 256), (2, 768, 16, 4)],
+                         ids=["cp", "tp"])
+def test_instance_moments_and_apply_match_twins(cuda, shape, dtype):
+    """B3's cross-shard entries at a CP shape (a flagship full-file block of
+    the enhancer, 256 frames) and a TP shape (the trunk's 1536 channels over
+    2 ranks): the moments (below), the apply
+    (from the twin's moments, so that only the apply is tested) within
+    tolerance for each activation, one launch each counted by shape, and
+    the two composed (one shard) within it of the one-launch norm's twin.
+    The moments
+    are held to float64 ones: within 1e-6 relative to each plane's scale
+    (its RMS for the mean, E[x^2] for E[x^2]), or no farther than the
+    twin's f32 reduction."""
+    from pix2pixhdaudiosr_torch.ops import norm
+    x = _in_input(cuda, shape, dtype)
+    B, C, H, W = shape
+    n = (norm.instance_moments.launches, norm.instance_apply.launches)
+    got = norm.instance_moments(x)
+    want = norm.instance_moments_ref(x)
+    assert got.shape == (2, B, C) and got.dtype == torch.float32
+    xd = x.double()
+    exact = torch.stack((xd.mean(dim=(2, 3)), (xd * xd).mean(dim=(2, 3))))
+    scale = torch.stack((exact[1].sqrt(), exact[1]))
+
+    def rel(m):
+        return ((m.double() - exact).abs() / scale).max().item()
+    assert rel(got) <= max(1e-6, rel(want)), (rel(got), rel(want))
+    for act in ("none", "relu", "leaky"):
+        _assert_in_close(norm.instance_apply(x, want, act),
+                         norm.instance_apply_ref(x, want, act))
+    assert (norm.instance_moments.launches,
+            norm.instance_apply.launches) == (n[0] + 1, n[1] + 3)
+    assert norm.instance_apply.launches_by_shape[(H, W, C)] >= 3
+    _assert_in_close(norm.instance_apply(x, got, "relu"),
+                     norm.instance_norm_act_ref(x, "relu"))
+    with pytest.raises(ValueError, match="channels_last"):
+        norm.instance_moments(x.contiguous())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hwc", IN_SHAPES)
 def test_instance_norm_onepass_at_flagship_shapes(cuda, hwc, dtype):
     """Every flagship InstanceNorm shape at batch 3 takes the one-pass
@@ -292,7 +332,7 @@ def test_instance_norm_grad_kernel_matches_twin(cuda, hwc, act, dtype, route):
     x = _in_input(cuda, (2, C, H, W), dtype)
     dy = _in_input(cuda, (2, C, H, W), dtype, seed=9)
     y, saved = norm.instance_norm_act(x, act, with_stats=True)
-    mean, var = norm.instance_moments_ref(x)
+    mean, var = norm.instance_mean_var_ref(x)
     torch.testing.assert_close(saved[0], mean, atol=1e-5, rtol=0)
     torch.testing.assert_close(saved[1], var, atol=0, rtol=1e-5)
     plan = _grad_plan(route, 2, H, W, C, x.dtype)
