@@ -204,6 +204,37 @@ Phases, each fatal on failure (exit code 1):
      none of the one-launch norm, B3 at C/N channels on the TP ranks, the
      gloo transport's bytes and each rank's wall time, and the generate
      CLI at those ranks (rank 0 writes the file).
+ 16. (run last) the training half of the parallel modes: 2 ranks of this
+     script (`--rank-worker dp|zero|fsdp`) sharing cuda:0 over gloo, at
+     flagship width (G 156,050,690 parameters, PatchGAN ndf 64), a wall
+     limit of their own. Parity leg (f32, TF32 off, cuDNN's heuristic
+     algorithms): 2 steps on a global batch of 8 (4 a rank) with the same
+     mask noise, against the same steps in this process, each from the
+     state that this process's step starts from (the seeded init; its
+     `latest` after step 1 restored into another init and the mode
+     applied: from a second step on, Adam makes whole ~lr steps of the
+     first step's rounding, so 2 steps run on apart drift by up to ~4 lr),
+     kind by kind (parity_bounds): G and D parameters within DP_PARAM_LR
+     lr where the reference's grad is above 1e-3 of its leaf's max|g|
+     (the conv biases feeding an InstanceNorm left out: there a step is
+     the sign of rounding), each Adam moment within DP_MOMENT_REL of its
+     leaf's max, the losses within DP_FLOOR_FACTOR x the rounding floor's
+     and equal on both ranks; the rounding floor (this process's steps on
+     the rows in 3 orders: as given, reversed, halves swapped, every batch
+     sum reordered) within the same bounds, and 2 planted faults of the
+     dp step (grads left unreduced; summed, not averaged) beyond them;
+     ZeRO's and FSDP's slices per shard_dim and the bytes held between
+     steps (ZeRO: the moments about half; FSDP: the parameters too);
+     ZeRO's `latest` restored in this process to the same third step
+     (parity_bounds; losses rtol 1e-4). Timing leg (bf16): a batch of 64,
+     32 a rank, 1 warm-up and 3 timed steps a mode, every count set to 0
+     just before them: per rank the step's wall time, gloo bytes
+     (Group.traffic), peak CUDA memory and launches a step, B1 2 (on the
+     tensor cores), B3 40 (one-pass) and B3' 40 asserted. Then the training
+     CLI under 2 ranks (`--rank-worker cli`, the launcher's variables as
+     torchrun sets them) with --zero_opt_state, 2 steps on phase 12's
+     corpus and --continue_train for 2 more (G and D equal to the saved
+     ones before its first step).
 Each phase prints its seconds ([phase] lines).
 The line before the last is {"kernels": [...]} (`launches` from one
 serve forward, for the InstanceNorm backward, which serving never
@@ -212,8 +243,10 @@ HiFi-GAN recipe step; `serve_launches` from one plain serve forward,
 `train_launches_per_step` from one flagship train step,
 `recipe_launches_per_step` from one step of each recipe,
 `knob_launches_per_step` from one step of each memory knob and
-`family_a_launches_per_step` from one step of Family A's CLI run; for
-B3's cross-shard entries, from the one-rank generate --cp_shards 4 run);
+`family_a_launches_per_step` from one step of Family A's CLI run,
+`dp_launches_per_step` from one bf16 step of phase 16 on rank 0, a mode
+each; for B3's cross-shard entries, from the one-rank generate --cp_shards
+4 run);
 the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
 with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
@@ -3303,7 +3336,8 @@ def run_ranks(mode: str, n: int) -> list:
         with open(os.path.join(WORK, f"{mode}_rank{r}.log")) as f:
             text = f.read()
         lines = [ln for ln in text.splitlines() if ln.startswith(
-            ("distributed:", "[rank", "context-parallel", "tensor-parallel"))]
+            ("distributed:", "[rank", "context-parallel", "tensor-parallel",
+             "data-parallel"))]
         print(f"[{mode} rank {r}] " + " | ".join(lines[-8:]))
         if failed:
             print(f"[{mode} rank {r}] log tail:\n{text[-3000:]}")
@@ -3405,13 +3439,19 @@ def tp_block_checks(group, dev) -> dict:
 
 
 def rank_worker(mode: str) -> int:
-    """One rank of run_ranks: joins the group through the port's
+    """One rank of run_ranks: phase 16's modes (dp, zero, fsdp) in
+    dp_rank_worker, its CLI (cli) in dp_cli_rank_worker; CP and TP here.
+    Joins the group through the port's
     parallel.mesh (gloo, the ranks sharing cuda:0), runs the generator in
     f32 and bf16 on the spectrogram the parent saved (CP: this rank's
     frames, the blocks gathered on rank 0; TP: the resblocks split), once
     to warm up and once timed with every count set to 0 just before it,
     then the generate CLI in the mode at bf16; rank 0 saves the outputs.
     Writes its record to WORK/<mode>_rank<r>.json."""
+    if mode in DP_MODES:
+        return dp_rank_worker(mode)
+    if mode == "cli":
+        return dp_cli_rank_worker()
     import torch
     from pix2pixhdaudiosr_torch import generate
     from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
@@ -3575,6 +3615,610 @@ def phase_tp_ranks(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The training half of the parallel modes (parallel/dp.py, zero.py, fsdp.py):
+# 2 ranks sharing cuda:0 over gloo, at flagship width.
+DP_MODES, DP_RANKS = ("dp", "zero", "fsdp"), 2
+# the parity leg (f32, TF32 off): its global batch and steps; the timing
+# leg (bf16): its global batch (32 a rank) and timed steps after 1 warm-up
+DP_PARITY_BATCH, DP_PARITY_STEPS = 8, 2
+DP_TIMING_BATCH, DP_TIMING_STEPS = TRAIN_BATCH, 3
+# a flagship train step's launches a rank at its share of the batch (all on
+# the fast routes): B1 2, B3 and its backward 40
+# the rounding floor's orders of the parity batch's rows: as given, reversed,
+# its halves swapped (every batch sum of the step in another order)
+DP_ORDERS = {"one": [0, 1, 2, 3, 4, 5, 6, 7], "reversed": [7, 6, 5, 4, 3, 2, 1, 0],
+             "swapped": [4, 5, 6, 7, 0, 1, 2, 3]}
+# the parity bounds of one step, kind by kind. Each parity step starts from
+# the state the reference's starts from: from a second step on, Adam turns
+# the rounding of the first into whole steps of ~lr, and two f32 runs on
+# the rows in other orders drift apart by up to ~4 lr at flagship width.
+# Moments: the largest gap over a leaf's max (its net's max for the conv
+# biases that feed an InstanceNorm, whose exact grad is 0: norm_fed_biases);
+# after a step exp_avg is (1 - beta1) g, so this reads the reduced grads.
+# On an H100 the floor and every mode read <= 5.3e-3, each planted fault
+# >= 2.7 on its largest kind. Parameters: the largest gap, in units of lr,
+# over the entries whose grad in the reference's step is above 1e-3 of its
+# leaf's max|g| and DP_NOISE_FACTOR x the leaf's grad noise (the largest
+# change of any of its grads over the rows in DP_ORDERS), those biases
+# left out:
+# Adam steps by the sign of a grad, and in a conv that feeds an
+# InstanceNorm the input's per-channel mean cancels in the weight grads, so
+# at flagship width entries up to ~0.5% of a ConvTranspose leaf's max flip
+# sign between two orders (the floor read 2 lr at a 1e-3 threshold alone;
+# so masked, the floor and every mode <= 0.042 lr, the unreduced fault 2).
+# DP_FLOOR_FACTOR x the rounding floor's largest relative gap bounds the
+# losses. Every run reads the floor against the same bounds, and 2 planted
+# faults of the dp step (the grads left unreduced; summed, not averaged)
+# must exceed them.
+DP_PARAM_LR = 0.25
+DP_MOMENT_REL = 0.02
+DP_NOISE_FACTOR = 10
+DP_FLOOR_FACTOR = 4
+DP_FAULTS = ("unreduced", "summed")
+DP_STEP_LAUNCHES = {"mdct2": TRAIN_MDCT_LAUNCHES,
+                    "instance_norm_act": TRAIN_IN_LAUNCHES,
+                    "instance_norm_act_grad": TRAIN_IN_LAUNCHES}
+
+
+def dp_train_state(dev, dtype: str, batch: int, seed: int = 0):
+    """A flagship training system in `dtype` and its fresh train state
+    (seeded init: every rank draws the same)."""
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
+    from pix2pixhdaudiosr_torch.trainer import init_state
+    cfg = parse_config([*FLAGSHIP, "--compute_dtype", dtype, "--batchSize",
+                        str(batch)], is_train=True, save=False)
+    return init_state(Pix2PixHDSystem(cfg, device=dev), seed)
+
+
+def dp_noise(system, dev, batch: int, i: int):
+    """The global batch's mask noise of parity step i (each rank draws the
+    whole of it and keeps its rows)."""
+    import torch
+    b, f, t, c = system.spectro_shape(batch)
+    gen = torch.Generator(device=dev).manual_seed(7000 + i)
+    return torch.randn(b, system.codec.mask_size(f), t, c, generator=gen,
+                       device=dev)
+
+
+def dp_state_dict(state, nets_only: bool = False) -> dict:
+    """A train state's G and D parameters and, unless nets_only, Adam
+    moments, whole, on the host, by name ("G.<p>", "D.<p>",
+    "opt_g.exp_avg.<p>", ...): collective under a parallel strategy (every
+    rank calls it)."""
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    par, system, out = state.parallel, state.system, {}
+    with par.full_state(state) if par else contextlib.nullcontext():
+        for key, net in (("G", system.netG_train), ("D", system.netD)):
+            out.update({f"{key}.{k}": v.detach().cpu()
+                        for k, v in net.state_dict().items()})
+        if nets_only:
+            return out
+        for tag, opt, named in (("opt_g", state.opt_g, ckpt.g_params(system)),
+                                ("opt_d", state.opt_d, ckpt.d_params(system))):
+            names = ckpt._param_names(opt, named)
+            for i, st in opt.state_dict()["state"].items():
+                for m in ("exp_avg", "exp_avg_sq"):
+                    out[f"{tag}.{m}.{names[i]}"] = st[m].detach().float().cpu()
+    return out
+
+
+def dp_grads(system) -> dict:
+    """The grads a step left on G's and D's parameters, on the host, by
+    "G.<p>" / "D.<p>" (one process: ZeRO and FSDP drop a sharded leaf's),
+    the names of those parameters that are conv biases feeding an
+    InstanceNorm (norm_fed_biases), and each leaf's grad noise (0 until
+    add_noise reads it)."""
+    grads = {f"{key}.{n}": q.grad.detach().float().cpu()
+             for key, net in (("G", system.netG_train), ("D", system.netD))
+             for n, q in net.named_parameters()}
+    void = norm_fed_biases(system.netG_train, "G.") | \
+        norm_fed_biases(system.netD, "D.")
+    return dict(grads=grads, void=sorted(void),
+                noise={k: 0.0 for k in grads})
+
+
+def add_noise(ref: dict, other: dict) -> None:
+    """Raise each leaf's grad noise in ref (dp_grads) to the largest change
+    of its grads in `other`, the same step on the rows in another order."""
+    for k, g in ref["grads"].items():
+        ref["noise"][k] = max(ref["noise"][k],
+                              (other["grads"][k] - g).abs().max().item())
+
+
+def parity_gaps(got: dict, want: dict, ref: dict, lr: float, dev) -> dict:
+    """Two states' (dp_state_dict) largest gaps kind by kind, as
+    DP_PARAM_LR and DP_MOMENT_REL read them: "G" and "D" in units
+    of lr over the entries whose grad in ref (dp_grads) is above 1e-3 of
+    its leaf's max|g| and DP_NOISE_FACTOR x its noise, the conv biases
+    feeding an InstanceNorm left out;
+    each Adam moment ("opt_g.exp_avg", ...) over its leaf's max (its net's
+    max for those biases). {kind: [gap, the leaf that gives it]}."""
+    import torch
+    grads, void = ref["grads"], set(ref["void"])
+    net_max, out = {}, {}
+    for k, w in want.items():
+        if k.startswith("opt_"):
+            kind = ".".join(k.split(".", 2)[:2])
+            net_max[kind] = max(net_max.get(kind, 0.0),
+                                w.float().abs().max().item())
+    for k, w in want.items():
+        w = w.to(dev).float()
+        diff = (got[k].to(dev).float() - w).abs()
+        if k.startswith("opt_"):
+            tag, m, name = k.split(".", 2)
+            kind, leaf = f"{tag}.{m}", ("G." if tag == "opt_g" else "D.") + name
+            scale = net_max[kind] if leaf in void else w.abs().max().item()
+            gap = diff.max().item() / max(scale, 1e-30)
+        elif k in grads and k not in void:
+            g = grads[k].to(dev).abs()
+            big = g > max(1e-3 * g.max().item(),
+                          DP_NOISE_FACTOR * ref["noise"][k])
+            kind = k.split(".")[0]
+            gap = diff[big].max().item() / lr if bool(big.any()) else 0.0
+        else:
+            continue
+        out[kind] = max(out.get(kind, [0.0, ""]), [gap, k])
+        del w, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+def loss_gaps(got: list, want: list) -> float:
+    """The largest relative difference of two runs' losses, step by step."""
+    return max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+               for g, w in zip(got, want) for k in w)
+
+
+def parity_bounds(gaps: dict) -> dict:
+    """Each kind's (gap, bound, leaf) of parity_gaps: parameters
+    DP_PARAM_LR (in lr), moments DP_MOMENT_REL (of a leaf's max)."""
+    return {kind: (gap, DP_MOMENT_REL if "." in kind else DP_PARAM_LR, leaf)
+            for kind, (gap, leaf) in gaps.items()}
+
+
+def dp_parity_state(dev, i: int):
+    """The f32 flagship train state that parity step i starts from: the
+    seeded init (i = 0), else another init restored from the one-process
+    reference's `latest` after step i (WORK/dp_ref_step<i>)."""
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    if i == 0:
+        return dp_train_state(dev, "float32", DP_PARITY_BATCH)
+    state = dp_train_state(dev, "float32", DP_PARITY_BATCH, seed=99)
+    ckpt.load_train_state(state, "latest",
+                          os.path.join(WORK, f"dp_ref_step{i}"))
+    return state
+
+
+def beyond(bounds: dict) -> list:
+    """The kinds of parity_bounds whose gap exceeds the bound."""
+    return [kind for kind, (gap, bound, _) in bounds.items() if gap > bound]
+
+
+def dp_rank_worker(mode: str) -> int:
+    """One rank of phase 16's `mode` (dp, zero, fsdp) at DP_RANKS ranks
+    sharing cuda:0 over gloo (parallel.mesh). Parity leg, f32: 2 steps on
+    this rank's rows of the parent's 8 (the same mask noise), each from
+    the state the parent's step starts from (dp_parity_state), the mode
+    applied; their losses and whole states against the parent's (rank 0,
+    parity_gaps), the bytes of parameters and moments held after them and
+    each leaf's slice against shard_dim; with dp, the same steps under
+    each planted fault (DP_FAULTS) read alike; with zero, `latest` saved
+    after them (rank 0 writes) and a third step's losses and state kept
+    for the parent. Timing leg, bf16: 32 rows a rank of a
+    batch of 64, 1 warm-up and DP_TIMING_STEPS timed steps (host clock
+    around each, synchronized), every count set to 0 just before them:
+    launches a step, gloo bytes a step (Group.traffic), peak CUDA memory.
+    Writes its record to WORK/<mode>_rank<r>.json."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import mdct2
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_grad)
+    from pix2pixhdaudiosr_torch.parallel import mesh
+    from pix2pixhdaudiosr_torch.parallel.dp import all_reduce_mean_, apply_dp
+    from pix2pixhdaudiosr_torch.parallel.fsdp import apply_fsdp
+    from pix2pixhdaudiosr_torch.parallel.zero import apply_zero, shard_dim
+    from pix2pixhdaudiosr_torch.trainer import make_train_step
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the parity leg on cuDNN's heuristic algorithms, as the parent's runs
+    torch.backends.cudnn.benchmark = False
+    apply = {"dp": apply_dp, "zero": apply_zero, "fsdp": apply_fsdp}[mode]
+    world = mesh.initialize(torch.device("cuda:0"))
+    dev = world.device
+    rec = dict(rank=world.rank, size=world.size, backend=world.backend,
+               device=str(dev), mode=mode,
+               seconds=dict(joined=time.perf_counter() - t0))
+
+    def own(batch, layout):
+        return {k: v.chunk(layout.data.size)[layout.data.rank].contiguous()
+                for k, v in batch.items()}
+
+    # -- parity leg (f32)
+    layout = mesh.make_data_layout(world, DP_PARITY_BATCH)
+    rows = own(flagship_train_batch(dev, DP_PARITY_BATCH), layout)
+    ref = torch.load(os.path.join(WORK, "dp_ref.pt"), mmap=True,
+                     weights_only=True) if world.rank == 0 else None
+
+    def parity_steps(fault=None) -> tuple:
+        """The parity steps under the mode (and `fault`, its reduce_grads),
+        each from the state the reference's starts from (dp_parity_state):
+        (losses, the gaps to the reference on rank 0, the last state, its
+        G and D parameters' count)."""
+        losses, gaps, state = [], [], None
+        for i in range(DP_PARITY_STEPS):
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            state = dp_parity_state(dev, i)
+            n_params = sum(p.numel() for net in (
+                state.system.netG_train, state.system.netD)
+                for p in net.parameters())
+            par = apply(state, layout)
+            if fault is not None:
+                par.reduce_grads = fault
+            lo = make_train_step(state.system)(state, rows, dp_noise(
+                state.system, dev, DP_PARITY_BATCH, i))[0]
+            losses.append({k: float(v) for k, v in lo.items()})
+            got = dp_state_dict(state)
+            if ref is not None:
+                gaps.append(parity_gaps(got, ref["states"][i],
+                                        ref["grads"][i], state.system.cfg.lr,
+                                        dev))
+            del got
+        return losses, gaps, state, n_params
+
+    losses, gaps, state, n_params = parity_steps()
+    par = state.parallel
+    parity = dict(losses=losses, held=par.held_bytes(state),
+                  replicated=dict(params=4 * n_params, moments=8 * n_params))
+    if ref is not None:
+        parity.update(gaps=gaps, loss_gap=loss_gaps(losses, ref["losses"]))
+    if mode != "dp":
+        named = {**ckpt.g_params(state.system), **{
+            f"D.{k}": v for k, v in ckpt.d_params(state.system).items()}}
+        names = {id(p): n for n, p in named.items()}
+        follow, n_split = True, 0
+        for opt in (state.opt_g, state.opt_d):
+            for p, shard, (shape, _) in zip(opt.model_params, opt.shards,
+                                            opt.meta):
+                name = names[id(p)].removeprefix("D.")
+                d = shard_dim(name, shape, layout.data.size)
+                want = list(shape)
+                if d is not None:
+                    want[d] //= layout.data.size
+                    n_split += 1
+                follow &= list(shard.shape) == want
+                if mode == "fsdp" and d is not None:
+                    follow &= p.numel() == 0      # freed between steps
+        parity.update(shards_follow_leaf_spec=follow, sharded_leaves=n_split)
+    rec["parity"] = parity
+    if mode == "zero":
+        with par.full_state(state):
+            if world.rank == 0:
+                ckpt.save_train_state(state, os.path.join(WORK, "dp_zero_ck"),
+                                      "latest")
+        layout.members.barrier()
+        lo = make_train_step(state.system)(state, rows, dp_noise(
+            state.system, dev, DP_PARITY_BATCH, DP_PARITY_STEPS))[0]
+        rec["third_step_losses"] = {k: float(v) for k, v in lo.items()}
+        third = dp_state_dict(state)
+        if world.rank == 0:
+            torch.save(third, os.path.join(WORK, "dp_zero_step3.pt"))
+        del third
+    del state, par
+    if mode == "dp":
+        # the planted faults the parity bounds must reject
+        def unreduced(state):
+            pass
+
+        def summed(state):
+            par = state.parallel
+            all_reduce_mean_([p.grad for p in par._params(state)
+                              if p.grad is not None], par.members, 1)
+
+        parity["faults"] = {}
+        for name, fault in zip(DP_FAULTS, (unreduced, summed)):
+            lo, fault_gaps, _, _ = parity_steps(fault)
+            if ref is not None:
+                parity["faults"][name] = dict(
+                    gaps=fault_gaps, loss_gap=loss_gaps(lo, ref["losses"]))
+    del rows, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"]["parity"] = time.perf_counter() - t0
+
+    # -- timing and launch leg (bf16), cuDNN timing its algorithms
+    torch.backends.cudnn.benchmark = True
+    counters = {"mdct2": mdct2, "instance_norm_act": instance_norm_act,
+                "instance_norm_act_grad": instance_norm_act_grad}
+    layout = mesh.make_data_layout(world, DP_TIMING_BATCH)
+    state = dp_train_state(dev, "bfloat16", DP_TIMING_BATCH)
+    par = apply(state, layout)
+    step = make_train_step(state.system)
+    rows = own(flagship_train_batch(dev, DP_TIMING_BATCH), layout)
+    seeds = iter(range(100, 200))
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(next(seeds))
+        return step(state, rows, gen)[0]
+
+    run()
+    torch.cuda.synchronize()
+    groups = {"members": layout.members, "data": layout.data}
+    for fn in counters.values():
+        reset_counts(fn)
+    for g in groups.values():
+        g.reset_traffic()
+    torch.cuda.reset_peak_memory_stats()
+    wall, losses = [], []
+    for _ in range(DP_TIMING_STEPS):
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        losses.append({k: float(v) for k, v in run().items()})
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t_step)
+    n = DP_TIMING_STEPS
+    traffic = {k: g.traffic() for k, g in groups.items()}
+    rec["timing"] = dict(
+        rows=DP_TIMING_BATCH // layout.data.size, step_s=wall,
+        step_s_mean=sum(wall) / n, losses=losses,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        gloo_bytes_per_step=sum(v["bytes"] for t in traffic.values()
+                                for v in t.values()) / n,
+        traffic=traffic, held=par.held_bytes(state),
+        launches_per_step={k: fn.launches / n for k, fn in counters.items()},
+        mdct2_tc_per_step=mdct2.launches_tc / n,
+        in_onepass_per_step=instance_norm_act.launches_onepass / n,
+        in_grad_by_route_per_step={
+            k: v / n for k, v in instance_norm_act_grad.launches_by_route.items()})
+    rec["seconds"]["timing"] = time.perf_counter() - t0
+    with open(os.path.join(WORK, f"{mode}_rank{world.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    mesh.shutdown()
+    return 0
+
+
+def dp_cli_rank_worker() -> int:
+    """One rank of the training CLI under 2 ranks (`--rank-worker cli`,
+    the launcher's variables set as torchrun sets them), flagship width,
+    --zero_opt_state, on phase 12's corpus (4 wavs) at batch 2: 2 steps
+    saving at the epoch's end, then --continue_train for 2 more, whose
+    first step must start from the saved G and D. Writes
+    WORK/cli_rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from pix2pixhdaudiosr_torch import train_loop
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import mdct2
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_grad)
+    counters = {"mdct2": mdct2, "instance_norm_act": instance_norm_act,
+                "instance_norm_act_grad": instance_norm_act_grad}
+    expr = os.path.join(WORK, "dp_cli")
+    argv = ["--name", "dp_cli", "--checkpoints_dir", WORK, "--dataroot",
+            os.path.join(WORK, "corpus"), "--device", "cuda:0", *FLAGSHIP,
+            "--batchSize", "2", "--niter_decay", "0", "--no_html",
+            "--validation_split", "0", "--print_freq", "2",
+            "--save_latest_freq", "0", "--save_epoch_freq", "1",
+            "--zero_opt_state"]
+    state, out, secs = run_cli(train_loop.main, [*argv, "--niter", "1"],
+                               counters)
+    rec = dict(rank=int(os.environ["RANK"]), mode=state.parallel.mode,
+               seconds=secs, step=state.step,
+               launches={k: fn.launches for k, fn in counters.items()},
+               log=[ln for ln in out.splitlines() if ln.startswith(
+                   ("data-parallel", "(epoch", "saving"))])
+    del state
+    dist.barrier()     # rank 0's files are whole before any rank reads them
+    saved = {k: torch.load(os.path.join(expr, f"latest_net_{k}.pth"),
+                           weights_only=True) for k in ("G", "D")}
+    first = {}
+    make_step = train_loop.make_train_step
+
+    def hooked(system):
+        step = make_step(system)
+
+        def first_step(state, *args, **kw):
+            if not first:
+                nets = {"G": system.netG_train, "D": system.netD}
+                first["equal"] = {k: all(
+                    torch.equal(v.cpu(), saved[k][n])
+                    for n, v in nets[k].state_dict().items()) for k in saved}
+                first["step"] = state.step
+            return step(state, *args, **kw)
+        return first_step
+
+    train_loop.make_train_step = hooked
+    try:
+        state, out2, secs2 = run_cli(train_loop.main, [
+            *argv, "--niter", "2", "--continue_train"])
+    finally:
+        train_loop.make_train_step = make_step
+    rec.update(resume_seconds=secs2, final_step=state.step,
+               resumed=first, resume_line="Resuming from epoch 2 at "
+               "iteration 0" in out2.splitlines())
+    with open(os.path.join(WORK, f"cli_rank{rec['rank']}.json"), "w") as f:
+        json.dump(rec, f)
+    from pix2pixhdaudiosr_torch.parallel import mesh
+    mesh.shutdown()
+    return 0
+
+
+def phase_dp_ranks(dev) -> dict:
+    """Phase 16: the one-process f32 reference (2 flagship steps on 8
+    seeded rows, the second from its `latest` after the first, restored
+    into another init: dp_parity_state; each step's grads kept) and its
+    rounding floor (the same steps on the rows in DP_ORDERS, every batch
+    sum in another order: the widest parity_gaps between two orders, step
+    by step); then dp, zero and fsdp at DP_RANKS ranks (dp_rank_worker,
+    each step from the same start): each rank's parameters and moments
+    within parity_bounds of the reference step by step, its losses within
+    DP_FLOOR_FACTOR x the floor's (relative, step by step), every rank's
+    losses equal, ZeRO's and FSDP's slices per shard_dim and the bytes held
+    between steps (ZeRO: moments 1/N of the shardable leaves'; FSDP:
+    parameters too); the floor within the same bounds and dp's planted
+    faults (DP_FAULTS) beyond them; the per-rank launches of a bf16 step
+    at 32 rows (B1 2 on the tensor cores, B3 40 one-pass, B3' 40) with its
+    wall time, gloo bytes and peak memory; ZeRO's `latest` resumed in this
+    process to the same third step (parameters and moments within
+    parity_bounds of one step, losses rtol 1e-4); and the training CLI
+    under 2 ranks with --zero_opt_state and its --continue_train. The
+    parity readings are all taken before any is checked."""
+    import torch
+    from pix2pixhdaudiosr_torch.trainer import make_train_step
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False     # as the ranks' parity leg
+    t0 = time.perf_counter()
+    batch = flagship_train_batch(dev, DP_PARITY_BATCH)
+    ref, floor, floor_loss, fails = dict(losses=[], states=[], grads=[]), [], \
+        0.0, []
+    for i in range(DP_PARITY_STEPS):
+        runs = {}
+        for name, order in DP_ORDERS.items():
+            state = dp_parity_state(dev, i)
+            data = {k: v[order].contiguous() for k, v in batch.items()}
+            lo = make_train_step(state.system)(state, data, dp_noise(
+                state.system, dev, DP_PARITY_BATCH, i)[order].contiguous())[0]
+            runs[name] = ({k: float(v) for k, v in lo.items()},
+                          dp_state_dict(state))
+            if name != "one":
+                add_noise(grads, dp_grads(state.system))
+            else:
+                grads = dp_grads(state.system)
+                if i + 1 < DP_PARITY_STEPS:
+                    ckpt.save_train_state(state, os.path.join(
+                        WORK, f"dp_ref_step{i + 1}"), "latest")
+            lr = state.system.cfg.lr
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the floor: the widest gap between two orders of the rows
+        pairs = [(a, b) for j, a in enumerate(runs) for b in list(runs)[j + 1:]]
+        gaps = [parity_gaps(runs[a][1], runs[b][1], grads, lr, dev)
+                for a, b in pairs]
+        floor.append({kind: max(g[kind] for g in gaps) for kind in gaps[0]})
+        floor_loss = max(floor_loss, *(loss_gaps([runs[a][0]], [runs[b][0]])
+                                       for a, b in pairs))
+        for key, value in zip(("losses", "states", "grads"),
+                              (runs["one"][0], runs["one"][1], grads)):
+            ref[key].append(value)
+        del runs
+    res = dict(floor=[parity_bounds(f) for f in floor],
+               floor_loss_gap=floor_loss, modes={}, grad_noise=[max(
+                   (n / max(g["grads"][k].abs().max().item(), 1e-30), k)
+                   for k, n in g["noise"].items() if k not in g["void"])
+                   for g in ref["grads"]])
+    print("[dp] rounding floor (the rows in 3 orders): " + json.dumps(res))
+    for i, f in enumerate(res["floor"]):
+        if beyond(f):
+            fails.append(f"the rounding floor of step {i + 1} beyond the "
+                         f"bounds: {f}")
+    torch.save(ref, os.path.join(WORK, "dp_ref.pt"))
+    ref_losses = ref["losses"]
+    del ref
+    gc.collect()
+    res["seconds"] = dict(reference=time.perf_counter() - t0)
+    for mode in DP_MODES:
+        t1 = time.perf_counter()
+        recs = run_ranks(mode, DP_RANKS)
+        res["seconds"][mode] = time.perf_counter() - t1
+        first = recs[0]
+        par = first["parity"]
+        check(all(r["parity"]["losses"] == par["losses"] for r in recs),
+              f"{mode}: the ranks report different losses")
+        if par["loss_gap"] > DP_FLOOR_FACTOR * res["floor_loss_gap"] + 1e-6:
+            fails.append(f"{mode}: losses {par['losses']} against one "
+                         f"process {ref_losses}, beyond {DP_FLOOR_FACTOR}x "
+                         f"the floor's {res['floor_loss_gap']}")
+        par["within"] = [parity_bounds(g) for g in par["gaps"]]
+        if any(map(beyond, par["within"])):
+            fails.append(f"{mode} at {DP_RANKS} ranks, f32: beyond the "
+                         f"bounds: {par['within']}")
+        for name, fault in par.get("faults", {}).items():
+            fault["within"] = [parity_bounds(g) for g in fault["gaps"]]
+            if not any(map(beyond, fault["within"])):
+                fails.append(f"the planted fault `{name}` within the "
+                             f"bounds: {fault['within']}")
+        held, rep = par["held"], par["replicated"]
+        if mode != "dp":
+            check(par["shards_follow_leaf_spec"] and par["sharded_leaves"] > 0,
+                  f"{mode}: slices off shard_dim")
+            check(held["moments"] < 0.6 * rep["moments"],
+                  f"{mode}: moments held {held} of {rep}")
+        check(held["params"] < 0.6 * rep["params"] if mode == "fsdp"
+              else held["params"] == rep["params"],
+              f"{mode}: parameters held {held} of {rep}")
+        for r in recs:
+            t = r["timing"]
+            for k, want in DP_STEP_LAUNCHES.items():
+                check(t["launches_per_step"][k] == want, f"{mode} rank "
+                      f"{r['rank']}: {k} {t['launches_per_step'][k]} a step, "
+                      f"expected {want}")
+            check(t["mdct2_tc_per_step"] == TRAIN_MDCT_LAUNCHES
+                  and t["in_onepass_per_step"] == TRAIN_IN_LAUNCHES,
+                  f"{mode} rank {r['rank']}: off the fast routes {t}")
+            check(all(v == v and abs(v) != float("inf") for lo in t["losses"]
+                      for v in lo.values()), f"{mode}: a bf16 loss is not "
+                  f"finite")
+        res["modes"][mode] = recs
+        print(f"[dp {mode}] " + json.dumps({
+            "parity": par, "timing": [
+                {k: r["timing"][k] for k in (
+                    "step_s", "gloo_bytes_per_step", "peak_gib",
+                    "launches_per_step", "held")} for r in recs]}))
+    # ZeRO's checkpoint, resumed in one process to the same third step
+    state = dp_train_state(dev, "float32", DP_PARITY_BATCH, seed=99)
+    ckpt.load_train_state(state, "latest", os.path.join(WORK, "dp_zero_ck"))
+    check(state.step == DP_PARITY_STEPS, f"the ZeRO save resumed at step "
+          f"{state.step}")
+    lo = make_train_step(state.system)(state, batch, dp_noise(
+        state.system, dev, DP_PARITY_BATCH, DP_PARITY_STEPS))[0]
+    zero3 = torch.load(os.path.join(WORK, "dp_zero_step3.pt"),
+                       weights_only=True)
+    want = res["modes"]["zero"][0]["third_step_losses"]
+    # each leaf's grad noise as the reference's last step read it
+    third = dict(dp_grads(state.system), noise=grads["noise"])
+    resume = dict(loss_gap=loss_gaps([want], [{k: float(v) for k, v in
+                                               lo.items()}]),
+                  within=parity_bounds(parity_gaps(
+                      zero3, dp_state_dict(state), third, lr, dev)))
+    print("[dp] ZeRO resumed in one process: " + json.dumps(resume))
+    if resume["loss_gap"] > 1e-4:
+        fails.append(f"the resumed third step's losses {lo} against ZeRO's "
+                     f"{want}")
+    if beyond(resume["within"]):
+        fails.append(f"ZeRO resumed in one process: beyond the bounds: "
+                     f"{resume['within']}")
+    res["zero_resume"] = resume
+    del state, zero3
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    # the training CLI under 2 ranks
+    t1 = time.perf_counter()
+    cli = run_ranks("cli", DP_RANKS)
+    res["seconds"]["cli"] = time.perf_counter() - t1
+    for r in cli:
+        check(r["mode"] == "zero" and r["step"] == 2 and r["final_step"] == 4
+              and r["resume_line"] and r["resumed"]["step"] == 2
+              and r["resumed"]["equal"] == {"G": True, "D": True},
+              f"the CLI under 2 ranks, rank {r['rank']}: {r}")
+        check(r["launches"]["instance_norm_act"] == 2 * TRAIN_IN_LAUNCHES
+              and r["launches"]["mdct2"] == 2 * TRAIN_MDCT_LAUNCHES,
+              f"the CLI rank {r['rank']} launches {r['launches']}")
+    check(os.path.exists(os.path.join(WORK, "dp_cli", "latest_optim.pth")),
+          "the CLI under 2 ranks saved no latest_optim.pth")
+    res["cli"] = cli
+    print("[dp] " + json.dumps({k: v for k, v in res.items() if k != "modes"}))
+    check(not fails, "phase 16's parity: " + "; ".join(fails))
+    return res
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3690,6 +4334,7 @@ def main() -> int:
         print("[in grad] a train step's calls: " + json.dumps(in_bwd))
         cli = timed("cli", phase_cli, dev, train_counters)
         flac = timed("flac", phase_flac)
+        dp = timed("dp ranks", phase_dp_ranks, dev)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -3728,6 +4373,9 @@ def main() -> int:
                         for r in knobs},
                     family_a_launches_per_step=family_a[
                         "launches_per_step"].get(k, 0),
+                    dp_launches_per_step={
+                        mode: recs[0]["timing"]["launches_per_step"].get(k, 0)
+                        for mode, recs in dp["modes"].items()},
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}) for k in KERNELS]
@@ -3743,7 +4391,7 @@ def main() -> int:
         remat_grads=remat, train_cli=train_cli, recipe_cli=recipe_cli,
         family_a_cli=family_a,
         in_backward_per_step=in_bwd, cli=cli, flac=flac, cp_one_rank=cp1,
-        cp_ranks=cpn, tp_ranks=tpn, phase_seconds=phase_s)))
+        cp_ranks=cpn, tp_ranks=tpn, dp_ranks=dp, phase_seconds=phase_s)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ is served with --torch_deconv.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import torch.nn as nn
 
@@ -72,6 +72,20 @@ def jax_to_torch_generator(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 jax_to_torch_discriminator = jax_to_torch_generator
+
+
+def jax_layout(name: str, ndim: int) -> Tuple[int, ...]:
+    """The permutation `perm` of the conversion above for the tensor
+    `name` (a state_dict key) of `ndim` dims: its dim k is the flax leaf's
+    dim perm[k]. Conv weights OIHW from HWIO (3, 2, 0, 1), deconv weights
+    (2, 3, 0, 1), 1-D conv weights (2, 1, 0); every other leaf as it is."""
+    if ndim == 4:
+        parts = name.split(".")
+        deconv = len(parts) > 1 and parts[-2] == "ConvTranspose_0"
+        return (2, 3, 0, 1) if deconv else (3, 2, 0, 1)
+    if ndim == 3:
+        return (2, 1, 0)
+    return tuple(range(ndim))
 
 
 @torch.no_grad()

@@ -26,7 +26,7 @@ import os
 import queue
 import struct
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -148,11 +148,14 @@ class Loader:
     """Threaded, prefetching batch loader over dataset indices: batches of
     `batch_size` (the last partial one dropped when drop_last), shuffled
     anew each epoch from seed + epoch, decoded by `n_threads` threads and
-    delivered in order."""
+    delivered in order. With `shard=(rank, n)` (data parallelism) the
+    batches are the same global ones and this loader decodes and delivers
+    only rank `rank`'s equal share of each batch's rows."""
 
     def __init__(self, dataset, indices: Sequence[int], batch_size: int,
                  shuffle: bool = True, seed: int = 1234, n_threads: int = 2,
-                 drop_last: bool = True, prefetch: int = 4):
+                 drop_last: bool = True, prefetch: int = 4,
+                 shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.indices = list(indices)
         self.batch_size = batch_size
@@ -162,6 +165,12 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.epoch = 0
+        rank, n = shard
+        if batch_size % n:
+            raise ValueError(f"a batch of {batch_size} does not split over "
+                             f"{n} ranks")
+        self.rows = slice(rank * (batch_size // n),
+                          (rank + 1) * (batch_size // n)) if n > 1 else slice(None)
 
     def __len__(self) -> int:
         n = len(self.indices)
@@ -186,7 +195,7 @@ class Loader:
         stop = threading.Event()
 
         def collate(batch_idx):
-            items = [self.dataset[i] for i in batch_idx]
+            items = [self.dataset[i] for i in batch_idx[self.rows]]
             return {"image": np.stack([it["image"] for it in items]),
                     "label": np.stack([it["label"] for it in items]),
                     "path": [it["path"] for it in items]}

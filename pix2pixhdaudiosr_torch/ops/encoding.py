@@ -13,6 +13,15 @@ argument (the mask's standard-normal `noise=`, the phase encoding's
 in). `to_frames` and `to_audio` are differentiable and compute in f32:
 callers run them outside autocast, as the JAX step runs them on an f32 G
 output.
+
+Data parallelism: `to_spectro` and `to_audio` take the `group` of ranks
+over which the global batch is split (parallel/mesh.py; each rank holds
+its equal share of the rows, in rank order). The normalization's mean,
+variance, max and min are then taken over the whole batch (all-reduced),
+and every draw is made at the global batch's shape from the generator on
+every rank, each rank keeping its own rows: a split step normalizes and
+draws exactly as one process does on the whole batch. `group=None` (or a
+group of one rank) is the one-process computation, bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +57,39 @@ class CodecConfig:
     phase_encoding_mode: Optional[str] = None
 
 
+def _split(group) -> bool:
+    return group is not None and group.size > 1
+
+
+def _global_shape(shape, group) -> Tuple[int, ...]:
+    """The whole batch's shape of a rank's rows `shape`."""
+    if not _split(group):
+        return tuple(shape)
+    return (shape[0] * group.size, *shape[1:])
+
+
+def _own_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's rows of a whole-batch tensor."""
+    if not _split(group):
+        return x
+    return x.chunk(group.size)[group.rank]
+
+
+def batch_moments(x: torch.Tensor, group):
+    """(mean, std, max, min) of x over the whole batch: as torch takes them
+    in one process, or over the group's ranks (a SUM all-reduce for the
+    mean, then one of the squared deviations from it: the two passes of
+    torch.var, not E[x^2] - mean^2, which cancels at dB magnitudes; MAX of
+    (max, -min))."""
+    if not _split(group):
+        return (x.mean(), torch.sqrt(x.var(correction=0)), x.max(), x.min())
+    count = x.numel() * group.size
+    mean = group.all_reduce_sum(x.sum()) / count
+    var = group.all_reduce_sum(((x - mean) ** 2).sum()) / count
+    top = group.all_reduce_max(torch.stack([x.max(), -x.min()]))
+    return mean, torch.sqrt(var), top[0], -top[1]
+
+
 class SpectroCodec:
     """MDCT2/IMDCT2 with the kbd window on one device."""
 
@@ -71,7 +113,8 @@ class SpectroCodec:
                    noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    return_frames: bool = False,
-                   phase_noise: Optional[torch.Tensor] = None
+                   phase_noise: Optional[torch.Tensor] = None,
+                   group=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """[B, S] waveform -> (log_spectro [B,F,T,C], pha [B,F,T], norm_param).
 
@@ -83,7 +126,10 @@ class SpectroCodec:
         explicit encoding, the random phase encodings scale pha by a draw of
         its shape: uniform (uni_dist), min/max-normalized normal
         (norm_dist) or |normal| (norm_dist2), the raw draw `phase_noise` if
-        given, else drawn from `generator`."""
+        given, else drawn from `generator`. With a `group` of ranks that
+        split the batch, `audio` is this rank's rows, the statistics are
+        the whole batch's, and `noise` and `phase_noise` (given or drawn)
+        are the whole batch's draws, of which this rank keeps its rows."""
         cc = self.cc
         if return_frames:
             spec_tn, frames = self.mdct(audio, return_ola=True)
@@ -102,17 +148,14 @@ class SpectroCodec:
                                           20.0, cc.min_value, 1.0)[..., None]
         pha = torch.sign(spectro)
         if not cc.explicit_encoding and cc.phase_encoding_mode is not None:
-            pha = self._encode_phase(pha, phase_noise, generator)
+            pha = self._encode_phase(pha, phase_noise, generator, group)
 
-        mean = log_spectro.mean()
-        std = torch.sqrt(log_spectro.var(correction=0))
-        amax = log_spectro.max()
-        amin = log_spectro.min()
+        mean, std, amax, amin = batch_moments(log_spectro, group)
         log_spectro = (log_spectro - amin) / (amax - amin)
 
         if mask:
             b, f, t, c = log_spectro.shape
-            shape = (b, self.mask_size(f), t, c)
+            shape = _global_shape((b, self.mask_size(f), t, c), group)
             if noise is None:
                 noise = torch.randn(shape, generator=generator,
                                     device=self.device, dtype=log_spectro.dtype)
@@ -133,7 +176,8 @@ class SpectroCodec:
                 noise = torch.zeros_like(noise)
             else:
                 raise ValueError(f"unknown mask_mode {cc.mask_mode!r}")
-            log_spectro = torch.cat([log_spectro[:, : f - shape[1]], noise], dim=1)
+            log_spectro = torch.cat([log_spectro[:, : f - shape[1]],
+                                     _own_rows(noise, group)], dim=1)
 
         norm_param = {"max": amax, "min": amin, "mean": mean, "std": std}
         if return_frames:
@@ -141,25 +185,27 @@ class SpectroCodec:
         return log_spectro, pha, norm_param
 
     def _encode_phase(self, pha: torch.Tensor, draw: Optional[torch.Tensor],
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator],
+                      group=None) -> torch.Tensor:
         mode = self.cc.phase_encoding_mode
         if mode == "scale":
             return pha * 0.5
         if mode not in RANDOM_PHASE_ENCODINGS:
             return pha
+        shape = _global_shape(pha.shape, group)
         if draw is None:
             sample = torch.rand if mode == "uni_dist" else torch.randn
-            draw = sample(pha.shape, generator=generator, device=pha.device,
+            draw = sample(shape, generator=generator, device=pha.device,
                           dtype=pha.dtype)
-        elif draw.shape != pha.shape:
+        elif tuple(draw.shape) != shape:
             raise ValueError(f"phase_noise shape {tuple(draw.shape)} != "
-                             f"{tuple(pha.shape)}")
+                             f"{shape}")
         draw = draw.to(pha)
         if mode == "norm_dist":
             draw = (draw - draw.min()) / (draw.max() - draw.min())
         elif mode == "norm_dist2":
             draw = draw.abs()
-        return pha * draw
+        return pha * _own_rows(draw, group)
 
     # ------------------------------------------------------------------
     def denormalize(self, log_spectro: torch.Tensor, norm_param) -> torch.Tensor:
@@ -184,13 +230,16 @@ class SpectroCodec:
     def to_audio(self, log_spectro: torch.Tensor, norm_param,
                  pha: Optional[torch.Tensor] = None,
                  signs: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 group=None) -> torch.Tensor:
         """The HiFi-GAN discriminator's waveform of a G output: denormalize,
         recombine (explicit: _combine_explicit; else channel 0 times pha,
         whose bins from int(F / up_ratio) up take a random sign, 2 * signs -
         1, with `signs` a {0, 1} draw of pha's shape, given or drawn from
         `generator`), the un-segmented IMDCT2, times sqrt(up_ratio - 1).
-        [B, F, T, C] -> [B, (T - 1) * hop] (centered)."""
+        [B, F, T, C] -> [B, (T - 1) * hop] (centered). With a `group`
+        (to_spectro), `signs` is the whole batch's draw, of which this rank
+        keeps its rows."""
         cc = self.cc
         spectro = self.denormalize(log_spectro, norm_param)
         if cc.explicit_encoding:
@@ -200,9 +249,10 @@ class SpectroCodec:
             if cc.up_ratio > 1:
                 cut = int(pha.shape[-2] * (1 / cc.up_ratio))
                 if signs is None:
-                    signs = torch.randint(0, 2, pha.shape, generator=generator,
+                    signs = torch.randint(0, 2, _global_shape(pha.shape, group),
+                                          generator=generator,
                                           device=pha.device)
-                pseudo = 2 * signs.to(pha) - 1
+                pseudo = 2 * _own_rows(signs, group).to(pha) - 1
                 pha = torch.cat([pha[..., :cut, :], pseudo[..., cut:, :]], dim=-2)
             spectro = spectro * pha
         audio = self.imdct(spectro.transpose(-1, -2))

@@ -145,6 +145,9 @@ class Pix2PixHDSystem:
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+        # the ranks that split a train step's batch (parallel/dp.py); None:
+        # this process trains on the whole batch
+        self.data_group = None
         self.codec = make_codec(cfg, device)
         self.dtype = getattr(torch, cfg.compute_dtype)
         if cfg.is_train:
@@ -238,19 +241,25 @@ class Pix2PixHDSystem:
     # ------------------------------------------------------------------
     def encode_input(self, lr_audio: torch.Tensor,
                      noise: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     group=None):
         """The lr side of the reference encode: always masked; with
-        --use_time_D on a training system, norm_param["frames"] too."""
+        --use_time_D on a training system, norm_param["frames"] too. With
+        `group`, over the whole batch split over its ranks
+        (codec.to_spectro)."""
         return self.codec.to_spectro(lr_audio, mask=True, noise=noise,
                                      generator=generator,
-                                     return_frames=self._need_frames)
+                                     return_frames=self._need_frames,
+                                     group=group)
 
     def encode_target(self, hr_audio: torch.Tensor,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      group=None):
         """The hr side of the reference encode: never masked (the random
         phase encodings draw from `generator`)."""
         return self.codec.to_spectro(hr_audio, mask=False, generator=generator,
-                                     return_frames=self._need_frames)
+                                     return_frames=self._need_frames,
+                                     group=group)
 
     @property
     def _need_frames(self) -> bool:
@@ -386,6 +395,13 @@ class Pix2PixHDSystem:
         frames and waveform) runs once, in f32 outside autocast, and its
         detached value feeds the D side (JAX computes it again there from
         the same input and rng, to the same value).
+        Under data parallelism (`data_group`: parallel/dp.py) `batch` is
+        this rank's rows of the global batch and `noise` the global batch's
+        draw: the encode normalizes over the whole batch and every draw is
+        the whole batch's (codec.to_spectro); each loss and grad is this
+        rank's local mean, whose mean over the ranks (equal shares) is the
+        global one; the returned losses are that mean, the same on every
+        rank.
         Returns (the filtered losses, detached f32 scalars;
         {"sr": G output [B,F,T,C] f32, "fake_pair": the D input pair of
         this step's G output, and with `with_visuals` "visuals":
@@ -393,11 +409,12 @@ class Pix2PixHDSystem:
         cfg = self.cfg
         use_lsgan = not cfg.no_lsgan
         train_g, train_d = "G" in grads, "D" in grads
+        group = self.data_group
         with torch.no_grad():
             lr_spec, lr_pha, lr_norm = self.encode_input(batch["label"], noise,
-                                                         generator)
+                                                         generator, group)
             hr_spec, hr_pha, hr_norm = self.encode_target(batch["image"],
-                                                          generator)
+                                                          generator, group)
         for p in (q for nets in (self.g_nets(), self.d_nets())
                   for net in nets.values() for q in net.parameters()):
             p.grad = None
@@ -444,7 +461,8 @@ class Pix2PixHDSystem:
                                                self.time_frames(frames))
                 if cfg.use_hifigan_d:
                     wav = self.codec.to_audio(sr_leaf, lr_norm, pha=lr_pha,
-                                              generator=generator)
+                                              generator=generator,
+                                              group=group)
             with self._autocast():
                 if time_x is not None:
                     parts["G_GAN_t"] = parts["G_GAN_t"] + gan_loss(
@@ -483,6 +501,11 @@ class Pix2PixHDSystem:
 
         losses = filter_losses({k: v.detach() for k, v in parts.items()},
                                self.flags)
+        if group is not None and group.size > 1:
+            # one all-reduce: the mean of the ranks' local means
+            mean = group.all_reduce_sum(torch.stack(
+                [v.float() for v in losses.values()])) / group.size
+            losses = dict(zip(losses, mean.unbind()))
         aux = {"sr": sr_d, "fake_pair": fake_pair}
         if with_visuals:
             aux["visuals"] = self.visual_slices(lr_spec, sr_d, hr_spec, hr_pha)

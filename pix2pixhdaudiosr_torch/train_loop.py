@@ -16,6 +16,21 @@ decay after `niter` epochs, and the fake pool (--pool_size).
 
     python -m pix2pixhdaudiosr_torch.train_loop <the JAX CLI's flags> \
         [--device cuda|cpu]
+    python -m torch.distributed.run --nproc_per_node N \
+        -m pix2pixhdaudiosr_torch.train_loop <flags> \
+        [--zero_opt_state | --fsdp] [--mesh_shape S --mesh_axes A]
+
+Under a launcher (torchrun), the ranks train one global-batch step
+together, as the JAX loop does over its data mesh (train_loop.py:102-109):
+the mesh of make_data_layout (--mesh_shape / --mesh_axes; by default the
+largest divisor of --batchSize that fits the ranks, the rest sitting out),
+the batch split over its `data` axis (each rank's Loader decodes its rows
+of the same shuffled global batches), then FSDP (--fsdp), else ZeRO-1
+(--zero_opt_state), else plain data parallelism (parallel/). Rank 0
+alone writes checkpoints, iter.txt, the logs, eval.csv and the gallery;
+every rank takes part in a save's gathers and stops at the same step on
+Ctrl+C or a non-finite loss. In one process the loop is the one-process
+loop, and --zero_opt_state / --fsdp shard over one rank: nothing.
 
 The device defaults to cuda; the CPU runs only when asked for (--device
 cpu), and then every kernel runs its plain PyTorch twin. On the card the
@@ -32,11 +47,13 @@ in mid-epoch replays that epoch's first batches.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import math
 import os
 import signal
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -47,29 +64,38 @@ from .data.filelist import discover_files, train_val_split
 from .generate import resolve_device, seeded_noise
 from .metrics import append_csv_row, compute_metrics
 from .ops import _cuda
+from .parallel import mesh
+from .parallel.dp import apply_dp, pool_rows
+from .parallel.fsdp import apply_fsdp
+from .parallel.zero import apply_zero
 from .system import Pix2PixHDSystem, check_trainable
 from .trainer import (TrainState, init_state, make_eval_step, make_pool_steps,
                       make_train_step, reset_opt_g, set_learning_rate)
 from .utils import checkpoint as ckpt
 from .utils.image_pool import ImagePool
-from .utils.visualizer import Visualizer
-
-# (condition on the config, what it asks for, the ROADMAP item that brings it)
-_NOT_YET = (
-    (lambda c: c.zero_opt_state or c.fsdp, "--zero_opt_state / --fsdp",
-     "the training half of the parallel modes, ROADMAP A11b"),
-)
+from .utils.visualizer import Visualizer, require_gallery_packages
 
 
 def check_supported(cfg) -> None:
-    for cond, what, where in _NOT_YET:
-        if cond(cfg):
-            raise SystemExit(f"{what} is not ported to pix2pixhdaudiosr_torch "
-                             f"yet; it comes with {where}")
     try:
         check_trainable(cfg)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+
+
+def apply_parallel(state: TrainState, layout: mesh.DataLayout, cfg) -> None:
+    """Make `state` a train state of the layout's ranks, as the JAX loop
+    shards its state: FSDP, else ZeRO-1, else plain data parallelism; in a
+    one-rank mesh, nothing."""
+    if layout.members.size == 1:
+        return
+    apply = (apply_fsdp if cfg.fsdp else apply_zero if cfg.zero_opt_state
+             else apply_dp)
+    par = apply(state, layout)
+    print(f"data-parallel ({par.mode}) over mesh "
+          f"{dict(zip(layout.axes, layout.shape))}: rank "
+          f"{layout.members.rank}, data index {layout.data.rank}, "
+          f"{cfg.batch_size // layout.data.size} rows a step")
 
 
 def require_kernels(device: torch.device) -> None:
@@ -122,15 +148,25 @@ def eval_model(system: Pix2PixHDSystem, eval_step, loader,
             "pesq": float(np.mean(pesqs)), "lsd": float(np.mean(lsds))}
 
 
-def main(argv=None) -> TrainState:
-    """Run the CLI; returns the final train state."""
+def main(argv=None) -> Optional[TrainState]:
+    """Run the CLI; returns the final train state (None on a rank outside
+    the training mesh)."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
     args, rest = pre.parse_known_args(argv)
-    cfg = parse_config(rest, is_train=True)
+    cfg = parse_config(rest, is_train=True, save=mesh.env_rank() == 0)
     check_supported(cfg)
-    device = resolve_device(args.device)
+    world = mesh.initialize(resolve_device(args.device))
+    device = world.device
     require_kernels(device)
+    layout = mesh.make_data_layout(world, cfg.batch_size, cfg.mesh_shape,
+                                   cfg.mesh_axes)
+    if not layout.member:
+        print(f"rank {world.rank}: outside the {layout.members.size}-rank "
+              f"training mesh, idle")
+        return None
+    first = world.rank == 0      # writes every file
+    data = layout.data
     if device.type == "cuda":
         # f32 at full precision (the JAX package asks for Precision.HIGHEST);
         # cuDNN picks its fastest algorithm per shape
@@ -138,8 +174,13 @@ def main(argv=None) -> TrainState:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.benchmark = True
     np.random.seed(cfg.seed)
-    # before any work: stops here if the gallery's packages are missing
-    visualizer = Visualizer(cfg)
+    # before any work: stops here, on every rank, if the gallery's packages
+    # are missing
+    visualizer = None
+    if first:
+        visualizer = Visualizer(cfg)
+    elif not cfg.no_html:
+        require_gallery_packages()
 
     if cfg.continue_train:
         start_epoch, epoch_iter = ckpt.load_iter(cfg.expr_dir)
@@ -152,21 +193,29 @@ def main(argv=None) -> TrainState:
         raise SystemExit("--dataroot is required: a corpus directory or a "
                          "csv file list")
     files = discover_files(cfg.dataroot, cfg.max_dataset_size)
-    train_idx, val_idx = train_val_split(
-        len(files), cfg.validation_split, cfg.seed,
+    split = functools.partial(
+        train_val_split, len(files), cfg.validation_split, cfg.seed,
         os.path.join(cfg.expr_dir, "validation_indices.json")
         if cfg.validation_split > 0 else None)
+    # rank 0 persists the split first; the others read it
+    if first:
+        train_idx, val_idx = split()
+    layout.members.barrier()
+    if not first:
+        train_idx, val_idx = split()
+    # each data index draws its own segment offsets (rank 0: as one process)
     dataset = AudioDataset(cfg.dataroot, cfg.lr_sampling_rate,
                            cfg.hr_sampling_rate, cfg.segment_length,
-                           seed=cfg.seed, files=files)
+                           seed=cfg.seed if data.rank == 0 else
+                           [cfg.seed, data.rank], files=files)
     loader = Loader(dataset, train_idx, cfg.batch_size,
                     shuffle=not cfg.serial_batches, seed=cfg.seed,
-                    n_threads=cfg.n_threads)
-    # the eval keeps its partial batch, so that a validation split smaller
-    # than one batch still evaluates
+                    n_threads=cfg.n_threads, shard=(data.rank, data.size))
+    # the eval (rank 0, the whole batch) keeps its partial batch, so that a
+    # validation split smaller than one batch still evaluates
     eval_loader = Loader(dataset, val_idx, cfg.batch_size, shuffle=False,
                          seed=cfg.seed, n_threads=cfg.n_threads,
-                         drop_last=False) if val_idx else None
+                         drop_last=False) if val_idx and first else None
     if cfg.use_features and val_idx and cfg.eval_freq > 0:
         raise SystemExit(
             "the in-training eval of a feature config (--instance_feat / "
@@ -192,6 +241,8 @@ def main(argv=None) -> TrainState:
     elif cfg.load_pretrain:
         ckpt.load_train_state(state, cfg.which_epoch, cfg.load_pretrain)
         print("warm-started from %s" % cfg.load_pretrain)
+    apply_parallel(state, layout, cfg)
+    par = state.parallel
     use_pool = cfg.pool_size > 0
     pool = ImagePool(cfg.pool_size, cfg.seed)
     if use_pool:
@@ -210,8 +261,18 @@ def main(argv=None) -> TrainState:
     print_delta = total_steps % print_freq if print_freq > 0 else -1
     save_delta = (total_steps % cfg.save_latest_freq
                   if cfg.save_latest_freq > 0 else -1)
-    do_eval = eval_loader is not None and cfg.eval_freq > 0
+    do_eval = bool(val_idx) and cfg.eval_freq > 0
     eval_delta = total_steps % cfg.eval_freq if do_eval else -1
+
+    def whole():
+        """The nets and Adam states whole on every rank (a collective)."""
+        return par.full_state(state) if par else contextlib.nullcontext()
+
+    def save(*tags: str) -> None:
+        with whole():
+            if first:
+                for tag in tags:
+                    ckpt.save_train_state(state, cfg.expr_dir, tag)
 
     def guard_finite(losses, epoch: int, epoch_iter: int) -> Dict[str, float]:
         """The losses as floats. A non-finite one saves the state under the
@@ -219,7 +280,8 @@ def main(argv=None) -> TrainState:
         the print cadence and before every save."""
         errors = {k: float(v) for k, v in losses.items()}
         if not all(math.isfinite(v) for v in errors.values()):
-            ckpt.save_train_state(state, cfg.expr_dir, "diverged")
+            # every rank holds the same (all-reduced) losses: all stop here
+            save("diverged")
             raise SystemExit(
                 f"non-finite losses at epoch {epoch} iter {epoch_iter}: "
                 f"{errors}; state saved under the 'diverged' tag; resume "
@@ -244,14 +306,15 @@ def main(argv=None) -> TrainState:
             epoch_start_time = time.time()
             if epoch != start_epoch:
                 epoch_iter = epoch_iter % dataset_size
-            for data in loader:
-                if interrupted["flag"]:
+            for rows in loader:
+                # a Ctrl+C on any rank stops every rank at this step
+                if layout.members.agree(interrupted["flag"]):
                     guard_finite(losses, epoch, epoch_iter)
                     print("exiting and saving the model at epoch %d, iters %d"
                           % (epoch, total_steps))
-                    ckpt.save_train_state(state, cfg.expr_dir, "latest")
-                    ckpt.save_train_state(state, cfg.expr_dir, str(epoch))
-                    ckpt.save_iter(cfg.expr_dir, epoch + 1, 0)
+                    save("latest", str(epoch))
+                    if first:
+                        ckpt.save_iter(cfg.expr_dir, epoch + 1, 0)
                     return state
                 if print_freq > 0 and total_steps % print_freq == print_delta:
                     iter_start_time = time.time()
@@ -259,7 +322,7 @@ def main(argv=None) -> TrainState:
                 epoch_iter += cfg.batch_size
                 save_fake = (cfg.display_freq > 0
                              and total_steps % cfg.display_freq == display_delta)
-                batch = {k: torch.from_numpy(data[k]).to(device)
+                batch = {k: torch.from_numpy(rows[k]).to(device)
                          for k in ("label", "image")}
                 noise_seed = cfg.seed * 1000003 + total_steps
 
@@ -269,10 +332,10 @@ def main(argv=None) -> TrainState:
                                          fix_global=fix_global,
                                          with_visuals=save_fake)
                     # the pool lives on the host, as in the JAX package
-                    pooled = pool.query(aux["fake_pair"].cpu().numpy())
+                    pooled = pool_rows(pool, aux["fake_pair"], data)
                     d_losses = d_step(state, batch,
                                       _generator(device, noise_seed),
-                                      torch.from_numpy(pooled).to(device))
+                                      pooled.to(device))
                     losses = {**losses, **d_losses}
                 else:
                     losses, aux = step(state, batch,
@@ -283,10 +346,12 @@ def main(argv=None) -> TrainState:
                 if print_freq > 0 and total_steps % print_freq == print_delta:
                     errors = guard_finite(losses, epoch, epoch_iter)
                     t = (time.time() - iter_start_time) / print_freq
-                    visualizer.print_current_errors(epoch, epoch_iter, errors, t)
-                    visualizer.plot_current_errors(errors, total_steps)
+                    if first:
+                        visualizer.print_current_errors(epoch, epoch_iter,
+                                                        errors, t)
+                        visualizer.plot_current_errors(errors, total_steps)
 
-                if save_fake and visualizer.use_html:
+                if save_fake and first and visualizer.use_html:
                     raw = {k: v.cpu().numpy() for k, v in aux["visuals"].items()}
                     visualizer.display_current_results(
                         visualizer.render_visuals(raw, cfg.abs_spectro),
@@ -297,14 +362,19 @@ def main(argv=None) -> TrainState:
                     guard_finite(losses, epoch, epoch_iter)
                     print("saving the latest model (epoch %d, total_steps %d)"
                           % (epoch, total_steps))
-                    ckpt.save_train_state(state, cfg.expr_dir, "latest")
-                    ckpt.save_iter(cfg.expr_dir, epoch, epoch_iter)
+                    save("latest")
+                    if first:
+                        ckpt.save_iter(cfg.expr_dir, epoch, epoch_iter)
 
                 if do_eval and total_steps % cfg.eval_freq == eval_delta:
-                    result = eval_model(system, eval_step, eval_loader,
-                                        eval_noise)
-                    append_csv_row(eval_path, result)
-                    print("Evaluation:", result)
+                    # rank 0 over the whole eval batch; the others wait
+                    with whole():
+                        if first:
+                            result = eval_model(system, eval_step,
+                                                eval_loader, eval_noise)
+                            append_csv_row(eval_path, result)
+                            print("Evaluation:", result)
+                        layout.members.barrier()
 
                 if epoch_iter >= dataset_size:
                     break
@@ -317,9 +387,9 @@ def main(argv=None) -> TrainState:
                 guard_finite(losses, epoch, epoch_iter)
                 print("saving the model at the end of epoch %d, iters %d"
                       % (epoch, total_steps))
-                ckpt.save_train_state(state, cfg.expr_dir, "latest")
-                ckpt.save_train_state(state, cfg.expr_dir, str(epoch))
-                ckpt.save_iter(cfg.expr_dir, epoch + 1, 0)
+                save("latest", str(epoch))
+                if first:
+                    ckpt.save_iter(cfg.expr_dir, epoch + 1, 0)
 
             if cfg.niter_fix_global != 0 and epoch == cfg.niter_fix_global:
                 reset_opt_g(state, lr_value)
@@ -339,3 +409,4 @@ def main(argv=None) -> TrainState:
 
 if __name__ == "__main__":
     main()
+    mesh.shutdown()

@@ -13,7 +13,11 @@ starts a new G optimizer, the fake pool's G and D steps
 (`make_pool_steps`, :140-177) and the in-training eval's inference and
 inverse (`make_eval_step`, :180-191). Parameters and Adam moments are f32;
 the step computes in the compute dtype (system.py). The state is mutated
-in place, where the JAX step returns a new one.
+in place, where the JAX step returns a new one. Under the parallel modes
+(`TrainState.parallel`: parallel/dp.py, zero.py, fsdp.py) every step
+brackets its work with the strategy's `begin_step` (FSDP gathers the
+weights), `reduce_grads` after the backward and `end_step` after the
+optimizers; without one, a step is this process's alone.
 """
 
 from __future__ import annotations
@@ -113,11 +117,14 @@ class AdamMuBF16(torch.optim.Optimizer):
 @dataclass
 class TrainState:
     """The nets live in `system` (system.g_nets(): netG_train and netE;
-    system.d_nets(): netD, time_D, hifigan_D); `step` counts steps."""
+    system.d_nets(): netD, time_D, hifigan_D); `step` counts steps;
+    `parallel`: the data-parallel strategy (parallel/dp.DataParallel or a
+    refinement) that `setup` attached, None in one process."""
     system: Pix2PixHDSystem
     opt_g: torch.optim.Optimizer
     opt_d: torch.optim.Optimizer
     step: int = 0
+    parallel: Optional[object] = None
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg,
@@ -155,9 +162,11 @@ def init_state(system: Pix2PixHDSystem, seed: int = 0) -> TrainState:
 
 
 def reset_opt_g(state: TrainState, lr: float) -> TrainState:
-    """A fresh Adam over every G parameter at the fix -> finetune switch."""
+    """A fresh Adam over every G parameter at the fix -> finetune switch
+    (sharded as the parallel strategy shards it)."""
     pg, _ = _split_params(state.system)
-    state.opt_g = make_optimizer(pg, state.system.cfg, lr)
+    make = state.parallel.make_optimizer if state.parallel else make_optimizer
+    state.opt_g = make(pg, state.system.cfg, lr)
     return state
 
 
@@ -180,6 +189,25 @@ def _mask_fixed_global(net_g: torch.nn.Module) -> None:
                 p.grad = torch.zeros_like(p)
             else:
                 p.grad.zero_()
+
+
+def _begin(state: TrainState) -> None:
+    if state.parallel is not None:
+        state.parallel.begin_step(state)
+
+
+def _update(state: TrainState, fix_global: bool, *opts) -> None:
+    """After the backward: the fix-global mask, the grads' reduction over
+    the ranks, the optimizers' steps and the strategy's end of step."""
+    if fix_global:
+        _mask_fixed_global(state.system.netG_train)
+    par = state.parallel
+    if par is not None:
+        par.reduce_grads(state)
+    for opt in opts:
+        opt.step()
+    if par is not None:
+        par.end_step(state)
 
 
 def _split_rng(rng):
@@ -205,13 +233,11 @@ def make_train_step(system: Pix2PixHDSystem):
              pooled_fake: Optional[torch.Tensor] = None,
              fix_global: bool = False, with_visuals: bool = False):
         gen, noise = _split_rng(rng)
+        _begin(state)
         losses, aux = system.losses_and_grads(
             batch, noise=noise, generator=gen, pooled_fake=pooled_fake,
             with_visuals=with_visuals)
-        if fix_global:
-            _mask_fixed_global(system.netG_train)
-        state.opt_g.step()
-        state.opt_d.step()
+        _update(state, fix_global, state.opt_g, state.opt_d)
         state.step += 1
         return losses, aux
 
@@ -233,20 +259,20 @@ def make_pool_steps(system: Pix2PixHDSystem):
     def g_step(state: TrainState, batch, rng, fix_global: bool = False,
                with_visuals: bool = False):
         gen, noise = _split_rng(rng)
+        _begin(state)
         losses, aux = system.losses_and_grads(
             batch, noise=noise, generator=gen, with_visuals=with_visuals,
             grads=("G",))
-        if fix_global:
-            _mask_fixed_global(system.netG_train)
-        state.opt_g.step()
+        _update(state, fix_global, state.opt_g)
         return losses, aux
 
     def d_step(state: TrainState, batch, rng, pooled_fake: torch.Tensor):
         gen, noise = _split_rng(rng)
+        _begin(state)
         losses, _ = system.losses_and_grads(
             batch, noise=noise, generator=gen, pooled_fake=pooled_fake,
             grads=("D",))
-        state.opt_d.step()
+        _update(state, False, state.opt_d)
         state.step += 1
         return losses
 

@@ -49,7 +49,7 @@ def load_generator(net: nn.Module, cfg) -> nn.Module:
     return net
 
 
-def _g_params(system) -> Dict[str, nn.Parameter]:
+def g_params(system) -> Dict[str, nn.Parameter]:
     """The G optimizer's parameters by name: netG_train's by their own
     names, netE's under "E."."""
     return {(n if key == "G" else f"{key}.{n}"): p
@@ -57,7 +57,7 @@ def _g_params(system) -> Dict[str, nn.Parameter]:
             for n, p in net.named_parameters()}
 
 
-def _d_params(system) -> Dict[str, nn.Parameter]:
+def d_params(system) -> Dict[str, nn.Parameter]:
     """The D optimizer's parameters by name: netD's by their own names (as
     optim files of runs without the optional nets hold them), time_D's and
     hifigan_D's under "time_D." and "hifigan_D."."""
@@ -66,10 +66,17 @@ def _d_params(system) -> Dict[str, nn.Parameter]:
             for n, p in net.named_parameters()}
 
 
+def _opt_params(opt: torch.optim.Optimizer):
+    """The model parameters `opt` steps, in its order (a sharded Adam,
+    parallel/zero.ShardedAdam, names them in `model_params`)."""
+    return getattr(opt, "model_params", None) or [
+        p for group in opt.param_groups for p in group["params"]]
+
+
 def _param_names(opt: torch.optim.Optimizer, named: Dict[str, nn.Parameter]):
     """The name in `named` of each parameter `opt` steps, in its order."""
     names = {id(p): n for n, p in named.items()}
-    return [names[id(p)] for group in opt.param_groups for p in group["params"]]
+    return [names[id(p)] for p in _opt_params(opt)]
 
 
 def _named_adam(opt: torch.optim.Optimizer, named: Dict[str, nn.Parameter]) -> Dict:
@@ -91,8 +98,8 @@ def save_train_state(state, expr_dir: str, tag: str = "latest") -> str:
     for key, net in (*system.d_nets().items(), ("E", system.netE)):
         if net is not None:
             save_generator(net, os.path.join(expr_dir, f"{tag}_net_{key}.pth"))
-    torch.save({"G": _named_adam(state.opt_g, _g_params(system)),
-                "D": _named_adam(state.opt_d, _d_params(system)),
+    torch.save({"G": _named_adam(state.opt_g, g_params(system)),
+                "D": _named_adam(state.opt_d, d_params(system)),
                 "step": state.step},
                os.path.join(expr_dir, f"{tag}_optim.pth"))
     return save_generator(system.netG_train,
@@ -116,7 +123,7 @@ def _merge_net(net: nn.Module, saved: Dict[str, torch.Tensor]) -> Set[str]:
 def _merge_adam(opt: torch.optim.Optimizer, named: Dict[str, nn.Parameter],
                 saved: Dict) -> Set[str]:
     names = _param_names(opt, named)
-    params = [p for group in opt.param_groups for p in group["params"]]
+    params = _opt_params(opt)
     sd = opt.state_dict()
     loaded = set()
     for i, (name, p) in enumerate(zip(names, params)):
@@ -145,7 +152,7 @@ def load_train_state(state, tag: str, expr_dir: str) -> Set[str]:
     is; a missing net_G raises FileNotFoundError. Returns the names loaded,
     as the JAX package's tree keys: "G.<param>", "E.<param>", "D.<param>",
     "time_D.<param>", "hifigan_D.<param>", "opt_g.<name>" (the G Adam's
-    names of _g_params), "opt_d.<name>" (the D Adam's names of _d_params)
+    names of g_params), "opt_d.<name>" (the D Adam's names of d_params)
     and "step"."""
     system = state.system
     path = os.path.join(expr_dir, f"{tag}_net_G.pth")
@@ -163,8 +170,8 @@ def load_train_state(state, tag: str, expr_dir: str) -> Set[str]:
     if os.path.exists(path):
         saved = _load(path)
         for key, opt, named in (
-                ("G", state.opt_g, _g_params(system)),
-                ("D", state.opt_d, _d_params(system))):
+                ("G", state.opt_g, g_params(system)),
+                ("D", state.opt_d, d_params(system))):
             loaded |= {f"opt_{key.lower()}.{n}"
                        for n in _merge_adam(opt, named, saved[key])}
         state.step = int(saved["step"])

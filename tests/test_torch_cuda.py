@@ -787,3 +787,46 @@ def test_conv3x3_int8_on_card_matches_cpu(cuda, shape, dtype):
     y_c = quant.conv3x3_int8(x.to(cuda), kq_c, sw_c, b.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(y_c.cpu(), y)
+
+
+def test_dp_step_on_card_matches_one_process(cuda, tmp_path):
+    """The toy train step (f32) data-parallel over 2 gloo ranks sharing
+    cuda:0 (tests/torch_parallel_cases.py) against one process on the
+    card, 2 steps on a global batch of 4 with the same mask noise, each
+    from the state the one-process step starts from (the seeded init, then
+    its `latest` after step 1: from a second step on, Adam turns the first
+    step's rounding into whole ~lr steps, so two runs left to go on drift
+    apart), held as tests/test_torch_dp.py holds them on the CPU: losses
+    within rtol 1e-5; every parameter whose grad is above 1e-3 of its
+    leaf's max|g| (not a bias feeding an InstanceNorm) within 1e-3 lr, all
+    within 2.2 lr; the Adam moments within 1e-3 (first) and 2e-3 (second)
+    of their leaf's max; both ranks equal."""
+    import os
+    import sys
+
+    import numpy as np
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_cases as cases
+    rng = np.random.default_rng(5)
+    job = dict(device="cuda:0", resume=str(tmp_path), batch={
+        k: (rng.standard_normal((4, 480)) * 0.2).astype(np.float32)
+        for k in ("label", "image")},
+        noise=[np.random.default_rng(20 + i).standard_normal(
+            (4, 53, 16, 2)).astype(np.float32) for i in range(2)])
+    torch.backends.cudnn.allow_tf32 = False
+    one = [cases.train_run(None, job, mode="one", steps=1, save=str(tmp_path)),
+           cases.train_run(None, job, mode="one", steps=1, first_noise=1,
+                           resume=str(tmp_path))]
+    ranks = cases.run_world(2, job, ["dp_card"], timeout=300)
+    lr = 2e-4
+    for i, want in enumerate(one):
+        got = ranks[0]["dp_card"][i]
+        assert got["losses"] == ranks[1]["dp_card"][i]["losses"]
+        assert got["step"] == want["step"] == i + 1
+        for k in want["losses"][0]:
+            np.testing.assert_allclose(got["losses"][0][k],
+                                       want["losses"][0][k], rtol=1e-5,
+                                       err_msg=k)
+        cases.close_params(got["states"][0], want["states"][0], want["grads"],
+                           want["void"], 1e-3 * lr, 2.2 * lr)
+        cases.close_moments(got["states"][0], want["states"][0], want["void"])

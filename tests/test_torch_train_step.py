@@ -336,10 +336,14 @@ def test_feature_and_memory_options_train(extra):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--fsdp"], "A11"),
-    (["--zero_opt_state"], "A11"),
+    (["--fsdp", "--mesh_shape", "2"], "--mesh_shape 2 needs 2 ranks"),
+    (["--zero_opt_state", "--mesh_axes", "model"], "--mesh_axes model"),
 ])
 def test_train_loop_refuses_unported_options(tmp_path, extra, item):
+    """--fsdp and --zero_opt_state are ported (tests/test_torch_zero_fsdp.py);
+    what the training CLI still refuses with them, before any work, is a
+    mesh the process's world cannot hold: a data axis of 2 ranks in one
+    process, or axes without 'data'."""
     argv = TOY + ["--name", "run", "--checkpoints_dir", str(tmp_path),
                   "--dataroot", str(tmp_path), "--device", "cpu",
                   "--validation_split", "0", "--no_html", *extra]

@@ -1,5 +1,6 @@
 """Multi-rank cases of the port's parallel modes, run on the CPU over gloo
-(tests/test_torch_cp.py, tests/test_torch_tp.py).
+(tests/test_torch_cp.py, tests/test_torch_tp.py, tests/test_torch_dp.py,
+tests/test_torch_zero_fsdp.py).
 
 `run_world(n, job, cases)` starts n ranks (torch.multiprocessing, spawn;
 one thread each) that join one gloo group through the port's own
@@ -60,7 +61,7 @@ def _rank_main(rank: int, n: int, port: int, path: str) -> None:
     torch.set_num_threads(1)
     from pix2pixhdaudiosr_torch.parallel import mesh
     job = torch.load(path, weights_only=False)
-    world = mesh.initialize(torch.device("cpu"))
+    world = mesh.initialize(torch.device(job.get("device", "cpu")))
     group = mesh.make_group(world, n)
     out = {name: CASES[name](group, job) for name in job["cases"]}
     torch.save(out, os.path.join(os.path.dirname(path), f"rank{rank}.pt"))
@@ -97,7 +98,10 @@ def seeded(shape, seed: int, scale: float = 1.0) -> torch.Tensor:
 
 
 def block_of(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    """This rank's equal share of x along `dim`."""
+    """This rank's equal share of x along `dim` (all of it without a
+    group)."""
+    if group is None:
+        return x
     return x.chunk(group.size, dim)[group.rank].contiguous()
 
 
@@ -270,6 +274,298 @@ def case_tp_generate(group, job):
     """generate.main with --tp_shards on job["wav"] (rank 0's audio)."""
     from pix2pixhdaudiosr_torch import generate
     return generate.main(job["argv"] + ["--tp_shards", str(group.size)])
+
+
+# --------------------------------------------------------------------------
+# The training half: data parallelism, ZeRO-1 and FSDP of the toy train step
+# (TRAIN: TOY's LocalEnhancer and the 3-layer PatchGAN at ndf 4).
+TRAIN = ["--netG", "local", *TOY, "--ndf", "4", "--n_layers_D", "3"]
+
+
+def train_state(batch: int, extra=(), params=None, adam=None, seed: int = 3,
+                device: str = "cpu"):
+    """A toy training system on `device` and its fresh train state (seeded init,
+    or the torch state_dicts `params` = {"G": ..., "D": ...}; `adam`:
+    {"G": (mu, nu, count), "D": ...} as optax trees, installed with
+    convert.load_adam_state)."""
+    from pix2pixhdaudiosr_torch import trainer
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.convert import load_adam_state
+    from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
+    cfg = parse_config([*TRAIN, "--batchSize", str(batch), *extra],
+                       is_train=True, save=False)
+    system = Pix2PixHDSystem(cfg, device=device)
+    state = trainer.init_state(system, seed)
+    nets = {"G": system.netG_train, "D": system.netD}
+    for key, sd in (params or {}).items():
+        nets[key].load_state_dict(sd)
+    for key, (mu, nu, count) in (adam or {}).items():
+        load_adam_state(state.opt_g if key == "G" else state.opt_d,
+                        nets[key], mu, nu, count)
+        state.step = int(count)
+    return state
+
+
+def train_rows(job, group) -> dict:
+    """This rank's rows of the job's global batch (all of it in one
+    process)."""
+    return {k: block_of(torch.tensor(v), group, 0).to(job.get("device", "cpu"))
+            for k, v in job["batch"].items()}
+
+
+def read_state(state) -> dict:
+    """Parameters and Adam moments by name ("G.<p>", "D.<p>"; moments under
+    "opt_g." / "opt_d."), whole, as numpy: collective under a sharded
+    strategy (every rank calls it)."""
+    import contextlib
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    par = state.parallel
+    with par.full_state(state) if par else contextlib.nullcontext():
+        system = state.system
+        out = {f"G.{k}": v.detach().cpu().numpy().copy()
+               for k, v in system.netG_train.state_dict().items()}
+        out.update({f"D.{k}": v.detach().cpu().numpy().copy()
+                    for k, v in system.netD.state_dict().items()})
+        for tag, opt, named in (("opt_g", state.opt_g,
+                                 ckpt.g_params(system)),
+                                ("opt_d", state.opt_d,
+                                 ckpt.d_params(system))):
+            sd = opt.state_dict()
+            names = ckpt._param_names(opt, named)
+            for i, st in sd["state"].items():
+                for k in ("exp_avg", "exp_avg_sq"):
+                    out[f"{tag}.{k}.{names[i]}"] = st[k].float().cpu().numpy().copy()
+    return out
+
+
+def shard_shapes(state) -> dict:
+    """The shape of the tensor each G/D parameter's Adam steps on this rank
+    (its slice under ZeRO and FSDP), by "G.<p>" / "D.<p>"."""
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    out = {}
+    for key, opt, named in (("G", state.opt_g, ckpt.g_params(state.system)),
+                            ("D", state.opt_d, ckpt.d_params(state.system))):
+        names = ckpt._param_names(opt, named)
+        out.update({f"{key}.{n}": tuple(t.shape)
+                    for n, t in zip(names, opt.shards)})
+    return out
+
+
+def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
+              mesh_axes=("data",), steps: int = 2, first_noise: int = 0,
+              params=None, adam=None, pool: int = 0, resume=None, save=None):
+    """`steps` toy train steps of the job's global batch (job["batch"],
+    numpy [B, S]) under `mode` (dp, zero, fsdp; "one": this process alone,
+    no strategy, `group` unused), step i with the global mask noise
+    job["noise"][first_noise + i]: {"losses": [per step], "states":
+    [read_state after each step], "step"; under a strategy "held"
+    (held_bytes between steps), and under ZeRO / FSDP "shards"
+    (shard_shapes); in one process without the pool, "grads" (step_grads
+    after the first step) and "void" (void_of)}; None on a rank outside
+    the mesh. With `pool`: the
+    fake pool's split steps (--pool_size pool), the pool queried through
+    parallel.dp.pool_rows. `resume`: a directory whose `latest` is
+    restored into another init (seed 99) before the strategy, as
+    train_loop does ("step_before": its step count); `save`: a directory
+    that one process writes `latest` into after the steps."""
+    from pix2pixhdaudiosr_torch import trainer
+    from pix2pixhdaudiosr_torch.parallel import mesh as M
+    from pix2pixhdaudiosr_torch.parallel.dp import apply_dp, pool_rows
+    from pix2pixhdaudiosr_torch.parallel.fsdp import apply_fsdp
+    from pix2pixhdaudiosr_torch.parallel.zero import apply_zero
+    from pix2pixhdaudiosr_torch.utils.image_pool import ImagePool
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    batch, device = len(job["batch"]["label"]), job.get("device", "cpu")
+    state = train_state(batch, extra, params, adam, device=device,
+                        seed=99 if resume else 3)
+    if resume:
+        ckpt.load_train_state(state, "latest", resume)
+    step_before = state.step
+    data = M.Group(M.World(0, 1, None, torch.device(device)), 1)
+    if mode != "one":
+        layout = M.make_data_layout(group.world, batch, mesh_shape, mesh_axes)
+        if not layout.member:
+            return None
+        {"dp": apply_dp, "zero": apply_zero, "fsdp": apply_fsdp}[mode](
+            state, layout)
+        data = layout.data
+    rows = train_rows(job, data)
+    noises = [torch.tensor(n, device=device) for n in job["noise"][first_noise:]]
+    losses, states = [], []
+    if pool:
+        g_step, d_step = trainer.make_pool_steps(state.system)
+        image_pool = ImagePool(pool, 5)
+        for i in range(steps):
+            lg, aux = g_step(state, rows, noises[i])
+            pooled = pool_rows(image_pool, aux["fake_pair"], data)
+            ld = d_step(state, rows, noises[i], pooled)
+            losses.append({**{k: float(v) for k, v in lg.items()},
+                           **{f"d.{k}": float(v) for k, v in ld.items()}})
+            states.append(read_state(state))
+    else:
+        step = trainer.make_train_step(state.system)
+        for i in range(steps):
+            lo, _ = step(state, rows, noises[i])
+            losses.append({k: float(v) for k, v in lo.items()})
+            states.append(read_state(state))
+            if i == 0 and mode == "one":
+                grads = step_grads(state.system)
+    if save:
+        ckpt.save_train_state(state, save, "latest")
+    out = {"losses": losses, "states": states, "step": state.step,
+           "step_before": step_before}
+    if mode == "one" and not pool:
+        out.update(grads=grads, void=void_of(state.system))
+    if state.parallel is not None:
+        out["held"] = state.parallel.held_bytes(state)
+        if mode != "dp":
+            out["shards"] = shard_shapes(state)
+    return out
+
+
+def step_grads(system) -> dict:
+    """The grads a step left on G's and D's parameters, by "G.<p>" /
+    "D.<p>", as numpy (in one process: under ZeRO and FSDP a sharded
+    leaf's full grad is dropped after the reduction)."""
+    return {f"{key}.{n}": q.grad.detach().cpu().numpy().copy()
+            for key, net in (("G", system.netG_train), ("D", system.netD))
+            for n, q in net.named_parameters()}
+
+
+def void_of(system) -> set:
+    """The conv biases of G and D that feed an InstanceNorm, by "G.<p>" /
+    "D.<p>": their exact grad is 0, what a step computes there rounding."""
+    from chip_smoke import norm_fed_biases
+    return norm_fed_biases(system.netG_train, "G.") | \
+        norm_fed_biases(system.netD, "D.")
+
+
+def close_params(got, want, grads, void, big_tol, all_tol):
+    """Every parameter within all_tol; where the leaf's grad is above 1e-3
+    of its max|g| (a bias feeding an InstanceNorm excepted), big_tol."""
+    for name, g in grads.items():
+        a = np.abs(g)
+        big = (a > 1e-3 * a.max()) & (name not in void)
+        diff = np.abs(got[name] - want[name])
+        assert diff[big].max(initial=0) <= big_tol, name
+        assert diff.max() <= all_tol, name
+
+
+def close_moments(got, want, void):
+    """exp_avg within 1e-3, exp_avg_sq within 2e-3 of the leaf's max|m|
+    (of its net's max for a bias feeding an InstanceNorm)."""
+    names = [k for k in want if k.startswith("opt_")]
+    assert names and set(names) == {k for k in got if k.startswith("opt_")}
+    net_max = {}
+    for k in names:
+        tag, m, _ = k.split(".", 2)
+        net_max[tag, m] = max(net_max.get((tag, m), 0), np.abs(want[k]).max())
+    for k in names:
+        tag, m, param = k.split(".", 2)
+        leaf = ("G." if tag == "opt_g" else "D.") + param
+        scale = net_max[tag, m] if leaf in void else np.abs(want[k]).max()
+        tol = 1e-3 if m == "exp_avg" else 2e-3
+        assert np.abs(got[k] - want[k]).max() <= tol * scale + 1e-30, k
+
+
+def case_dp_steps(group, job):
+    """DP of the toy step from the job's params (the JAX init): at 4
+    ranks, at 2 (--mesh_shape 2: ranks 2 and 3 sit out) and on a 2 x 2
+    data x model mesh, 2 steps each; at 4 ranks one step from the JAX
+    state after step 1 (params1, adam1) with the second noise; and 2 fake
+    pool steps (--pool_size 2) at 4 ranks."""
+    p = job["params"]
+    return {"dp4": train_run(group, job, params=p),
+            "dp2": train_run(group, job, mesh_shape=(2,), params=p),
+            "dp2x2": train_run(group, job, mesh_shape=(2, 2),
+                               mesh_axes=("data", "model"), params=p),
+            "from1": train_run(group, job, steps=1, first_noise=1,
+                               params=job["params1"], adam=job["adam1"]),
+            "pool": train_run(group, job, params=p, pool=2)}
+
+
+def case_sharded_steps(group, job):
+    """2 toy steps of the job's batch at 2 ranks: replicated (DP), ZeRO-1,
+    FSDP, and DP and ZeRO-1 with --adam_mu_bf16, from one seeded init."""
+    bf16 = ["--adam_mu_bf16"]
+    return {"dp": train_run(group, job), "zero": train_run(group, job, "zero"),
+            "fsdp": train_run(group, job, "fsdp"),
+            "dp_bf16": train_run(group, job, extra=bf16),
+            "zero_bf16": train_run(group, job, "zero", extra=bf16)}
+
+
+def case_sharded_resume(group, job):
+    """test_fsdp.py::test_sharded_save_restore_continues for ZeRO and FSDP
+    at 2 ranks: 2 sharded steps, `latest` saved (rank 0 writes; the state
+    after them and the third step uninterrupted recorded), then a fresh
+    init restored from it and sharded takes the third step. And the
+    reverse: a one-process run's `latest` (2 steps, rank 0 writes)
+    restored into a ZeRO run for the third step."""
+    from pix2pixhdaudiosr_torch import trainer
+    from pix2pixhdaudiosr_torch.parallel import mesh as M
+    from pix2pixhdaudiosr_torch.parallel.fsdp import apply_fsdp
+    from pix2pixhdaudiosr_torch.parallel.zero import apply_zero
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    out = {}
+    batch = len(job["batch"]["label"])
+    for mode in ("zero", "fsdp"):
+        tag_dir = os.path.join(job["dir"], mode)
+        state = train_state(batch)
+        layout = M.make_data_layout(group.world, batch)
+        (apply_fsdp if mode == "fsdp" else apply_zero)(state, layout)
+        step = trainer.make_train_step(state.system)
+        rows = train_rows(job, layout.data)
+        for i in range(2):
+            step(state, rows, torch.tensor(job["noise"][i]))
+        saved = read_state(state)
+        with state.parallel.full_state(state):
+            if group.world.rank == 0:
+                ckpt.save_train_state(state, tag_dir, "latest")
+        group.barrier()
+        lo, _ = step(state, rows, torch.tensor(job["noise"][2]))
+        out[mode] = {"saved": saved, "dir": tag_dir, "uninterrupted": {
+            "losses": [{k: float(v) for k, v in lo.items()}],
+            "states": [read_state(state)], "step": state.step},
+            "resumed": None}
+        out[mode]["resumed"] = train_run(group, job, mode, steps=1,
+                                         first_noise=2, resume=tag_dir)
+    one_dir = os.path.join(job["dir"], "one")
+    if group.world.rank == 0:
+        train_run(None, job, "one", save=one_dir)
+    group.barrier()
+    out["one_to_zero"] = train_run(group, job, "zero", steps=1, first_noise=2,
+                                   resume=one_dir)
+    return out
+
+
+def case_dp_card(group, job):
+    """2 toy DP steps on the job's device (the ranks sharing cuda:0 over
+    gloo), each from the state the one-process step starts from: the
+    seeded init, then job["resume"]'s `latest` (the one-process state
+    after step 1)."""
+    torch.backends.cudnn.allow_tf32 = False     # f32, as the one process
+    return [train_run(group, job, steps=1),
+            train_run(group, job, steps=1, first_noise=1,
+                      resume=job["resume"])]
+
+
+def case_layouts(group, job):
+    """make_data_layout on this world for each of job["layouts"] (batch,
+    mesh_shape, mesh_axes): (members' size, data size and rank, replica
+    size and ranks, member) or the SystemExit's text."""
+    from pix2pixhdaudiosr_torch.parallel import mesh as M
+    out = []
+    for batch, shape, axes in job["layouts"]:
+        try:
+            lay = M.make_data_layout(group.world, batch, shape, axes)
+        except SystemExit as e:
+            out.append(str(e))
+            continue
+        out.append(dict(shape=lay.shape, members=lay.members.size,
+                        member=lay.member, data=(lay.data.size, lay.data.rank,
+                                                 lay.data.ranks),
+                        replica=lay.replica.ranks))
+    return out
 
 
 CASES = {name[5:]: fn for name, fn in list(globals().items())
