@@ -40,13 +40,18 @@ Phases, each fatal on failure (exit code 1):
      the twin; B3's cross-shard entries (instance_moments,
      instance_apply: the context-parallel InstanceNorm's local moments and
      its normalize from all-reduced ones) at two flagship CP blocks
-     ([1, 48, 512, 256], [1, 96, 256, 128]) and a TP shape ([16, 768, 16,
-     4]) in f32 and bf16: the moments within 1e-6 of float64 moments
-     relative to each plane's scale (or no farther than the twin's f32
-     reduction), the apply
+     ([1, 48, 512, 256], [1, 96, 256, 128]), a TP shape ([16, 768, 16,
+     4]), a long file's block ([1, 48, 512, 2816]) and the trunk's
+     [1, 1536, 16, 8] in f32 and bf16: the moments within 1e-6 of float64
+     moments relative to each plane's scale (or no farther than the twin's
+     f32 reduction) and bit-identical over two calls, the apply
      within 1e-5 (f32) and one bf16 ulp (bf16) of its twin, both composed
-     as close to the one-launch norm's twin, each timed beside its twin,
-     its bound and (the moments) torch.var_mean;
+     as close to the one-launch norm's twin, a cropped view read in place
+     with its contiguous copy's bits, a shard count of 3 the bits of the
+     mean's apply, the arrival counts back at 0 and one CUDA kernel a call
+     each (torch.profiler); each timed by events and by device time, L2
+     warm and cold, beside its twin, its bound, torch.var_mean (the
+     moments) and F.batch_norm (the apply at one sample);
   4. write a 5 s synthetic 48 kHz wav;
   5. build the flagship generator (LocalEnhancer G3L2, ngf 48, 156,050,690
      parameters) with seeded N(0, 0.02) weights, saved and loaded as .pth;
@@ -203,7 +208,12 @@ Phases, each fatal on failure (exit code 1):
      beside it), the cross-shard entries launched on every CP rank and
      none of the one-launch norm, B3 at C/N channels on the TP ranks, the
      gloo transport's bytes and each rank's wall time, and the generate
-     CLI at those ranks (rank 0 writes the file).
+     CLI at those ranks (rank 0 writes the file); then a bf16 timing leg,
+     the one-rank CP forward of a 60 s synthetic file (11,264 frames): the
+     G's wall ms, B3m + B3a device ms a forward and the kernels each
+     cp_instance_norm call launches (torch.profiler), failing unless each
+     is one B3m and one B3a kernel with no copy before the 5 cropped
+     views.
  16. (run last) the training half of the parallel modes: 2 ranks of this
      script (`--rank-worker dp|zero|fsdp`) sharing cuda:0 over gloo, at
      flagship width (G 156,050,690 parameters, PatchGAN ndf 64), a wall
@@ -3043,9 +3053,15 @@ def phase_flac() -> dict:
 # enhancer's and the trunk head's at 256 and 128 frames) and the trunk
 # resblocks' 1536 channels over 2 TP ranks at batch 16
 CP_IN_SHAPES = [(1, 48, 512, 256), (1, 96, 256, 128), (16, 768, 16, 4)]
+# and, timed beside them, a long file's enhancer block at one of 4 ranks
+# (60 s: 11,264 frames, 2,816 a rank; 138 MB in bf16, beyond the L2) and
+# the trunk's last block of the 256-frame one (192 vectors a position)
+CP_IN_TIMED = CP_IN_SHAPES + [(1, 48, 512, 2816), (1, 1536, 16, 8)]
 CP_SHARDS, TP_SHARDS = 4, 2
 # the flagship G's total stride (2^4 downsamples x 2^1 enhancer)
 G_STRIDE = 32
+# phase 15's bf16 timing leg: a file this long, one rank
+CP_LONG_SECONDS = 60.0
 # a rank of the multi-rank phases: its own wall limit, seconds
 RANK_LIMIT = 420
 
@@ -3074,27 +3090,70 @@ def moments_err(got, exact) -> float:
     return ((got.double() - exact).abs() / scale).max().item()
 
 
+def kernels_per_call(fn, calls: int = 4, tries: int = 5) -> list:
+    """The names of the CUDA kernels one call of fn() launches, from
+    torch.profiler over `calls` calls: a trace whose kernels do not divide
+    evenly among the calls (one that dropped events, as a trace now and
+    then does) is taken again, up to `tries` times; then all its names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names and len(names) % calls == 0:
+            return names[:len(names) // calls]
+    return names
+
+
+def cropped_like(x):
+    """x's values in a view cropped out of a larger channels_last tensor
+    (one row above, two frames left, one row and three frames beyond), as
+    a same-mode deconv's CP output is: the start and the pitches move."""
+    import torch
+    B, C, H, W = x.shape
+    big = torch.empty(B, C, H + 2, W + 5, dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last).zero_()
+    view = big[..., 1:H + 1, 2:W + 2]
+    view.copy_(x)
+    return view
+
+
 def phase_cp_kernels(dev):
     """B3's cross-shard entries (instance_moments, instance_apply) against
-    their twins at CP_IN_SHAPES, bf16 and f32: the moments within 1e-6 of
+    their twins at CP_IN_TIMED, bf16 and f32: the moments within 1e-6 of
     float64 moments relative to each plane's scale (`moments_err`; or no
-    farther than the twin's f32 reduction, where that is farther), the
-    apply (from the twin's moments,
-    ReLU and none) within one bf16 ulp in bf16 and 1e-5 in f32, and the two
-    composed (one shard) as close to the one-launch norm's twin; each timed with CUDA events beside its twin and
-    its bound (bytes at 3.35 TB/s), the moments also beside torch.var_mean
-    (the library yardstick: the same two moments of each plane). Returns
-    {name: record of the largest shape} and one row a shape."""
+    farther than the twin's f32 reduction, where that is farther) and the
+    same bits over two calls, the apply (from the twin's moments,
+    ReLU and none) within one bf16 ulp in bf16 and 1e-5 in f32, the two
+    composed (one shard) as close to the one-launch norm's twin, a cropped
+    view read in place giving its contiguous copy's bits, the apply of 3
+    shards' summed moments (count 3) the bits of the apply of their mean,
+    every arrival count back at 0, and one CUDA kernel a call of each
+    (torch.profiler). Each timed with CUDA events (events ms) and by its
+    kernel's device time, L2 warm and cold, beside its twin and its bound
+    (bytes at 3.35 TB/s), the moments also beside torch.var_mean (the
+    library yardstick: the same two moments of each plane), the apply at
+    one sample beside F.batch_norm on [1, C, H, W] with the moments'
+    mean and variance (one call, without the activation, which would be a
+    second). Returns {name: record of the first shape in bf16} and one row
+    a shape."""
     import torch
+    import torch.nn.functional as F
     from pix2pixhdaudiosr_torch.ops import norm
     gen = torch.Generator(device=dev).manual_seed(11)
     rec, detail = {}, {}
-    for shape in CP_IN_SHAPES:
+    for shape in CP_IN_TIMED:
         B, C, H, W = shape
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(
                 dtype).contiguous(memory_format=torch.channels_last)
-            n = norm.instance_moments.launches, norm.instance_apply.launches
             got = norm.instance_moments(x)
             want = norm.instance_moments_ref(x)
             exact = moments_f64(x)
@@ -3103,6 +3162,8 @@ def phase_cp_kernels(dev):
             check(m_err <= max(1e-6, twin_err), f"instance_moments {shape} "
                   f"{dtype}: relative error {m_err} against float64 (the "
                   f"twin's {twin_err})")
+            check(torch.equal(norm.instance_moments(x), got),
+                  f"instance_moments {shape} {dtype}: two calls differ")
             a_err = 0.0
             for act in ("relu", "none"):
                 y = norm.instance_apply(x, want, act)
@@ -3124,41 +3185,76 @@ def phase_cp_kernels(dev):
                   if dtype == torch.float32 else ulp_excess(y, ref) <= 0,
                   f"one-shard moments + apply at {shape} {dtype} disagree "
                   f"with instance_norm_act's twin")
-            launched = (norm.instance_moments.launches - n[0],
-                        norm.instance_apply.launches - n[1])
-            check(launched == (1, 3), f"cross-shard entries launched "
-                  f"{launched}, expected (1, 3)")
+            xc = cropped_like(x)
+            check(torch.equal(norm.instance_moments(xc), got)
+                  and torch.equal(norm.instance_apply(xc, got, "relu"), y),
+                  f"a cropped view at {shape} {dtype} does not give its "
+                  f"contiguous copy's bits")
+            summed = got + got + got
+            check(torch.equal(norm.instance_apply(x, summed, "relu", count=3),
+                              norm.instance_apply(x, summed / torch.full_like(
+                                  summed, 3), "relu")),
+                  f"instance_apply {shape} {dtype} count 3 is not the apply "
+                  f"of the summed moments divided by 3")
+            torch.cuda.synchronize()
+            arrivals = norm.moments_workspace(
+                x.device, torch.cuda.current_stream().cuda_stream)[1]
+            check(int(arrivals.count_nonzero()) == 0, "instance_moments left "
+                  "an arrival count that is not 0")
+            per_call = {
+                "instance_moments": kernels_per_call(
+                    lambda: norm.instance_moments(x)),
+                "instance_apply": kernels_per_call(
+                    lambda: norm.instance_apply(x, got, "relu", count=2))}
+            for name, kernels in per_call.items():
+                check(len(kernels) == 1, f"{name} {shape} {dtype} launched "
+                      f"{kernels} a call, expected one kernel")
             nb = x.numel() * x.element_size()
             key = f"{B}x{C}x{H}x{W} {str(dtype)[6:]}"
+            mean, var = norm.mean_var(got)
+
+            def batch_norm():
+                return F.batch_norm(x.view(1, B * C, H, W), mean.view(-1),
+                                    var.view(-1), training=False, eps=1e-5)
             rows = {
                 "instance_moments": dict(
                     max_abs_err=(got - want).abs().max().item(),
                     max_rel_err_f64=m_err, twin_max_rel_err_f64=twin_err,
                     ms=cuda_ms(lambda: norm.instance_moments(x)),
                     device_ms=device_ms(lambda: norm.instance_moments(x)),
+                    cold_device_ms=device_ms(
+                        lambda: norm.instance_moments(x), cold=True),
                     plain_ms=cuda_ms(lambda: norm.instance_moments_ref(x),
                                      iters=5),
                     library_ms=cuda_ms(lambda: torch.var_mean(
                         x, dim=(2, 3))),
+                    plan=norm.plan_instance_moments(B, H, W, C, x.dtype)._asdict(),
                     **bound(nb + 4 * got.numel(), 3 * x.numel(), F32_FLOPS)),
                 "instance_apply": dict(
                     max_abs_err=a_err,
                     ms=cuda_ms(lambda: norm.instance_apply(x, want, "relu")),
                     device_ms=device_ms(
                         lambda: norm.instance_apply(x, want, "relu")),
+                    cold_device_ms=device_ms(
+                        lambda: norm.instance_apply(x, want, "relu"),
+                        cold=True),
                     plain_ms=cuda_ms(lambda: norm.instance_apply_ref(
                         x, want, "relu"), iters=5),
-                    library_ms=None,
+                    library_ms=cuda_ms(batch_norm) if B == 1 else None,
+                    plan=norm.plan_instance_apply(B, H, W, C, x.dtype)._asdict(),
                     **bound(2 * nb + 4 * got.numel(), 8 * x.numel(),
                             F32_FLOPS)),
             }
             for name, r in rows.items():
-                r.update(shape=key, share_of_bound=r["bound_ms"] / r["ms"])
+                r.update(shape=key, kernels_per_call=per_call[name],
+                         share_of_bound=r["bound_ms"] / r["ms"],
+                         cold_share_of_bound=r["bound_ms"]
+                         / r["cold_device_ms"])
                 detail[f"{name} {key}"] = r
                 print(f"[kernels] {name} {key}: " + json.dumps(r))
                 if shape == CP_IN_SHAPES[0] and dtype == torch.bfloat16:
                     rec[name] = r
-            del x, got, want
+            del x, xc, got, want
     return rec, detail
 
 
@@ -3240,12 +3336,123 @@ def check_against_floor(what: str, reading: dict, floor: dict,
           f"{reading['max_abs_err']} beyond 2x the rounding floor {floor}")
 
 
+def cp_norm_profile(run) -> dict:
+    """One traced run() (torch.profiler, CPU and CUDA) with each call of
+    models/layers.cp_instance_norm in a range of its own: the calls, those
+    on a cropped view, the CUDA kernels that ran inside each call's range
+    on the device timeline (B3m's and B3a's kernels, and any copy of its
+    input, by name), the copy kernels among them and the device ms of the
+    others (B3m + B3a), over the run and by the input's shape [C, H, W]
+    (moments, apply and copy ms summed over that shape's calls; a kernel
+    named *apply* or *finalize* is the apply's); and every kernel of the
+    run by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from pix2pixhdaudiosr_torch.models import layers
+    inner, cropped, shapes = layers.cp_instance_norm, [], []
+
+    def traced(x, act, cp):
+        cropped.append(not x.is_contiguous(memory_format=torch.channels_last))
+        shapes.append("x".join(str(d) for d in x.shape[1:]))
+        with record_function("cp_instance_norm"):
+            return inner(x, act, cp)
+
+    layers.cp_instance_norm = traced
+    try:
+        run()
+        torch.cuda.synchronize()
+        for _ in range(5):  # a trace may come back without kernels
+            cropped.clear()
+            shapes.clear()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            device = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA]
+            ranges = [e.time_range for e in device
+                      if e.name == "cp_instance_norm"]
+            kernels = [e for e in device if e.name != "cp_instance_norm"]
+            calls = [[k for k in kernels if r.start <= k.time_range.start
+                      and k.time_range.end <= r.end] for r in ranges]
+            if calls and all(calls):
+                break
+    finally:
+        layers.cp_instance_norm = inner
+    check(len(calls) == len(cropped), f"{len(calls)} traced cp_instance_norm "
+          f"ranges on the device for {len(cropped)} calls")
+    names = [[k.name for k in c] for c in calls]
+    copies = [[k for k in c if "copy" in k.name.lower()] for c in calls]
+    dur = lambda k: (k.time_range.end - k.time_range.start) / 1e3  # noqa: E731
+    by_name, norm_ms = {}, {}
+    for k in kernels:
+        by_name[k.name] = by_name.get(k.name, 0) + 1
+    for k in (k for c in calls for k in c):
+        norm_ms[k.name] = norm_ms.get(k.name, 0.0) + dur(k)
+    by_shape = {}
+    for shape, c in zip(shapes, calls):
+        row = by_shape.setdefault(shape, dict(calls=0, moments=0.0,
+                                              apply=0.0, copy=0.0))
+        row["calls"] += 1
+        for k in c:
+            name = k.name.lower()
+            role = ("copy" if "copy" in name else "apply" if "apply" in name
+                    or "finalize" in name else "moments")
+            row[role] += dur(k)
+    return dict(calls=len(calls), cropped_calls=sum(cropped),
+                kernels_per_call=sorted({len(n) for n in names}),
+                kernel_names=sorted({k for n in names for k in n}),
+                copy_kernels=sum(len(c) for c in copies),
+                copy_kernels_at_cropped=sum(
+                    len(c) for c, crop in zip(copies, cropped) if crop),
+                norm_device_ms=sum(v for k, v in norm_ms.items()
+                                   if "copy" not in k.lower()),
+                copy_device_ms=sum(dur(k) for c in copies for k in c),
+                device_ms_by_kernel=norm_ms, device_ms_by_shape=by_shape,
+                run_kernels=len(kernels),
+                run_device_ms=sum(dur(k) for k in kernels),
+                run_kernels_by_name=by_name)
+
+
+def cp_long_forward(dev, seconds: float = CP_LONG_SECONDS):
+    """(run, frames): run() is the bf16 flagship G's one-rank CP forward
+    (the seamless full-length path of generate --cp_shards 4 in one
+    process) of a `seconds` synthetic file, padded for CP_SHARDS ranks."""
+    from pix2pixhdaudiosr_torch.generate import cp_forward
+    from pix2pixhdaudiosr_torch.parallel.halo import make_cp_generator
+    if not os.path.exists(os.path.join(WORK, "smoke", "latest_net_G.pth")):
+        os.makedirs(os.path.join(WORK, "smoke"), exist_ok=True)
+        flagship_generator_pth(os.path.join(WORK, "smoke"))
+    wav = os.path.join(WORK, "long_48k.wav")
+    write_synthetic_wav(wav, seconds)
+    full, spec = full_length_spec(flagship_system(dev), wav, CP_SHARDS)
+    os.remove(wav)
+    group = one_rank_group(dev)
+    forward = make_cp_generator(full, group)
+    return (lambda: cp_forward(forward, spec, group)), spec.shape[2]
+
+
+def cp_long_leg(dev) -> dict:
+    """`cp_long_forward` of a CP_LONG_SECONDS file: the G's wall ms (CUDA
+    events, 5 forwards after 2) and `cp_norm_profile` of one forward; each
+    cp_instance_norm must launch one B3m and one B3a kernel and no copy."""
+    run, frames = cp_long_forward(dev)
+    r = dict(seconds=CP_LONG_SECONDS, frames=frames,
+             g_wall_ms=cuda_ms(run, iters=5, warmup=2), **cp_norm_profile(run))
+    check(r["kernels_per_call"] == [2] and r["copy_kernels"] == 0,
+          f"the CP forward's InstanceNorms launched {r['kernels_per_call']} "
+          f"kernels a call, {r['copy_kernels']} copies: expected 2 and 0")
+    return r
+
+
 def phase_cp_one_rank(dev, wav: str, n_in: int) -> dict:
     """generate --cp_shards 4 in this process (one rank, so one shard: the
     seamless full-length forward), every count set to 0 just before it: B1,
     B2 and B3's cross-shard entries launched, no one-pass B3 (the CP path
     never reaches it); then the CP generator against the plain generator on
-    the same whole-file spectrogram, f32 and bf16, read in ulps, each within 2x the rounding floor (check_against_floor)."""
+    the same whole-file spectrogram, f32 and bf16, read in ulps, each within 2x the rounding floor (check_against_floor);
+    then the bf16 timing leg on a long file (`cp_long_leg`)."""
     import torch
     from pix2pixhdaudiosr_torch.generate import cp_forward
     from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
@@ -3281,6 +3488,10 @@ def phase_cp_one_rank(dev, wav: str, n_in: int) -> dict:
         res[dtype] = r
         print(f"[cp 1 rank] {dtype} T={spec.shape[2]}: " + json.dumps(r))
         del full, spec, got, want
+    torch.cuda.empty_cache()
+    res["long"] = cp_long_leg(dev)
+    print(f"[cp 1 rank] bf16 {CP_LONG_SECONDS:.0f} s: "
+          + json.dumps(res["long"]))
     torch.cuda.empty_cache()
     print("[cp 1 rank] " + json.dumps({k: v for k, v in res.items()
                                        if k != "metric"}))

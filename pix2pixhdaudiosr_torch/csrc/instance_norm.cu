@@ -67,17 +67,24 @@
 //
 // Cross-shard entries, for a frame axis split over ranks (context
 // parallelism, pix2pixhdaudiosr_tpu/models/layers.py:189-208, where the
-// moments of each shard are pmean'd before the normalize):
-//   p2p_instance_moments  pass 1, then one warp per (b, c) adds the P
-//                         partials (compensated) and writes the local f32
-//                         mean and E[x^2], [2, B, C]: no clamp, no rsqrt,
-//                         so the caller can average them over the shards
-//                         first;
-//   p2p_instance_apply    from such (averaged) moments: one thread per
-//                         (b, c) writes mean and rsqrt(max(E[x^2] - mean^2,
-//                         0) + eps) as pass 2 does, then pass 3 (in_apply).
-// Both read a contiguous channels_last tensor (the caller copies a cropped
-// view first).
+// moments of each shard are pmean'd before the normalize), one launch and
+// one read of x each, x read through its sample and row pitches (a cropped
+// view in place), 16-byte loads where C and the pitches allow them (else a
+// scalar path in the same kernel):
+//   p2p_instance_moments (B3m, in_moments_kernel) the local f32 mean and
+//                        E[x^2], [2, B, C]: no clamp, no rsqrt, so the
+//                        caller can sum them over the shards. Each block
+//                        sums its rows, then the last block of each
+//                        (sample, channel tile) to arrive adds the blocks'
+//                        sums in block order, compensated: deterministic.
+//   p2p_instance_apply   (B3a, in_apply_moments_kernel) from such moments
+//                        summed over `count` shards: each thread makes its
+//                        channels' mean and rstd (divided by count, as the
+//                        pmean does), then normalizes its rows.
+// What bounds them: the one read (B3m) or read and write (B3a) of x, ~12.6
+// MB in bf16 for a flagship CP block [1, 48, 512, 256] (3.8 and 7.5 us at
+// 3.35 TB/s), so at such sizes the launch and the cross-block step matter
+// as much as bandwidth; a long file's block, [1, 48, 512, 2816], is 138 MB.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -230,70 +237,395 @@ __device__ __forceinline__ void add_compensated(float& sum, float& c,
   sum = t;
 }
 
-// The local moments: partial [B, P, C, 2] -> moments[0][b][c] = E[x],
-// moments[1][b][c] = E[x^2], one warp per (b, c). Lane l adds partials l,
-// l + 32, ... with compensation, then the lanes' sums meet in a butterfly.
-// A plain running sum of the P partials (up to ~1000 a plane at a
-// full-file block), as in_finalize_kernel's, measured 1.3e-6 relative
-// from float64 moments at [1, 48, 512, 256] f32 on an H100, 10x torch's
-// reduction; one thread per (b, c) walking them all took 0.16 ms there.
-__global__ void in_moments_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ moments, int B, int C,
-                                  int P, int HW) {
-  const int i = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= B * C) return;  // i is the same for the 32 lanes of a warp
-  const int b = i / C, c = i % C;
-  float s = 0.f, cs = 0.f, q = 0.f, cq = 0.f;
-  for (int p = lane; p < P; p += 32) {
-    const float* src = partial + (((size_t)b * P + p) * C + c) * 2;
-    add_compensated(s, cs, src[0]);
-    add_compensated(q, cq, src[1]);
+// --------------------------------------------------------------------------
+// Cross-shard entries: one launch each, reading x [B, C, H, W] through its
+// sample and row pitches (a cropped view in place). Grid (chunks, channel
+// tiles, B); a block's G * tv threads are (group g = tid / tv, vector
+// v = tid % tv): thread (g, v) always reads the VEC channels
+// c = t * tv * VEC + v * VEC (VEC = 16 bytes of channels on the vector path,
+// 1 on the scalar one). The H*W positions are taken in windows of G * n
+// (n = `loads` <= U), a block's burst: window i is block i % chunks's, so
+// at any moment the chunks of a plane read neighbouring windows; in its
+// burst thread (g, v) reads positions start + g, start + g + G, ..., its n
+// loads issued before any is used (predicated, raw 16-byte words, unpacked
+// after), and the next burst's issued before this one is used.
+
+// A thread's 16-byte (or one-element) load: the raw word and its floats.
+template <typename T, int VEC>
+struct Lanes;
+template <>
+struct Lanes<float, 4> {
+  using Raw = uint4;
+  static __device__ __forceinline__ void unpack(const Raw& r, float* f) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
   }
-  s += cs;
-  q += cq;
-  for (int o = 16; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    q += __shfl_xor_sync(0xffffffffu, q, o);
+  static __device__ __forceinline__ Raw pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
-  if (lane == 0) {
-    moments[i] = s / (float)HW;
-    moments[(size_t)B * C + i] = q / (float)HW;
+};
+template <>
+struct Lanes<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ void two(unsigned w, float* f) {
+    f[0] = __uint_as_float(w << 16);  // bf16 -> f32 is exact
+    f[1] = __uint_as_float(w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ unsigned two(const float* f) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[0], f[1]);  // as torch
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
+  static __device__ __forceinline__ void unpack(const Raw& r, float* f) {
+    two(r.x, f);
+    two(r.y, f + 2);
+    two(r.z, f + 4);
+    two(r.w, f + 6);
+  }
+  static __device__ __forceinline__ Raw pack(const float* f) {
+    return make_uint4(two(f), two(f + 2), two(f + 4), two(f + 6));
+  }
+};
+template <>
+struct Lanes<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ void unpack(Raw r, float* f) { f[0] = r; }
+  static __device__ __forceinline__ Raw pack(const float* f) { return f[0]; }
+};
+template <>
+struct Lanes<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ void unpack(Raw r, float* f) {
+    f[0] = __uint_as_float((unsigned)r << 16);
+  }
+  static __device__ __forceinline__ Raw pack(const float* f) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(f[0]));
+  }
+};
+
+// The loads of thread (g, v)'s burst from window `start`: raw[u] holds
+// position start + g + u G for u < n, or 0 (u >= n, or past H*W); one
+// division a burst.
+template <typename T, int VEC, int U>
+__device__ __forceinline__ void load_burst(
+    const T* xb, int start, int g, int G, int n, int HW, int W, int C,
+    long long row_pitch, typename Lanes<T, VEC>::Raw (&raw)[U]) {
+  using Raw = typename Lanes<T, VEC>::Raw;
+  int p = start + g, h = p / W, w = p - h * W;
+  const int dh = G / W, dw = G - dh * W;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    raw[u] = Raw{};
+    if (u < n && p < HW)
+      raw[u] = *reinterpret_cast<const Raw*>(xb + h * row_pitch +
+                                             (long long)w * C);
+    p += G;
+    h += dh;
+    w += dw;
+    if (w >= W) {
+      w -= W;
+      ++h;
+    }
   }
 }
 
-// moments [2, B, C] -> stats [B, C, 2] = (mean, rstd): in_finalize_kernel's
-// finalize on moments given from outside.
-__global__ void in_moments_finalize_kernel(const float* __restrict__ moments,
-                                           float* __restrict__ stats, int B,
-                                           int C, float eps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * C) return;
-  const float m = moments[i];
-  const float var = fmaxf(moments[(size_t)B * C + i] - m * m, 0.f);
-  stats[2 * (size_t)i] = m;
-  stats[2 * (size_t)i + 1] = rsqrtf(var + eps);
+// B3m's cross-block step. The blocks of a (sample, channel tile) plane
+// finish in no fixed order; every sum below is taken in a fixed one, so the
+// moments are the same bits run to run. A block's sums go to
+// partial[b][t][chunk][tc] (float2: x, x^2; tc = tv * VEC channels); the
+// last block of each group of `group` chunks to arrive adds the group's
+// partials and writes the total over the group's first slot, and the last
+// group to finish adds the groups' totals (one group: it writes the
+// moments itself; one chunk: the block writes them at once). Arrival
+// counts: arrivals[b][t][0] for the groups, arrivals[b][t][1 + k] for group
+// k's blocks, each set back to 0 by the block that read it last, so a
+// launch leaves them as it found them. The counts assume launches that
+// share them run one after another: the wrapper keeps them per (device,
+// stream).
+constexpr int kFinalUnroll = 16;  // partial sums a thread loads at once
+
+// The old value of *count, incremented with acquire-release semantics at
+// GPU scope: the block's writes (ordered before by __syncthreads) are
+// visible to whoever sees the new count, and what the others wrote before
+// their increments is visible to this block after it.
+__device__ __forceinline__ unsigned arrive(unsigned* count) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(count)
+               : "memory");
+  return old;
+}
+
+// The compensated sum, in order, of n entries of part, entry e at
+// part + e * stride (float2s), for the block's tc channels: thread (c, k)
+// adds slice k of S = max(1, min(threads / tc, n)), entries [k n / S,
+// (k + 1) n / S), then the slices in order; the totals land in ws_s[c],
+// ws_q[c] (ws_* hold S * tc floats). Ends with __syncthreads.
+__device__ __forceinline__ void sum_partials(const float2* part, int n,
+                                             size_t stride, int tc,
+                                             float* ws_s, float* ws_q) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int S = max(1, min(nthreads / tc, n));
+  for (int i = tid; i < tc * S; i += nthreads) {
+    const int c = i % tc, k = i / tc;
+    const int pa = (int)((long long)n * k / S);
+    const int pb = (int)((long long)n * (k + 1) / S);
+    float sum = 0.f, cs = 0.f, sq = 0.f, cq = 0.f;
+    for (int p = pa; p < pb; p += kFinalUnroll) {
+      float2 e[kFinalUnroll];  // the loads in flight together, then the adds
+#pragma unroll
+      for (int u = 0; u < kFinalUnroll; ++u)
+        e[u] = p + u < pb ? __ldcg(part + (p + u) * stride + c)
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < kFinalUnroll; ++u) {
+        add_compensated(sum, cs, e[u].x);
+        add_compensated(sq, cq, e[u].y);
+      }
+    }
+    ws_s[i] = sum + cs;
+    ws_q[i] = sq + cq;
+  }
+  __syncthreads();
+  if (tid < tc) {
+    float sum = 0.f, cs = 0.f, sq = 0.f, cq = 0.f;
+    for (int k = 0; k < S; ++k) {
+      add_compensated(sum, cs, ws_s[k * tc + tid]);
+      add_compensated(sq, cq, ws_q[k * tc + tid]);
+    }
+    ws_s[tid] = sum + cs;  // slot (0, tid): read by this thread alone
+    ws_q[tid] = sq + cq;
+  }
+  __syncthreads();
+}
+
+// B3m. Each thread adds x and x^2 of its <= 256 rows in f32, burst by
+// burst, the block's groups meet in a fixed pairwise tree in shared
+// memory, and the block's sums go through the cross-block step above.
+template <typename T, int VEC, int U>
+__global__ void __launch_bounds__(kThreads, 2)
+    in_moments_kernel(const T* __restrict__ x, float* __restrict__ partial,
+                      unsigned* __restrict__ arrivals,
+                      float* __restrict__ moments, int HW, int W, int C,
+                      long long sample_pitch, long long row_pitch, int tv,
+                      int n, int group) {
+  using L = Lanes<T, VEC>;
+  __shared__ float ws[2 * kThreads * VEC];
+  __shared__ unsigned old;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int G = nthreads / tv, g = tid / tv, v = tid - g * tv;
+  const int tc = tv * VEC;
+  const int b = blockIdx.z, t = blockIdx.y, chunk = blockIdx.x;
+  const int chunks = gridDim.x;
+  const int c0 = t * tc;
+  const T* xb = x + (size_t)b * sample_pitch + c0 + v * VEC;
+
+  float s[VEC], q[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
+  // Double-buffered: the next burst's loads are in flight while this
+  // burst's are summed.
+  const int stride = chunks * G * n;
+  typename L::Raw raw[U], next[U];
+  load_burst<T, VEC, U>(xb, chunk * G * n, g, G, n, HW, W, C, row_pitch,
+                        raw);
+  for (int start = chunk * G * n; start < HW; start += stride) {
+    load_burst<T, VEC, U>(xb, start + stride, g, G, n, HW, W, C, row_pitch,
+                          next);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float f[VEC];
+      L::unpack(raw[u], f);  // 0 past H*W: adds nothing
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        s[j] += f[j];
+        q[j] = fmaf(f[j], f[j], q[j]);
+      }
+      raw[u] = next[u];
+    }
+  }
+
+  // The block's groups: slot (g, channel) of ws, a pairwise tree over g.
+  float* ws_s = ws;
+  float* ws_q = ws + kThreads * VEC;
+  const int slot = g * tc + v * VEC;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    ws_s[slot + j] = s[j];
+    ws_q[slot + j] = q[j];
+  }
+  int span = 1;
+  while (span < G) span <<= 1;
+  for (span >>= 1; span > 0; span >>= 1) {
+    __syncthreads();
+    if (g < span && g + span < G) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        s[j] += ws_s[slot + span * tc + j];
+        q[j] += ws_q[slot + span * tc + j];
+        ws_s[slot + j] = s[j];
+        ws_q[slot + j] = q[j];
+      }
+    }
+  }
+  __syncthreads();
+  if (chunks > 1) {
+    const size_t bt = (size_t)b * gridDim.y + t;
+    const int groups = (chunks + group - 1) / group;
+    float2* part = reinterpret_cast<float2*>(partial) + bt * chunks * tc;
+    unsigned* count = arrivals + bt * (1 + groups);
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        part[(size_t)chunk * tc + v * VEC + j] = make_float2(s[j], q[j]);
+    }
+    // First level: the group's last block adds its <= `group` partials.
+    const int k = chunk / group, first = k * group;
+    const int members = min(group, chunks - first);
+    __syncthreads();
+    if (tid == 0) old = arrive(count + 1 + k);
+    __syncthreads();
+    if (old != (unsigned)members - 1) return;
+    if (tid == 0) count[1 + k] = 0u;
+    sum_partials(part + (size_t)first * tc, members, tc, tc, ws_s, ws_q);
+    if (groups > 1) {
+      // Its total over the group's first slot; the last group adds the
+      // totals, group k's at chunk slot k * group.
+      if (tid < tc)
+        part[(size_t)first * tc + tid] = make_float2(ws_s[tid], ws_q[tid]);
+      __syncthreads();
+      if (tid == 0) old = arrive(count);
+      __syncthreads();
+      if (old != (unsigned)groups - 1) return;
+      if (tid == 0) count[0] = 0u;
+      sum_partials(part, groups, (size_t)group * tc, tc, ws_s, ws_q);
+    }
+  }
+  if (tid < tc) {  // ws slot (0, tid): the plane's sums for channel c0 + tid
+    const size_t i = (size_t)b * C + c0 + tid;
+    moments[i] = ws_s[tid] / (float)HW;
+    moments[(size_t)gridDim.z * C + i] = ws_q[tid] / (float)HW;
+  }
+}
+
+// B3a. Thread (g, v) first makes its VEC channels' mean and rstd from
+// moments [2, B, C] summed over `count` shards: mean = m0 / count,
+// var = max(m1 / count - mean^2, 0), rstd = rsqrt(var + eps) (a division,
+// as the caller's mean of the shards was); then normalizes its rows burst
+// by burst and writes contiguous channels_last y.
+template <typename T, int VEC, int U>
+__global__ void __launch_bounds__(kThreads, 5)
+    in_apply_moments_kernel(const T* __restrict__ x, T* __restrict__ y,
+                            const float* __restrict__ moments, int HW, int W,
+                            int C, long long sample_pitch, long long row_pitch,
+                            int tv, int n, int count, int act, float eps) {
+  using L = Lanes<T, VEC>;
+  const int tid = threadIdx.x;
+  const int G = blockDim.x / tv, g = tid / tv, v = tid - g * tv;
+  const int b = blockIdx.z;
+  const int c = blockIdx.y * tv * VEC + v * VEC;
+  float mean[VEC], rstd[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {  // every load issued before any is used
+    mean[j] = __ldg(moments + (size_t)b * C + c + j);
+    rstd[j] = __ldg(moments + ((size_t)gridDim.z + b) * C + c + j);
+  }
+  if (count > 1) {  // x / 1 is x: one shard divides nothing
+    const float shards = (float)count;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      mean[j] /= shards;
+      rstd[j] /= shards;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    rstd[j] = rsqrtf(fmaxf(rstd[j] - mean[j] * mean[j], 0.f) + eps);
+  const T* xb = x + (size_t)b * sample_pitch + c;
+  T* yb = y + (size_t)b * HW * C + c;
+  // Double-buffered: the next burst's loads are in flight while this
+  // burst is normalized and stored.
+  const int stride = gridDim.x * G * n;
+  typename L::Raw raw[U], next[U];
+  load_burst<T, VEC, U>(xb, blockIdx.x * G * n, g, G, n, HW, W, C,
+                        row_pitch, raw);
+  for (int start = blockIdx.x * G * n; start < HW; start += stride) {
+    load_burst<T, VEC, U>(xb, start + stride, g, G, n, HW, W, C, row_pitch,
+                          next);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = start + g + u * G;
+      if (u < n && p < HW) {
+        float f[VEC];
+        L::unpack(raw[u], f);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          f[j] = activate((f[j] - mean[j]) * rstd[j], act);
+        *reinterpret_cast<typename L::Raw*>(yb + (size_t)p * C) = L::pack(f);
+      }
+      raw[u] = next[u];
+    }
+  }
+}
+
+// The plans ops/norm.py plan_instance_moments and plan_instance_apply make:
+// grid (chunks, C / (tv * vec), B), blocks of (kThreads / tv) * tv threads,
+// bursts of n <= U loads a thread; vec 1 takes the scalar path.
+constexpr int kMomentsUnroll = 8, kApplyUnroll = 1;
+
+inline bool plan_ok(int C, int vec, int tv, int chunks, int n, int U,
+                    int max_vec) {
+  return (vec == 1 || vec == max_vec) && tv >= 1 && tv <= kThreads &&
+         tv * vec <= (kThreads / tv) * tv && C % (tv * vec) == 0 &&
+         chunks >= 1 && n >= 1 && n <= U;
 }
 
 template <typename T>
-int moments_pass(const void* x, float* partial, float* moments, int B, int HW,
-                 int C, int P, cudaStream_t stream) {
-  const int err = partial_pass<T>(x, partial, B, HW, C, P, stream);
-  if (err) return err;
-  in_moments_kernel<<<p2p::ceil_div(B * C, kThreads / 32), kThreads, 0,
-                      stream>>>(partial, moments, B, C, P, HW);
+int moments_launch(const void* x, float* partial, unsigned* arrivals,
+                   float* moments, int B, int H, int W, int C,
+                   long long sample_pitch, long long row_pitch, int vec,
+                   int tv, int chunks, int n, int group,
+                   cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (!plan_ok(C, vec, tv, chunks, n, kMomentsUnroll, kVec) || group < 1)
+    return cudaErrorInvalidValue;
+  const dim3 grid(chunks, C / (tv * vec), B);
+  const int threads = (kThreads / tv) * tv;
+  if (vec == kVec)
+    in_moments_kernel<T, kVec, kMomentsUnroll><<<grid, threads, 0, stream>>>(
+        (const T*)x, partial, arrivals, moments, H * W, W, C, sample_pitch,
+        row_pitch, tv, n, group);
+  else
+    in_moments_kernel<T, 1, kMomentsUnroll><<<grid, threads, 0, stream>>>(
+        (const T*)x, partial, arrivals, moments, H * W, W, C, sample_pitch,
+        row_pitch, tv, n, group);
   return cudaGetLastError();
 }
 
 template <typename T>
-int apply_moments(const void* x, void* y, const float* moments, float* stats,
-                  int B, int HW, int C, int act, float eps,
-                  cudaStream_t stream) {
-  in_moments_finalize_kernel<<<p2p::ceil_div(B * C, kThreads), kThreads, 0,
-                               stream>>>(moments, stats, B, C, eps);
-  const int err = cudaGetLastError();
-  if (err) return err;
-  return apply_pass<T>(x, y, stats, B, HW, C, act, stream);
+int apply_launch(const void* x, void* y, const float* moments, int B, int H,
+                 int W, int C, long long sample_pitch, long long row_pitch,
+                 int vec, int tv, int chunks, int n, int count, int act,
+                 float eps, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (!plan_ok(C, vec, tv, chunks, n, kApplyUnroll, kVec) || count < 1)
+    return cudaErrorInvalidValue;
+  const dim3 grid(chunks, C / (tv * vec), B);
+  const int threads = (kThreads / tv) * tv;
+  if (vec == kVec)
+    in_apply_moments_kernel<T, kVec, kApplyUnroll>
+        <<<grid, threads, 0, stream>>>((const T*)x, (T*)y, moments, H * W, W,
+                                       C, sample_pitch, row_pitch, tv, n,
+                                       count, act, eps);
+  else
+    in_apply_moments_kernel<T, 1, kApplyUnroll>
+        <<<grid, threads, 0, stream>>>((const T*)x, (T*)y, moments, H * W, W,
+                                       C, sample_pitch, row_pitch, tv, n,
+                                       count, act, eps);
+  return cudaGetLastError();
 }
 
 // --------------------------------------------------------------------------
@@ -522,32 +854,48 @@ int p2p_instance_stats(const void* x, void* partial, void* mean, void* rstd,
                            B, HW, C, eps, P, s);
 }
 
-// The local moments of x [B, H*W, C] (channels_last): moments f32
-// [2, B, C] = (mean, E[x^2]) on return; partial: f32 [B, P, C, 2].
-int p2p_instance_moments(const void* x, void* partial, void* moments, int B,
-                         int HW, int C, int dtype, int P, void* stream) {
-  if (B <= 0 || HW <= 0 || C <= 0) return cudaGetLastError();
+// B3m: the local moments of x [B, C, H, W] (rows of W*C contiguous, sample
+// b and row h at x + b * sample_pitch + h * row_pitch, in elements):
+// moments f32 [2, B, C] = (mean, E[x^2]) on return. partial: f32
+// [B, C, chunks, 2] workspace; arrivals: u32 [B, C / (tv * vec), 1 +
+// ceil(chunks / group)], all 0 before the launch and after it. The plan
+// (vec, tv, chunks, loads, group) is ops/norm.py plan_instance_moments's;
+// vec 16 bytes needs x, the pitches and C * elem on 16 bytes.
+int p2p_instance_moments(const void* x, void* partial, void* arrivals,
+                         void* moments, int B, int H, int W, int C,
+                         long long sample_pitch, long long row_pitch,
+                         int dtype, int vec, int tv, int chunks, int loads,
+                         int group, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return moments_pass<__nv_bfloat16>(x, (float*)partial, (float*)moments, B,
-                                       HW, C, P, s);
-  return moments_pass<float>(x, (float*)partial, (float*)moments, B, HW, C, P,
-                             s);
+    return moments_launch<__nv_bfloat16>(
+        x, (float*)partial, (unsigned*)arrivals, (float*)moments, B, H, W, C,
+        sample_pitch, row_pitch, vec, tv, chunks, loads, group, s);
+  return moments_launch<float>(x, (float*)partial, (unsigned*)arrivals,
+                               (float*)moments, B, H, W, C, sample_pitch,
+                               row_pitch, vec, tv, chunks, loads, group, s);
 }
 
-// y = act((x - mean) * rsqrt(max(E[x^2] - mean^2, 0) + eps)) from moments
-// f32 [2, B, C] (mean, E[x^2]); x, y: [B, H*W, C] (channels_last); stats:
-// f32 [B, C, 2] workspace, (mean, rstd) on return.
-int p2p_instance_apply(const void* x, void* y, const void* moments,
-                       void* stats, int B, int HW, int C, int dtype, int act,
-                       float eps, void* stream) {
-  if (B <= 0 || HW <= 0 || C <= 0) return cudaGetLastError();
+// B3a: y = act((x - mean) * rsqrt(max(E[x^2] - mean^2, 0) + eps)), mean and
+// E[x^2] being moments f32 [2, B, C] divided by `count` (the sum of that
+// many shards' moments); x as p2p_instance_moments reads it, y contiguous
+// channels_last; the plan (vec, tv, chunks, loads) ops/norm.py
+// plan_instance_apply's.
+int p2p_instance_apply(const void* x, void* y, const void* moments, int B,
+                       int H, int W, int C, long long sample_pitch,
+                       long long row_pitch, int dtype, int vec, int tv,
+                       int chunks, int loads, int count, int act, float eps,
+                       void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return apply_moments<__nv_bfloat16>(x, y, (const float*)moments,
-                                        (float*)stats, B, HW, C, act, eps, s);
-  return apply_moments<float>(x, y, (const float*)moments, (float*)stats, B,
-                              HW, C, act, eps, s);
+    return apply_launch<__nv_bfloat16>(x, y, (const float*)moments, B, H, W,
+                                       C, sample_pitch, row_pitch, vec, tv,
+                                       chunks, loads, count, act, eps, s);
+  return apply_launch<float>(x, y, (const float*)moments, B, H, W, C,
+                             sample_pitch, row_pitch, vec, tv, chunks, loads,
+                             count, act, eps, s);
 }
 
 }  // extern "C"

@@ -75,16 +75,14 @@ def instance_norm(x: torch.Tensor, act: str = "none",
 def cp_instance_norm(x: torch.Tensor, act: str, cp) -> torch.Tensor:
     """InstanceNorm of a block of a frame axis split over `cp`
     (pix2pixhdaudiosr_tpu/models/layers.py:189-208 with cp_axis): the
-    block's f32 mean and E[x^2] (B3's moments entry), their mean over the
-    group (a SUM all-reduce over n, the shards being equal-sized: JAX's
-    pmean), then var = max(E[x^2] - mean^2, 0) and the normalize with
-    `act` (B3's apply entry). A cropped view is copied first: both entries
-    read a contiguous channels_last tensor. Inference only."""
-    x = x.contiguous(memory_format=torch.channels_last)
+    block's f32 mean and E[x^2] (B3m), their SUM over the group, then the
+    normalize with `act` (B3a), which divides the sums by n (the shards
+    being equal-sized: JAX's pmean) and sets var = max(E[x^2] - mean^2,
+    0). Both kernels read a cropped view in place. Inference only."""
     moments = instance_moments(x)
     if cp.size > 1:
-        moments = cp.all_reduce_sum(moments) / cp.size
-    return instance_apply(x, moments, act)
+        moments = cp.all_reduce_sum(moments)
+    return instance_apply(x, moments, act, count=cp.size)
 
 
 def avg_pool_3s2(x: torch.Tensor, cp=None) -> torch.Tensor:

@@ -46,8 +46,10 @@ _SIGNATURES = {
                                        _L, _L, _I, _L, _L, _I, _I, _F, _I, _I,
                                        _P),
     "p2p_instance_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    "p2p_instance_moments": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "p2p_instance_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "p2p_instance_moments": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I,
+                             _I, _I, _I, _I, _P),
+    "p2p_instance_apply": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _P),
     "p2p_conv3x3_in": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _F, _I, _I, _I, _I, _P),
     "p2p_conv3x3_valid": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -143,15 +145,30 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def _index(device: torch.device) -> int:
+    return (torch.cuda.current_device() if device.index is None
+            else device.index)
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of `device`'s current CUDA stream, as `launch` passes it
+    (without building a torch.cuda.Stream)."""
+    return torch._C._cuda_getCurrentRawStream(_index(device))
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call kernel entry point `name` on `device`'s current stream (appended
-    as the last argument); raise if the launch was refused."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, name)(*args, stream)
+    as the last argument), with `device` made the current device where it
+    is not already; raise if the launch was refused."""
+    fn, index = getattr(library(), name), _index(device)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if torch._C._cuda_getDevice() == index:
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, stream)
     if code != 0:
-        msg = lib.p2p_error_string(code).decode()
+        msg = _lib.p2p_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
 
 

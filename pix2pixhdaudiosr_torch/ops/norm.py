@@ -37,12 +37,14 @@ the normalize into its next conv).
 
 For a frame axis split over ranks (context parallelism, models/layers.py
 `instance_norm(..., cp=)`) the statistics must span every shard, so the
-norm splits in two: `instance_moments` (the local f32 mean and E[x^2],
-[2, B, C], which the caller averages over the shards) and
-`instance_apply` (the normalize from such moments: var = max(E[x^2] -
-mean^2, 0), eps 1e-5, then the activation), counted in their own
-`.launches` and `.launches_by_shape`. Their twins are
-`instance_moments_ref` and `instance_apply_ref`, of which
+norm splits in two: `instance_moments` (B3m: the local f32 mean and
+E[x^2], [2, B, C], which the caller sums over the shards) and
+`instance_apply` (B3a: the normalize from such moments divided by the
+shard count: var = max(E[x^2] - mean^2, 0), eps 1e-5, then the
+activation), one launch each on a plan of the shape
+(`plan_instance_moments`, `plan_instance_apply`), reading a cropped view
+in place, counted in their own `.launches` and `.launches_by_shape`.
+Their twins are `instance_moments_ref` and `instance_apply_ref`, of which
 `instance_norm_act_ref` is made.
 """
 
@@ -221,10 +223,13 @@ def instance_mean_var_ref(x: torch.Tensor):
 
 
 def instance_apply_ref(x: torch.Tensor, moments: torch.Tensor,
-                       act: str = "none", eps: float = 1e-5) -> torch.Tensor:
+                       act: str = "none", eps: float = 1e-5,
+                       count: int = 1) -> torch.Tensor:
     """Twin of `instance_apply`: act((x - mean) * rsqrt(max(E[x^2] -
     mean^2, 0) + eps)) in f32, cast to x's dtype, from moments f32
-    [2, B, C] (mean, E[x^2])."""
+    [2, B, C] (mean, E[x^2]) summed over `count` shards, divided here."""
+    if count != 1:
+        moments = moments / torch.full_like(moments, count)
     mean, var = mean_var(moments)
     rstd = torch.rsqrt(var + eps)
     y = (x.float() - mean[:, :, None, None]) * rstd[:, :, None, None]
@@ -265,12 +270,14 @@ def _check_input(name: str, x: torch.Tensor) -> None:
                          f"{x.stride()}")
 
 
-def nhwc_pitches(name: str, x: torch.Tensor) -> Tuple[int, int]:
+def nhwc_pitches(name: str, x: torch.Tensor,
+                 aligned: bool = True) -> Tuple[int, int]:
     """(sample pitch, row pitch) in elements of x [B, C, H, W] whose rows of
     W*C elements are contiguous (channels_last, or a view of it cropped in
-    H and W, as the `same`-mode deconv output is). A view that is not
-    channels_last-contiguous must have sample and row pitches that are
-    multiples of 16 bytes. Raises ValueError otherwise."""
+    H and W, as the `same`-mode deconv output is). With `aligned`, a view
+    that is not channels_last-contiguous must have sample and row pitches
+    that are multiples of 16 bytes (a reader that also loads element by
+    element takes any). Raises ValueError otherwise."""
     _check_dtype_batch(name, x)
     if x.dim() != 4:
         raise ValueError(f"{name}: expected a channels_last [B, C, H, W] "
@@ -286,7 +293,7 @@ def nhwc_pitches(name: str, x: torch.Tensor) -> Tuple[int, int]:
     if x.is_contiguous(memory_format=torch.channels_last):
         return H * W * C, W * C
     elem = x.element_size()
-    if (sample * elem) % _VEC or (row * elem) % _VEC:
+    if aligned and ((sample * elem) % _VEC or (row * elem) % _VEC):
         raise ValueError(f"{name}: a strided view needs 16-byte sample and "
                          f"row pitches, got ({sample}, {row}) x {elem} bytes")
     return sample, row
@@ -386,26 +393,147 @@ def _count_shape(fn, x: torch.Tensor) -> None:
     fn.launches_by_shape[(H, W, C)] = fn.launches_by_shape.get((H, W, C), 0) + 1
 
 
+# The cross-shard entries (csrc/instance_norm.cu in_moments_kernel, B3m, and
+# in_apply_moments_kernel, B3a): the blocks each aims at, one wave of a
+# 132-SM H100 at the blocks an SM their launch bounds keep resident (2 and
+# 5), and the loads a thread has in flight a burst (kMomentsUnroll,
+# kApplyUnroll; twice that, the bursts being double-buffered), as
+# tools/cp_norm_ab.py --plans measured (PERF.md).
+MOMENTS_BLOCKS, APPLY_BLOCKS = 264, 660
+MOMENTS_UNROLL, APPLY_UNROLL = 8, 1
+FINAL_UNROLL = 16         # partial sums a thread of B3m's last blocks loads at once
+GROUP_ROUNDS = 4          # rounds of FINAL_UNROLL loads a first-level sum takes
+MAX_TILE_BYTES = 512      # widest channel tile of a position a block reads
+
+
+class CrossShardPlan(NamedTuple):
+    """How B3m or B3a runs x [B, C, H, W]: grid (chunks, tiles, B), blocks
+    of `threads` = (256 // tile) * tile threads, each reading `vec`
+    channels at once (16 bytes, or 1 on the scalar path) of one position:
+    a block owns `tile` such loads of each position (tile * vec channels,
+    one of `tiles` channel tiles). The H*W positions go in windows of
+    (threads // tile) * loads, a burst in which each thread has `loads`
+    loads in flight; window i is chunk i % chunks's, `bursts` windows a
+    chunk at most. B3m's first-level sums add `group` chunks' partial sums
+    (B3a: 0)."""
+    vec: int
+    tile: int
+    threads: int
+    tiles: int
+    chunks: int
+    loads: int
+    bursts: int
+    group: int
+
+
+@functools.lru_cache(maxsize=512)
+def plan_cross_shard(B: int, H: int, W: int, C: int, dtype: torch.dtype,
+                     vectors: bool = True, blocks: int = MOMENTS_BLOCKS,
+                     unroll: int = MOMENTS_UNROLL,
+                     group_rounds: int = GROUP_ROUNDS) -> CrossShardPlan:
+    """The plan of B3m (`group_rounds` > 0) or B3a (0) for x of `dtype`, a
+    function of the shape and of `vectors` (x and its pitches on 16 bytes)
+    alone. vec: 16 bytes where `vectors` and a position's C channels are a
+    multiple of 16 bytes, else 1. tile: the widest divisor of C / vec whose
+    loads span at most MAX_TILE_BYTES. loads: `unroll`, or as few as let
+    B * tiles * chunks reach `blocks` on a small plane. chunks:
+    enough to reach `blocks` while each has a window, at least enough that
+    no thread sums more than _MAX_ROWS_PER_THREAD rows (the f32 rounding of
+    each thread's sums), rounded to whole waves of `blocks`, then as few as
+    keep every chunk's window count.
+    group: the chunks of which a thread of a first-level sum reads
+    `group_rounds` rounds of FINAL_UNROLL; all of them where that covers
+    the plane (one level)."""
+    hw, elem = H * W, dtype.itemsize
+    vec = _VEC // elem if vectors and (C * elem) % _VEC == 0 else 1
+    n = C // vec
+    cap = max(1, MAX_TILE_BYTES // (vec * elem))
+    tile = max(d for d in range(1, min(n, cap) + 1) if n % d == 0)
+    threads = _THREADS // tile * tile
+    tiles, rows = n // tile, threads // tile
+    aim = -(-blocks // (B * tiles))
+    loads = min(unroll, max(1, -(-hw // (rows * aim))))
+    windows = -(-hw // (rows * loads))
+    chunks = max(min(aim, windows),
+                 -(-windows // (_MAX_ROWS_PER_THREAD // loads)))
+    waves = -(-chunks // aim)             # whole waves of `blocks`
+    bursts = -(-windows // (waves * aim))
+    chunks = -(-windows // bursts)
+    per_round = FINAL_UNROLL * max(1, threads // (tile * vec))
+    group = min(chunks, group_rounds * per_round)
+    return CrossShardPlan(vec, tile, threads, tiles, chunks, loads, bursts,
+                          group)
+
+
+def plan_instance_moments(B: int, H: int, W: int, C: int, dtype: torch.dtype,
+                          vectors: bool = True) -> CrossShardPlan:
+    """B3m's plan (`plan_cross_shard` at MOMENTS_BLOCKS, MOMENTS_UNROLL)."""
+    return plan_cross_shard(B, H, W, C, dtype, vectors)
+
+
+def plan_instance_apply(B: int, H: int, W: int, C: int, dtype: torch.dtype,
+                        vectors: bool = True) -> CrossShardPlan:
+    """B3a's plan (`plan_cross_shard` at APPLY_BLOCKS, APPLY_UNROLL)."""
+    return plan_cross_shard(B, H, W, C, dtype, vectors, APPLY_BLOCKS,
+                            APPLY_UNROLL, 0)
+
+
+def _vectors(x: torch.Tensor, pitches: Tuple[int, int]) -> bool:
+    """Whether x's start and pitches sit on 16 bytes (16-byte loads)."""
+    elem = x.element_size()
+    return (x.data_ptr() % _VEC == 0 and (pitches[0] * elem) % _VEC == 0
+            and (pitches[1] * elem) % _VEC == 0)
+
+
+# B3m's workspace on each (device, CUDA stream): f32 partial sums, and u32
+# arrival counts that are 0 between launches (the last block of each plane
+# resets its own), so launches on one stream can share them.
+_MOMENTS_WORK = {}
+
+
+def moments_workspace(device: torch.device, stream: int, n_partial: int = 0,
+                      n_arrivals: int = 0):
+    """(partial, arrivals) of B3m on `device` and `stream` (its
+    cuda_stream handle), grown to at least the given sizes; arrivals start
+    at 0."""
+    key = (device, stream)
+    part, arrivals = _MOMENTS_WORK.get(key, (None, None))
+    if part is None or part.numel() < n_partial:
+        part = torch.empty(max(n_partial, 1), dtype=torch.float32,
+                           device=device)
+    if arrivals is None or arrivals.numel() < n_arrivals:
+        arrivals = torch.zeros(max(n_arrivals, 1024), dtype=torch.int32,
+                               device=device)
+    _MOMENTS_WORK[key] = (part, arrivals)
+    return part, arrivals
+
+
 def instance_moments(x: torch.Tensor) -> torch.Tensor:
     """The local moments of x [B, C, H, W]: f32 [2, B, C], the mean and
     E[x^2] of each plane, neither clamped nor finalized, so that the
-    caller can average them over the shards of a split axis. On CUDA x must
-    be channels_last-contiguous float32 or bfloat16 (a cropped view is
-    copied by the caller); one launch of p2p_instance_moments (the
-    two-pass route's statistics pass, then a compensated sum of its
-    partials, a warp a plane), counted in `instance_moments.launches` and
-    by (H, W, C)."""
+    caller can sum them over the shards of a split axis. On CUDA x is
+    float32 or bfloat16 with rows of W*C contiguous (`nhwc_pitches`: a
+    cropped view is read in place); one launch of p2p_instance_moments
+    (`plan_instance_moments`; the blocks' sums added by the last block of
+    each group of `plan.group`, the groups' by the last group of the
+    plane), counted in `instance_moments.launches` and by (H, W, C)."""
     if x.device.type == "cpu":
         return instance_moments_ref(x)
-    _cuda.check_cuda("instance_moments", x)
-    _check_input("instance_moments", x)
+    name = "instance_moments"
+    dev = x.device
+    _cuda.check_cuda(name, x)
+    pitches = nhwc_pitches(name, x, aligned=False)
     B, C, H, W = x.shape
-    P = stat_chunks(B, H * W, C)
-    partial = torch.empty(B, P, C, 2, dtype=torch.float32, device=x.device)
-    moments = torch.empty(2, B, C, dtype=torch.float32, device=x.device)
-    _cuda.launch("p2p_instance_moments", x.device, x.data_ptr(),
-                 partial.data_ptr(), moments.data_ptr(), B, H * W, C,
-                 int(x.dtype == torch.bfloat16), P)
+    plan = plan_instance_moments(B, H, W, C, x.dtype, _vectors(x, pitches))
+    moments = torch.empty(2, B, C, dtype=torch.float32, device=dev)
+    stream = _cuda.current_stream(dev)
+    part, arrivals = moments_workspace(
+        dev, stream, 2 * B * C * plan.chunks,
+        B * plan.tiles * (1 + -(-plan.chunks // plan.group)))
+    _cuda.launch("p2p_instance_moments", dev, x.data_ptr(), part.data_ptr(),
+                 arrivals.data_ptr(), moments.data_ptr(), B, H, W, C,
+                 *pitches, int(x.dtype == torch.bfloat16), plan.vec,
+                 plan.tile, plan.chunks, plan.loads, plan.group)
     _count_shape(instance_moments, x)
     return moments
 
@@ -415,31 +543,34 @@ instance_moments.launches_by_shape = {}
 
 
 def instance_apply(x: torch.Tensor, moments: torch.Tensor, act: str = "none",
-                   eps: float = 1e-5) -> torch.Tensor:
-    """act((x - mean) * rsqrt(max(E[x^2] - mean^2, 0) + eps)) from moments
-    f32 [2, B, C] (mean, E[x^2]; `instance_moments`, averaged over shards
-    by the caller). x as `instance_moments` takes it; returns x's dtype,
-    channels_last. One launch of p2p_instance_apply (a finalize of the
-    moments, then the two-pass route's apply pass), counted in
-    `instance_apply.launches` and by (H, W, C)."""
+                   eps: float = 1e-5, count: int = 1) -> torch.Tensor:
+    """act((x - mean) * rsqrt(max(E[x^2] - mean^2, 0) + eps)), mean and
+    E[x^2] being moments f32 [2, B, C] summed over `count` shards
+    (`instance_moments` of each, all-reduced by the caller) and divided by
+    it here. x as `instance_moments` takes it; returns x's dtype,
+    channels_last. One launch of p2p_instance_apply (`plan_instance_apply`),
+    counted in `instance_apply.launches` and by (H, W, C)."""
     if x.device.type == "cpu":
-        return instance_apply_ref(x, moments, act, eps)
+        return instance_apply_ref(x, moments, act, eps, count)
     name = "instance_apply"
     _cuda.check_cuda(name, x, moments)
-    _check_input(name, x)
+    pitches = nhwc_pitches(name, x, aligned=False)
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
+    if count < 1:
+        raise ValueError(f"{name}: count {count} < 1")
     B, C, H, W = x.shape
     if (moments.shape != (2, B, C) or moments.dtype != torch.float32
             or not moments.is_contiguous()):
         raise ValueError(f"{name}: moments must be contiguous f32 "
                          f"[2, {B}, {C}], got {moments.dtype} "
                          f"{tuple(moments.shape)}")
+    plan = plan_instance_apply(B, H, W, C, x.dtype, _vectors(x, pitches))
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    stats = torch.empty(B, C, 2, dtype=torch.float32, device=x.device)
     _cuda.launch("p2p_instance_apply", x.device, x.data_ptr(), y.data_ptr(),
-                 moments.data_ptr(), stats.data_ptr(), B, H * W, C,
-                 int(x.dtype == torch.bfloat16), ACTS[act], float(eps))
+                 moments.data_ptr(), B, H, W, C, *pitches,
+                 int(x.dtype == torch.bfloat16), plan.vec, plan.tile,
+                 plan.chunks, plan.loads, int(count), ACTS[act], float(eps))
     _count_shape(instance_apply, x)
     return y
 

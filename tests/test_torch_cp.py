@@ -78,7 +78,21 @@ def world4():
 def world2(jax_case):
     return cases.run_world(2, dict(in_x=IN_X, jax_state=jax_case["state"],
                                    jax_spec=jax_case["spec"]),
-                           ["generator", "moments", "jax_generator"])
+                           ["generator", "moments", "moments_cropped",
+                            "jax_generator"])
+
+
+@pytest.fixture(scope="module")
+def jax_cp_norm():
+    """layers.instance_norm(x, cp_axis=...) under shard_map on 2 devices
+    (its moments pmean'd) of IN_X, NCHW: {act: output}."""
+    x = jnp.asarray(np.transpose(IN_X, (0, 2, 3, 1)))
+    mesh2 = make_mesh((2,), ("cp",), devices=jax.devices()[:2])
+    spec = P(None, None, "cp", None)
+    fn = jax.shard_map(lambda b: jlayers.instance_norm(b, cp_axis="cp"),
+                       mesh=mesh2, in_specs=spec, out_specs=spec)
+    want = np.transpose(np.asarray(fn(x)), (0, 3, 1, 2))
+    return {"none": want, "relu": np.maximum(want, 0)}
 
 
 @pytest.mark.parametrize("center", [True, False])
@@ -174,19 +188,24 @@ def test_cp_generator_matches_jax_cp_at_2_shards(world2, jax_case):
 
 
 @pytest.mark.parametrize("act", ["none", "relu"])
-def test_cp_instance_norm_matches_jax_shard_map(world2, act):
+def test_cp_instance_norm_matches_jax_shard_map(world2, jax_cp_norm, act):
     """B3's moments and apply twins around the all-reduce, at 2 ranks,
     against layers.instance_norm(x, cp_axis=...) under shard_map on 2
     devices (its moments pmean'd), within 1e-6."""
-    x = jnp.asarray(np.transpose(IN_X, (0, 2, 3, 1)))
-    mesh2 = make_mesh((2,), ("cp",), devices=jax.devices()[:2])
-    spec = P(None, None, "cp", None)
-    fn = jax.shard_map(lambda b: jlayers.instance_norm(b, cp_axis="cp"),
-                       mesh=mesh2, in_specs=spec, out_specs=spec)
-    want = np.transpose(np.asarray(fn(x)), (0, 3, 1, 2))
-    if act == "relu":
-        want = np.maximum(want, 0)
-    np.testing.assert_allclose(world2[0]["moments"][act], want, atol=1e-6)
+    np.testing.assert_allclose(world2[0]["moments"][act], jax_cp_norm[act],
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+def test_cp_instance_norm_reads_a_cropped_view_against_jax(world2,
+                                                           jax_cp_norm, act):
+    """cp_instance_norm at 2 ranks on each rank's block held in a cropped
+    channels_last view (the same-mode deconv's CP output), read as it is
+    and the moments' SUM divided in the apply: within 1e-6 of the JAX
+    shard_map InstanceNorm of the same values."""
+    assert all(r["moments_cropped"][act] is None for r in world2[1:])
+    np.testing.assert_allclose(world2[0]["moments_cropped"][act],
+                               jax_cp_norm[act], atol=1e-6)
 
 
 def _jax_noise(seed):

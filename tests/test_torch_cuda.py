@@ -6,6 +6,9 @@ On the card, run them with `python -m pytest tests/test_torch_cuda.py`;
 chip_smoke.py makes the same comparisons at the flagship shapes.
 """
 
+import os
+import sys
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -163,21 +166,49 @@ def _assert_in_close(got, want):
         assert _ulp_excess(got, want) <= 0
 
 
+def _cuda_kernels(fn, calls=3):
+    """The CUDA kernels `calls` calls of fn() launch (torch.profiler); a
+    trace whose kernels do not divide evenly among the calls (one that
+    dropped events, as a trace now and then does) is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names and len(names) % calls == 0:
+            return names
+    pytest.fail(f"5 profiler traces gave {names} for {calls} calls")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(1, 48, 512, 256), (2, 768, 16, 4)],
-                         ids=["cp", "tp"])
+@pytest.mark.parametrize("shape", [(1, 48, 512, 256), (2, 768, 16, 4),
+                                   (1, 48, 512, 2816), (2, 5, 7, 9)],
+                         ids=["cp", "tp", "long", "scalar"])
 def test_instance_moments_and_apply_match_twins(cuda, shape, dtype):
     """B3's cross-shard entries at a CP shape (a flagship full-file block of
-    the enhancer, 256 frames) and a TP shape (the trunk's 1536 channels over
-    2 ranks): the moments (below), the apply
+    the enhancer, 256 frames), a TP shape (the trunk's 1536 channels over
+    2 ranks), a long file's block (2816 frames, beyond the L2) and 5
+    channels (the scalar path): the moments (below), the apply
     (from the twin's moments, so that only the apply is tested) within
     tolerance for each activation, one launch each counted by shape, and
     the two composed (one shard) within it of the one-launch norm's twin.
     The moments
     are held to float64 ones: within 1e-6 relative to each plane's scale
     (its RMS for the mean, E[x^2] for E[x^2]), or no farther than the
-    twin's f32 reduction."""
+    twin's f32 reduction, and are the same bits over two calls. A cropped
+    view gives its contiguous copy's bits; the apply of moments summed
+    over 3 shards (count 3) gives the bits of the apply of their mean;
+    each entry is one CUDA kernel a call, and the arrival counts of B3m's
+    workspace are 0 after it."""
     from pix2pixhdaudiosr_torch.ops import norm
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_cases as cases
     x = _in_input(cuda, shape, dtype)
     B, C, H, W = shape
     n = (norm.instance_moments.launches, norm.instance_apply.launches)
@@ -197,10 +228,27 @@ def test_instance_moments_and_apply_match_twins(cuda, shape, dtype):
     assert (norm.instance_moments.launches,
             norm.instance_apply.launches) == (n[0] + 1, n[1] + 3)
     assert norm.instance_apply.launches_by_shape[(H, W, C)] >= 3
-    _assert_in_close(norm.instance_apply(x, got, "relu"),
-                     norm.instance_norm_act_ref(x, "relu"))
+    y = norm.instance_apply(x, got, "relu")
+    _assert_in_close(y, norm.instance_norm_act_ref(x, "relu"))
     with pytest.raises(ValueError, match="channels_last"):
         norm.instance_moments(x.contiguous())
+
+    assert torch.equal(norm.instance_moments(x), got)
+    crop = cases.cropped_view(x)
+    assert not crop.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(norm.instance_moments(crop), got)
+    assert torch.equal(norm.instance_apply(crop, got, "relu"), y)
+    summed = got + got + got
+    assert torch.equal(
+        norm.instance_apply(x, summed, "relu", count=3),
+        norm.instance_apply(x, summed / torch.full_like(summed, 3), "relu"))
+    for fn in (lambda: norm.instance_moments(crop),
+               lambda: norm.instance_apply(crop, summed, "relu", count=3)):
+        assert len(_cuda_kernels(fn, calls=3)) == 3
+    torch.cuda.synchronize()
+    arrivals = norm.moments_workspace(
+        x.device, torch.cuda.current_stream().cuda_stream)[1]
+    assert int(arrivals.count_nonzero()) == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -801,9 +849,6 @@ def test_dp_step_on_card_matches_one_process(cuda, tmp_path):
     leaf's max|g| (not a bias feeding an InstanceNorm) within 1e-3 lr, all
     within 2.2 lr; the Adam moments within 1e-3 (first) and 2e-3 (second)
     of their leaf's max; both ranks equal."""
-    import os
-    import sys
-
     import numpy as np
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch_parallel_cases as cases

@@ -231,6 +231,32 @@ def case_moments(group, job):
     return out
 
 
+def cropped_view(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a view cropped out of a larger channels_last tensor
+    (a row above, two frames left, a row and three frames beyond), as the
+    same-mode deconv's CP output is: the start and the pitches move."""
+    B, C, H, W = x.shape
+    big = torch.zeros(B, C, H + 2, W + 5, dtype=x.dtype,
+                      device=x.device).contiguous(
+                          memory_format=torch.channels_last)
+    view = big[..., 1:H + 1, 2:W + 2]
+    view.copy_(x)
+    return view
+
+
+def case_moments_cropped(group, job):
+    """case_moments on this rank's frames held in a cropped channels_last
+    view, which cp_instance_norm reads as it is."""
+    from pix2pixhdaudiosr_torch.models.layers import cp_instance_norm
+    x = cropped_view(block_of(torch.from_numpy(job["in_x"]), group))
+    assert not x.is_contiguous(memory_format=torch.channels_last)
+    out = {}
+    for act in ("none", "relu"):
+        y = gathered(cp_instance_norm(x, act, group), group)
+        out[act] = None if y is None else y.numpy()
+    return out
+
+
 def case_tp_blocks(group, job):
     """Three ResnetBlocks (16 channels) sharded over the group against the
     same blocks whole, run in sequence: (max|err|, max|y|) on every rank."""
