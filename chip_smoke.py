@@ -214,7 +214,7 @@ Phases, each fatal on failure (exit code 1):
      cp_instance_norm call launches (torch.profiler), failing unless each
      is one B3m and one B3a kernel with no copy before the 5 cropped
      views.
- 16. (run last) the training half of the parallel modes: 2 ranks of this
+ 16. (after phase 15) the training half of the parallel modes: 2 ranks of this
      script (`--rank-worker dp|zero|fsdp`) sharing cuda:0 over gloo, at
      flagship width (G 156,050,690 parameters, PatchGAN ndf 64), a wall
      limit of their own. Parity leg (f32, TF32 off, cuDNN's heuristic
@@ -245,6 +245,30 @@ Phases, each fatal on failure (exit code 1):
      torchrun sets them) with --zero_opt_state, 2 steps on phase 12's
      corpus and --continue_train for 2 more (G and D equal to the saved
      ones before its first step).
+ 17. (run last) the tools and entry points: torch.library.opcheck of every
+     p2p operator's CUDA and fake impl at a flagship shape (op_case), each
+     operator's output the eager wrapper's bits; the import round trip:
+     the seeded flagship G under the reference's keys (reference_keys,
+     built here) saved as a .pth, tools/import_torch_checkpoint_torch.py on
+     it, generate_audio_torch.py --torch_deconv on the 5 s wav, its
+     sr_audio.wav and float output bit-equal to the G loaded directly, B1,
+     B3 and B2 launched on their fast routes; the AOT engine
+     (tools/aot_engine_torch.py) at batch 4 with --out and at batch 128:
+     export seconds, FLOPs (FlopCounterMode), peak GiB, engine and eager
+     ms/call, the saved engine loaded and run in a process that imports
+     only torch, the package and this script (jax blocked): one forward's
+     launches (every kernel's counts reset and read there) B1 1
+     and B3 22 on eager's routes and no other kernel's, its output within
+     one bf16 ulp of eager's; file-to-file serving of the 5 s wav and a
+     60 s one by the generate CLI: the wall time of generate_audio_torch.py
+     in a process of its own (interpreter start, imports, CUDA context and
+     the kernel library's load included; the checkpoint read from a warm
+     page cache), 2 runs, beside a process's start-up alone (interpreter,
+     imports, CUDA context, kernel library); in this process (warm) by
+     utils/profiling.StepTimer (1 warm-up, 3 timed runs), then one run
+     under utils/profiling.trace: the host ms of its spans (read +
+     resample, load, serve, metrics, write) and the device ms of its
+     kernels and copies.
 Each phase prints its seconds ([phase] lines).
 The line before the last is {"kernels": [...]} (`launches` from one
 serve forward, for the InstanceNorm backward, which serving never
@@ -255,7 +279,8 @@ HiFi-GAN recipe step; `serve_launches` from one plain serve forward,
 `knob_launches_per_step` from one step of each memory knob and
 `family_a_launches_per_step` from one step of Family A's CLI run,
 `dp_launches_per_step` from one bf16 step of phase 16 on rank 0, a mode
-each; for B3's cross-shard entries, from the one-rank generate --cp_shards
+each; `export_launches` from one forward of phase 17's exported engine;
+for B3's cross-shard entries, from the one-rank generate --cp_shards
 4 run);
 the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result. f32 comparisons run
@@ -4430,6 +4455,486 @@ def phase_dp_ranks(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the tools and entry points
+# the p2p operators (ops/_cuda.define_op) opcheck'd at one flagship shape
+# each (op_case; tests/test_torch_cuda.py runs the same cases)
+OP_CASES = ("mdct2", "imdct2", "instance_norm_act", "instance_norm_act_stats",
+            "instance_stats", "instance_moments", "instance_apply",
+            "conv3x3_in", "conv3x3_valid", "stochastic_quantize_2d")
+# the file-to-file legs: the 5 s wav of phase 4 and a 60 s one, 2 runs of
+# generate_audio_torch.py in a process of its own each, then in this
+# process 1 warm-up and 3 timed runs of the generate CLI and one traced run
+F2F_SECONDS, F2F_RUNS, F2F_PROCESS_RUNS = 60.0, 4, 2
+# the flagship G's InstanceNorms in one forward (the exported engine's),
+# and the batches the AOT tool runs at (the first with --out)
+ENGINE_IN_LAUNCHES = IN_LAUNCHES["plain"]
+ENGINE_BATCHES = (4, 128)
+
+
+def op_case(name: str, dev):
+    """(operator, its arguments, a call of the eager wrapper that returns
+    what the operator returns) of OP_CASES's `name` at a flagship shape:
+    B1/B2 at batch 4 (512/256, the codec's planes), B3 and its statistics
+    at the G's [4, 48, 512, 128] and the enhancer's [4, 96, 256, 64] bf16,
+    B3m/B3a at a CP block [1, 48, 512, 256] bf16, B4/B5 at the enhancer's
+    rows [8, 96, 256, 64] (B5 pre-padded), B6 at the trunk conv weight's
+    [13824, 1536] f32."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import conv, enhancer, norm, quant
+    from pix2pixhdaudiosr_torch.ops import mdct_kernels as mk
+    from pix2pixhdaudiosr_torch.ops.mdct import IMDCT2, MDCT2
+    from pix2pixhdaudiosr_torch.ops.window import kbdwin
+    gen = torch.Generator(device=dev).manual_seed(17)
+    p = torch.ops.p2p
+
+    def randn(*shape, scale=1.0, dtype=torch.float32, cl=False):
+        t = (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if cl else t
+
+    bf16 = torch.bfloat16
+    kw = dict(n_fft=512, hop_length=256, win_length=512, window=kbdwin(512),
+              device=dev)
+    if name == "mdct2":
+        fwd, x = MDCT2(**kw), randn(4, SEG + 512, scale=0.1)
+        return (p.mdct2, (x, fwd.basis, 256, *fwd.planes),
+                lambda: mk.mdct2(x, fwd.basis, 256, fwd.planes))
+    if name == "imdct2":
+        inv, spec = IMDCT2(**kw), randn(4, 128, 512)
+        return (p.imdct2, (spec, inv.basis, 256, *inv.planes),
+                lambda: mk.imdct2(spec, inv.basis, 256, inv.planes))
+    if name.startswith("instance_norm_act"):
+        x, stats = randn(4, 48, 512, 128, dtype=bf16, cl=True), "stats" in name
+        return (p.instance_norm_act, (x, "relu", 1e-5, stats),
+                lambda: norm.instance_norm_act(x, "relu", 1e-5, True)
+                if stats else (norm.instance_norm_act(x, "relu"),
+                               x.new_empty(0, dtype=torch.float32)))
+    if name == "instance_stats":
+        x = randn(4, 96, 256, 64, dtype=bf16, cl=True)
+        return (p.instance_stats, (x, 1e-5),
+                lambda: torch.stack(norm.instance_stats(x)))
+    if name in ("instance_moments", "instance_apply"):
+        x = randn(1, 48, 512, 256, dtype=bf16, cl=True)
+        if name == "instance_moments":
+            return p.instance_moments, (x,), lambda: norm.instance_moments(x)
+        m = 3 * norm.instance_moments_ref(x)
+        return (p.instance_apply, (x, m, "relu", 1e-5, 3),
+                lambda: norm.instance_apply(x, m, "relu", 1e-5, 3))
+    if name == "conv3x3_in":
+        x = randn(8, 96, 256, 64, dtype=bf16, cl=True)
+        w = enhancer.pack_weights(randn(96, 96, 3, 3, scale=0.05))
+        b, mean, scale = randn(96), randn(8, 96), randn(8, 96).abs() + 0.5
+
+        def eager():
+            y, (m_, s_) = enhancer.conv3x3_in(x, w, b, mean, scale, x,
+                                              "in_relu_add")
+            return y, torch.stack((m_, s_))
+        return (p.conv3x3_in, (x, w, b, mean, scale, x, "in_relu_add", 1e-5),
+                eager)
+    if name == "conv3x3_valid":
+        x = randn(8, 96, 258, 66, dtype=bf16, cl=True)
+        w = randn(96, 96, 3, 3, scale=0.05)
+        return (p.conv3x3_valid, (x, w, True),
+                lambda: conv.conv3x3_valid(x, w, True))
+    if name == "stochastic_quantize_2d":
+        x = randn(*TRUNK_W2D, scale=0.02)
+        return (p.stochastic_quantize_2d, (x, 5),
+                lambda: quant.stochastic_quantize_2d(x, 5))
+    raise ValueError(f"no operator case {name!r}")
+
+
+def reference_keys(n_down: int, n_blocks: int, n_blocks_local: int) -> dict:
+    """{port layer: reference layer} of a LocalEnhancer with one enhancer:
+    the reference's Sequential layouts (pix2pixHD models/networks.py), walked
+    a layer at a time: the trunk `model` (pad, conv, norm, relu; the downs;
+    the resblocks, each conv_block's convs at 1 and 5; the deconvs), then
+    `model1_1` (pad, conv, norm, relu, the stride-2 conv, norm, relu) and
+    `model1_2` (the resblocks, the deconv, norm, relu, pad, conv, tanh)."""
+    trunk = [None, "global.ConvIN_0", None, None]
+    for i in range(n_down):
+        trunk += [f"global.ConvIN_{i + 1}", None, None]
+    trunk += [f"global.ResnetBlock_{i}" for i in range(n_blocks)]
+    for i in range(n_down):
+        trunk += [f"global.ConvTransposeIN_{i}", None, None]
+    down = [None, "enh1_down0", None, None, "enh1_down1", None, None]
+    up = [f"enh1_block{i}" for i in range(n_blocks_local)] + [
+        "enh1_up", None, None, None, "enh1_final", None]
+    table = {}
+    for seq, layers in (("model", trunk), ("model1_1", down),
+                        ("model1_2", up)):
+        for idx, layer in enumerate(layers):
+            if layer is None:
+                continue
+            if "ResnetBlock" in layer or "_block" in layer:
+                table[f"{layer}.ConvIN_0"] = f"{seq}.{idx}.conv_block.1"
+                table[f"{layer}.ConvIN_1"] = f"{seq}.{idx}.conv_block.5"
+            else:
+                table[layer] = f"{seq}.{idx}"
+    return table
+
+
+def to_reference(sd: dict) -> dict:
+    """The flagship G's state_dict under the reference's keys."""
+    table = reference_keys(4, 3, 2)
+    out = {}
+    for key, t in sd.items():
+        layer, _, leaf = key.rsplit(".", 2)   # <layer>.Conv_0.weight
+        out[f"{table[layer]}.{leaf}"] = t
+    check(len(out) == len(sd) == 2 * len(table),
+          f"{len(sd)} tensors of the flagship G, {len(out)} renamed, "
+          f"{len(table)} reference layers")
+    return out
+
+
+def route_counts(counters) -> dict:
+    """{kernel: (launches, on the fast route)}: the tensor-core route of
+    B1/B2, the one-pass route of B3; 0 for a kernel with neither."""
+    return {k: (fn.launches, getattr(fn, "launches_tc",
+                                     getattr(fn, "launches_onepass", 0)))
+            for k, fn in counters.items()}
+
+
+def check_fast_routes(what: str, counts: dict) -> None:
+    for k, (n, fast) in counts.items():
+        check(n > 0 and fast == n, f"{what}: {k} launched {n} times, {fast} "
+              f"on the tensor-core or one-pass route")
+
+
+def run_quiet(fn, *args):
+    """fn(*args) with its printing kept: (its result, its stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args)
+    return res, out.getvalue()
+
+
+def phase_import_round_trip(dev, wav: str, counters) -> dict:
+    """The seeded flagship G (phase 5) under the reference's keys as a
+    .pth, through tools/import_torch_checkpoint_torch.py, then served by
+    generate_audio_torch.py --torch_deconv on the 5 s wav: the sr wav and
+    the float output bit-equal to the same G loaded directly in torch
+    deconv mode, and B1, B3, B2 launched on their fast routes."""
+    import runpy
+    import numpy as np
+    import torch
+    import import_torch_checkpoint_torch as importer
+    from pix2pixhdaudiosr_torch import generate
+    from pix2pixhdaudiosr_torch.data.wavio import read_wav
+
+    sd = torch.load(os.path.join(WORK, "smoke", "latest_net_G.pth"),
+                    map_location="cpu", weights_only=True)
+    ref_dir = os.path.join(WORK, "reference")
+    os.makedirs(ref_dir, exist_ok=True)
+    ref_pth = os.path.join(ref_dir, "latest_net_G.pth")
+    torch.save(to_reference(sd), ref_pth)
+    t0 = time.perf_counter()
+    _, printed = run_quiet(importer.main, ["--pth", ref_pth, "--name",
+                                           "imported", "--checkpoints_dir",
+                                           WORK, *FLAGSHIP])
+    import_s = time.perf_counter() - t0
+    check("note: enabling --torch_deconv" in printed,
+          "the import tool did not force --torch_deconv")
+    imported = os.path.join(WORK, "imported")
+    loaded = torch.load(os.path.join(imported, "latest_net_G.pth"),
+                        map_location="cpu", weights_only=True)
+    check(sorted(loaded) == sorted(sd) and all(
+        torch.equal(loaded[k], sd[k]) for k in sd),
+        "the imported G differs from the G the reference keys came from")
+    serve = ["--checkpoints_dir", WORK, "--dataroot", wav, "--batchSize",
+             "16", "--no_html", "--device", dev, *FLAGSHIP, "--torch_deconv"]
+    for fn in counters.values():
+        reset_counts(fn)
+    argv = sys.argv
+    sys.argv = ["generate_audio_torch.py", "--name", "via_import",
+                "--load_pretrain", imported, *serve]
+    try:
+        run_quiet(runpy.run_path,
+                  os.path.join(ROOT, "generate_audio_torch.py"), None,
+                  "__main__")
+    finally:
+        sys.argv = argv
+    routes = route_counts(counters)
+    check_fast_routes("generate_audio_torch.py on the imported G", routes)
+    direct, _ = run_quiet(generate.main, ["--name", "direct",
+                                          "--load_pretrain",
+                                          os.path.join(WORK, "smoke"), *serve])
+    again, _ = run_quiet(generate.main, ["--name", "direct_import",
+                                         "--load_pretrain", imported, *serve])
+    wavs = [read_wav(os.path.join(WORK, n, "sr_audio.wav"))[0]
+            for n in ("via_import", "direct")]
+    check(np.array_equal(*wavs), "the imported G's sr_audio.wav differs from "
+          "the directly loaded G's")
+    check(np.array_equal(direct, again), "the imported G's output differs "
+          "from the directly loaded G's")
+    res = dict(import_s=import_s, tensors=len(sd), launches={
+        k: dict(launches=n, fast_route=f) for k, (n, f) in routes.items()},
+        bit_equal=True)
+    print("[tools import] " + json.dumps(res))
+    return res
+
+
+# the module of each wrapper in KERNELS, which the engine's process imports
+# to reset and read its counts (reset_counts, route_counts)
+KERNEL_MODULES = {"mdct2": "mdct_kernels", "imdct2": "mdct_kernels",
+                  "imdct2_grad": "mdct_kernels", "instance_norm_act": "norm",
+                  "instance_norm_act_grad": "norm",
+                  "instance_moments": "norm", "instance_apply": "norm",
+                  "conv3x3_in": "enhancer", "conv3x3_valid": "conv",
+                  "stochastic_quantize_2d": "quant"}
+# the launches of one exported forward (all, on the fast route) that the
+# engine must make; every other kernel of KERNELS must make none
+ENGINE_LAUNCHES = {"mdct2": (1, 1), "instance_norm_act": (ENGINE_IN_LAUNCHES,
+                                                          ENGINE_IN_LAUNCHES)}
+ENGINE_RUN = """
+import importlib, json, sys
+for m in ("jax", "flax", "optax", "orbax"):
+    sys.modules[m] = None
+import torch
+import pix2pixhdaudiosr_torch
+from chip_smoke import reset_counts, route_counts
+engine = torch.export.load(sys.argv[1]).module()
+dev = sys.argv[4]
+fns = {k: getattr(importlib.import_module("pix2pixhdaudiosr_torch.ops." + m), k)
+       for k, m in json.loads(sys.argv[5]).items()}
+x = {k: v.to(dev) for k, v in torch.load(sys.argv[2]).items()}
+# cuDNN's heuristic algorithms, as the eager reference runs: a benchmark
+# run's choice follows its own timings, so two processes may round apart
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.deterministic = True
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+with torch.no_grad():
+    y = engine(x["audio"], x["noise"])
+    sync()
+    for fn in fns.values():
+        reset_counts(fn)
+    y = engine(x["audio"], x["noise"])
+    sync()
+torch.save(y.cpu(), sys.argv[3])
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("pix2pixhdaudiosr_tpu", "jax", "tools") and sys.modules[m]]
+weights = [t for t in engine.state_dict().values() if t.dim() == 4]
+print(json.dumps(dict(bad=bad, weights=len(weights), channels_last=sum(
+    t.is_contiguous(memory_format=torch.channels_last) for t in weights),
+    launches=route_counts(fns))))
+"""
+
+
+def phase_engine(dev) -> dict:
+    """tools/aot_engine_torch.py on the card at batch 4 with --out, the
+    engine loaded in a process of its own that imports only torch, the
+    package and this script's count helpers (jax blocked) and run twice: its second forward's launches,
+    every wrapper of KERNELS reset and read there (B1 1 and B3 22, on the
+    tensor-core and one-pass routes, every other kernel 0), and its
+    output against eager's within one bf16 ulp (+1e-6: it is the bf16 G's
+    output in f32), both on cuDNN's heuristic algorithms (the tool serves
+    with cudnn.benchmark, whose choice follows each process's timings, and
+    a bf16 G rounds apart through its 22 InstanceNorms on another
+    algorithm: 0.054 of max|y| ~1 on an H100); then the tool at batch
+    128."""
+    import torch
+    import aot_engine_torch as aot
+    check(set(KERNEL_MODULES) == set(KERNELS),
+          "KERNEL_MODULES does not name every kernel of KERNELS")
+    eng = os.path.join(WORK, "engine.pt2")
+    res = {}
+    for batch, extra in zip(ENGINE_BATCHES, (["--out", eng], [])):
+        r, printed = run_quiet(aot.main, ["--batch", str(batch), "--device",
+                                          dev, *extra])
+        print("\n".join(f"[aot b{batch}] {line}"
+                        for line in printed.splitlines()))
+        res[batch] = dict(compile_s=r["compile_s"], flops=r["flops"],
+                          peak_gib=(r["peak_bytes"] or 0) / 2**30, ms=r["ms"],
+                          eager_ms=r["eager_ms"])
+        if extra:
+            inputs = os.path.join(WORK, "engine_in.pt")
+            torch.save({"audio": r["audio"].cpu(),
+                        "noise": r["noise"].cpu()}, inputs)
+            size = r["out_bytes"]
+            check(ulp_excess(r["engine_out"], r["eager_out"]) <= 0,
+                  "the engine reloaded in this process is beyond one bf16 "
+                  "ulp of eager")
+            cudnn = torch.backends.cudnn
+            flags = cudnn.benchmark, cudnn.deterministic
+            cudnn.benchmark, cudnn.deterministic = False, True
+            with torch.no_grad():
+                want = r["system"].inference(r["audio"], r["noise"])[0].cpu()
+            cudnn.benchmark, cudnn.deterministic = flags
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = os.path.join(WORK, "engine_out.pt")
+    run = subprocess.run([sys.executable, "-c", ENGINE_RUN, eng, inputs, out,
+                          dev, json.dumps(KERNEL_MODULES)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    check(run.returncode == 0, f"the engine's own process failed: "
+          f"{run.stderr[-3000:]}")
+    rec = json.loads(run.stdout.strip().splitlines()[-1])
+    got = torch.load(out)
+    err = (got - want).abs().max().item()
+    excess = ulp_excess(got, want)
+    launches = {k: tuple(v) for k, v in rec["launches"].items()}
+    print(f"[aot] the engine ({size} bytes) in a process of its own: "
+          f"modules of jax or the JAX package {rec['bad']}, "
+          f"{rec['channels_last']} of its {rec['weights']} conv weights "
+          f"channels_last, one forward's "
+          f"launches (all, fast route) {launches}, max|engine - eager| {err} "
+          f"(bit-equal: {torch.equal(got, want)}, beyond one bf16 ulp "
+          f"{excess})")
+    check(not rec["bad"], f"the engine's process loaded {rec['bad']}")
+    want_launches = {k: ENGINE_LAUNCHES.get(k, (0, 0)) for k in KERNELS}
+    check(launches == want_launches, f"an exported forward launched "
+          f"{launches}; expected B1 1 and B3 {ENGINE_IN_LAUNCHES}, on the "
+          f"tensor-core and one-pass routes, and no other kernel")
+    check(excess <= 0, f"the engine's output is {excess} beyond one bf16 ulp "
+          f"of eager's")
+    for b, r in res.items():
+        print(f"[aot b{b}] export {r['compile_s']:.1f} s, "
+              f"{r['flops'] / 1e12:.4f} TFLOP a forward, peak "
+              f"{r['peak_gib']:.3f} GiB, engine {r['ms']:.3f} ms/call, "
+              f"eager {r['eager_ms']:.3f} ms/call")
+    res.update(engine_bytes=size, max_abs_err=err,
+               bit_equal=bool(torch.equal(got, want)),
+               launches={k: v[0] for k, v in launches.items()})
+    return res
+
+
+def span_times(prof) -> dict:
+    """From a trace of one generate CLI run, for each `generate.*` span:
+    its host ms (the span on the CPU), the device window ms (the span's
+    mirror on the device: from its first kernel or copy's start to its
+    last one's end) and the device ms of the kernels and copies inside
+    that window; and the device ms of all of them."""
+    from torch.autograd import DeviceType
+    spans = {}
+    device = []
+    for e in prof.events():
+        span = e.name.startswith("generate.")
+        if e.device_type == DeviceType.CUDA:
+            if span:
+                spans.setdefault(e.name, {})["device"] = e.time_range
+            else:
+                device.append(e.time_range)
+        elif span:
+            spans.setdefault(e.name, {})["host"] = e.time_range
+    out = dict(host_ms={}, device_window_ms={}, device_busy_ms={})
+    for name, r in spans.items():
+        key = name.split(".", 1)[1]
+        if "host" in r:
+            out["host_ms"][key] = r["host"].elapsed_us() / 1e3
+        w = r.get("device")
+        out["device_window_ms"][key] = w.elapsed_us() / 1e3 if w else 0.0
+        out["device_busy_ms"][key] = sum(
+            d.elapsed_us() for d in device
+            if w and w.start <= d.start and d.end <= w.end) / 1e3
+    out["device_ms"] = sum(d.elapsed_us() for d in device) / 1e3
+    return out
+
+
+# what a process of the generate CLI does before its first file: start,
+# import torch and the package, make the CUDA context, load the kernels
+STARTUP_RUN = """
+import sys
+import torch
+import pix2pixhdaudiosr_torch.generate
+from pix2pixhdaudiosr_torch.ops import _cuda
+if sys.argv[1] == "cuda":
+    torch.zeros(1, device="cuda")
+    _cuda.library()
+    torch.cuda.synchronize()
+"""
+
+
+def phase_file_to_file(dev, wav: str) -> dict:
+    """The generate CLI (plain flagship, bf16, batch 16) file to file on
+    the 5 s wav and a 60 s one: the wall time of generate_audio_torch.py
+    in a process of its own (what a user of the script waits for, the
+    checkpoint read from a warm page cache; F2F_PROCESS_RUNS runs), and
+    of a process that only starts up as that one does (STARTUP_RUN); then
+    in this process, warm, by utils/profiling.StepTimer (1 warm-up, 3
+    timed runs), and one run under utils/profiling.trace: the host ms of
+    its spans (read + resample, load, serve = encode + G + decode,
+    metrics, write; the trace's own cost included), each span's window on
+    the device and the device ms of the kernels and copies in it
+    (span_times)."""
+    import torch
+    from pix2pixhdaudiosr_torch import generate
+    from pix2pixhdaudiosr_torch.utils.profiling import StepTimer, trace
+    long_wav = os.path.join(WORK, "input_60s.wav")
+    n_long = write_synthetic_wav(long_wav, F2F_SECONDS)
+    startup_s = []
+    for _ in range(F2F_PROCESS_RUNS):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", STARTUP_RUN, dev],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        startup_s.append(time.perf_counter() - t0)
+        check(run.returncode == 0, f"the start-up process failed: "
+              f"{run.stderr[-3000:]}")
+    res = dict(startup_s=startup_s)
+    print(f"[file to file] a process's start-up (interpreter, imports, the "
+          f"CUDA context, the kernel library): {startup_s} s")
+    for label, path, n in (("5s", wav, None), ("60s", long_wav, n_long)):
+        argv = ["--name", f"f2f_{label}", "--checkpoints_dir", WORK,
+                "--dataroot", path, "--load_pretrain",
+                os.path.join(WORK, "smoke"), "--batchSize", "16",
+                "--no_html", "--device", dev, *FLAGSHIP]
+        process_s = []
+        for _ in range(F2F_PROCESS_RUNS):
+            out = os.path.join(WORK, f"f2f_{label}", "sr_audio.wav")
+            if os.path.exists(out):
+                os.remove(out)
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, os.path.join(
+                ROOT, "generate_audio_torch.py"), *argv], cwd=ROOT,
+                capture_output=True, text=True, timeout=300)
+            process_s.append(time.perf_counter() - t0)
+            check(run.returncode == 0 and os.path.exists(out),
+                  f"{label}: generate_audio_torch.py in its own process "
+                  f"failed: {run.stderr[-3000:]}")
+        timer = StepTimer(warmup=1)
+        for _ in range(F2F_RUNS):
+            timer.start()
+            run_quiet(generate.main, argv)
+            timer.stop()
+        with trace(os.path.join(WORK, f"trace_{label}")) as prof:
+            run_quiet(generate.main, argv)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        check(prof is not None, "the profiler did not start")
+        rec = dict(process_s=process_s, wall=timer.summary(),
+                   **span_times(prof))
+        check(set(rec["host_ms"]) == {"read", "load", "serve", "metrics",
+                                      "write"},
+              f"{label}: the trace holds the spans {sorted(rec['host_ms'])}")
+        check(rec["device_busy_ms"]["serve"] > 0, f"{label}: no kernel in "
+              f"the serve span")
+        res[label] = rec
+        print(f"[file to file {label}] " + json.dumps(rec))
+    return res
+
+
+def phase_opcheck(dev) -> dict:
+    """torch.library.opcheck of every p2p operator's CUDA impl at a
+    flagship shape (op_case): schema, fake impl against the launch's
+    output (shape, dtype, strides), AOT dispatch; and each operator's
+    output the eager wrapper's bits."""
+    import torch
+    for name in OP_CASES:
+        op, args, eager = op_case(name, dev)
+        r = torch.library.opcheck(op, args)
+        check(all(v == "SUCCESS" for v in r.values()), f"opcheck {name}: {r}")
+        got, want = op(*args), eager()
+        check(all(torch.equal(g, w) for g, w in zip(
+            torch.utils._pytree.tree_leaves(got),
+            torch.utils._pytree.tree_leaves(want))),
+            f"{name}: the operator's output differs from its wrapper's")
+        del op, args, eager, got, want
+    print(f"[opcheck] torch.library.opcheck of {len(OP_CASES)} cases, every "
+          f"p2p operator on its CUDA impl: SUCCESS")
+    return {name: "SUCCESS" for name in OP_CASES}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4546,6 +5051,13 @@ def main() -> int:
         cli = timed("cli", phase_cli, dev, train_counters)
         flac = timed("flac", phase_flac)
         dp = timed("dp ranks", phase_dp_ranks, dev)
+        sys.path.insert(0, os.path.join(ROOT, "tools"))
+        tools = dict(opcheck=timed("opcheck", phase_opcheck, dev))
+        tools["import"] = timed("import round trip", phase_import_round_trip,
+                                dev, wav, counters)
+        tools["engine"] = timed("aot engine", phase_engine, dev)
+        tools["file_to_file"] = timed("file to file", phase_file_to_file, dev,
+                                      wav)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -4587,6 +5099,7 @@ def main() -> int:
                     dp_launches_per_step={
                         mode: recs[0]["timing"]["launches_per_step"].get(k, 0)
                         for mode, recs in dp["modes"].items()},
+                    export_launches=tools["engine"]["launches"][k],
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}) for k in KERNELS]
@@ -4602,7 +5115,8 @@ def main() -> int:
         remat_grads=remat, train_cli=train_cli, recipe_cli=recipe_cli,
         family_a_cli=family_a,
         in_backward_per_step=in_bwd, cli=cli, flac=flac, cp_one_rank=cp1,
-        cp_ranks=cpn, tp_ranks=tpn, dp_ranks=dp, phase_seconds=phase_s)))
+        cp_ranks=cpn, tp_ranks=tpn, dp_ranks=dp, tools=tools,
+        phase_seconds=phase_s)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,10 @@ and sr spectrograms (web/index.html) into checkpoints_dir/name/.
     torchrun --nproc_per_node N -m pix2pixhdaudiosr_torch.generate ... \
         --cp_shards N | --tp_shards N
 
+Its stages run in profiler spans (`generate.read`: read and resample;
+`.load`; `.serve`: encode + G + decode; `.metrics`; `.write`), which a
+torch.profiler trace around main (utils/profiling.trace) times.
+
 The parallel modes (parallel/): --cp_shards N serves the whole file as one
 spectrogram, its frames split over min(N, ranks) ranks (`cp_generate`,
 :28-108 of the JAX CLI), with no segment seams; in one process that is
@@ -31,6 +35,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .config import parse_config
 from .data.dataset import AudioTestDataset
@@ -284,9 +289,10 @@ def main(argv=None) -> Optional[np.ndarray]:
     elif not cfg.no_html:
         require_gallery_packages()
 
-    ds = AudioTestDataset(cfg.dataroot, cfg.lr_sampling_rate,
-                          cfg.hr_sampling_rate, cfg.segment_length,
-                          is_lr_input=cfg.is_lr_input)
+    with record_function("generate.read"):
+        ds = AudioTestDataset(cfg.dataroot, cfg.lr_sampling_rate,
+                              cfg.hr_sampling_rate, cfg.segment_length,
+                              is_lr_input=cfg.is_lr_input)
     print("Audio length:", ds.audio_len)
     print("#audio segments = %d" % len(ds))
 
@@ -295,7 +301,8 @@ def main(argv=None) -> Optional[np.ndarray]:
     if not group.member or (shards == 1 and world.rank > 0):
         print(f"rank {world.rank}: outside the {group.size}-rank group, idle")
         return None
-    system = load_system(cfg, device)
+    with record_function("generate.load"):
+        system = load_system(cfg, device)
     print(f"generator {generator_path(cfg)} on {device} "
           f"({cfg.compute_dtype})")
     if cfg.tp_shards > 1:
@@ -306,39 +313,44 @@ def main(argv=None) -> Optional[np.ndarray]:
             shard_generator(system.netG, group,
                             replicate_enhancer=cfg.fused_enhancer)
         print(f"tensor-parallel inference over {group.size} shards")
-    if cfg.cp_shards > 1:
-        audio = cp_generate(system, ds.lr_audio, cfg, group)
-    else:
-        audio = generate_segments(system, ds.segments, max(1, cfg.batch_size),
-                                  seeded_noise(system, cfg.seed))
+    with record_function("generate.serve"):
+        if cfg.cp_shards > 1:
+            audio = cp_generate(system, ds.lr_audio, cfg, group)
+        else:
+            audio = generate_segments(system, ds.segments,
+                                      max(1, cfg.batch_size),
+                                      seeded_noise(system, cfg.seed))
     if world.rank != 0:
         return None
     audio = audio[: ds.segments.size]
 
     n = ds.audio_len
-    mse, snr_sr, snr_lr, *_, lsd = compute_metrics(
-        torch.from_numpy(ds.raw_audio[None, :n]),
-        torch.from_numpy(ds.lr_audio[None, :n]),
-        torch.from_numpy(audio[None, :n]), cfg.n_fft, cfg.hop_length,
-        cfg.win_length, cfg.center)
+    with record_function("generate.metrics"):
+        mse, snr_sr, snr_lr, *_, lsd = compute_metrics(
+            torch.from_numpy(ds.raw_audio[None, :n]),
+            torch.from_numpy(ds.lr_audio[None, :n]),
+            torch.from_numpy(audio[None, :n]), cfg.n_fft, cfg.hop_length,
+            cfg.win_length, cfg.center)
+        ssnr = segmental_snr(ds.raw_audio[:n], audio[:n])
     print("MSE: %.4f" % mse)
     print("SNR_SR: %.4f" % snr_sr)
     print("SNR_LR: %.4f" % snr_lr)
     print("LSD: %.4f" % lsd)
-    print("SSNR: %.4f" % segmental_snr(ds.raw_audio[:n], audio[:n]))
+    print("SSNR: %.4f" % ssnr)
 
     if visualizer.use_html:
         write_gallery(system, visualizer, ds.lr_audio, audio)
 
-    with open(os.path.join(cfg.expr_dir, "metric.txt"), "w") as f:
-        f.write("MSE,SNR_SR,LSD\n")
-        f.write("%f,%f,%f" % (mse, snr_sr, lsd))
-    write_wav(os.path.join(cfg.expr_dir, "sr_audio.wav"), audio,
-              cfg.hr_sampling_rate)
-    write_wav(os.path.join(cfg.expr_dir, "lr_audio.wav"), ds.lr_audio,
-              cfg.hr_sampling_rate)
-    write_wav(os.path.join(cfg.expr_dir, "hr_audio.wav"), ds.raw_audio,
-              ds.in_sampling_rate)
+    with record_function("generate.write"):
+        with open(os.path.join(cfg.expr_dir, "metric.txt"), "w") as f:
+            f.write("MSE,SNR_SR,LSD\n")
+            f.write("%f,%f,%f" % (mse, snr_sr, lsd))
+        write_wav(os.path.join(cfg.expr_dir, "sr_audio.wav"), audio,
+                  cfg.hr_sampling_rate)
+        write_wav(os.path.join(cfg.expr_dir, "lr_audio.wav"), ds.lr_audio,
+                  cfg.hr_sampling_rate)
+        write_wav(os.path.join(cfg.expr_dir, "hr_audio.wav"), ds.raw_audio,
+                  ds.in_sampling_rate)
     print("wrote outputs to", cfg.expr_dir)
     return audio
 

@@ -5,8 +5,18 @@ started together, and linked into ONE shared library with a plain C
 interface, loaded with ctypes. The build happens at first use,
 from the package's own sources, into `pix2pixhdaudiosr_torch/_build/<hash>/`
 (keyed on a hash of the sources and flags, so an edit rebuilds). Nothing
-here runs at import time: a CPU-only machine imports every module and never
-reaches nvcc.
+here builds at import time: a CPU-only machine imports every module and
+never reaches nvcc.
+
+Each kernel entry a forward calls is also an operator of the `p2p`
+namespace (`define_op`), so that torch.export, FlopCounterMode and the
+profiler see it: a CUDA impl (the launch, counted as an eager one), a CPU
+impl (the plain twin) and a fake impl (the output's shape, dtype and
+strides on each device). Importing the package registers them, so an
+exported program that calls them loads in a process that imports only
+pix2pixhdaudiosr_torch. A wrapper calls its operator while it is traced
+(`tracing`); run eagerly it launches directly, since the dispatcher costs
+host time on every launch (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -62,6 +73,9 @@ _SIGNATURES = {
 }
 
 _lib = None
+
+# the operators' library: one namespace for every kernel entry (define_op)
+LIBRARY = torch.library.Library("p2p", "DEF")
 
 
 def _sources():
@@ -179,3 +193,35 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: expected tensors on one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
+
+
+def tracing() -> bool:
+    """Whether the caller runs under torch.export or torch.compile, where a
+    wrapper calls its `p2p` operator (which the graph records) instead of
+    launching directly."""
+    return torch.compiler.is_compiling()
+
+
+def _device_of(args) -> torch.device:
+    """The device of the first tensor among an operator's arguments."""
+    return next(a.device for a in args if isinstance(a, torch.Tensor))
+
+
+def define_op(schema: str, cuda: Callable, cpu: Callable,
+              cuda_fake: Callable):
+    """Define the operator p2p::<name> of `schema` ("name(args) -> out"),
+    implemented by `cuda` on CUDA tensors (the kernel's launch, which
+    counts it) and by `cpu` on CPU tensors (the plain twin); its fake impl
+    runs `cpu` itself on fake CPU tensors (the twin's own output strides)
+    and `cuda_fake` on fake CUDA ones, which allocates what the launch
+    returns. Returns the operator (torch.ops.p2p.<name>)."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cuda, "CUDA")
+    LIBRARY.impl(name, cpu, "CPU")
+
+    def fake(*args):
+        return (cpu if _device_of(args).type == "cpu" else cuda_fake)(*args)
+
+    torch.library.register_fake(f"p2p::{name}", fake, lib=LIBRARY)
+    return getattr(torch.ops.p2p, name)

@@ -8,7 +8,9 @@ statistics, Ci != Co allowed, and an optional ReLU before the bf16 round.
 A CPU tensor runs the twin; a CUDA tensor launches a kernel (counted in
 `conv3x3_valid.launches`) or raises: the wgmma kernel (csrc/conv3x3_wgmma.cu,
 also counted in `conv3x3_valid.launches_wgmma`) where `enhancer.plan_conv`
-gives it the shape, else the mma.sync kernel (csrc/conv3x3_in.cu).
+gives it the shape, else the mma.sync kernel (csrc/conv3x3_in.cu). It is
+also the operator p2p::conv3x3_valid (`_cuda.define_op`), which a traced
+wrapper calls, with the FLOP formula 2 * 9 Ci Co H W a sample.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _cuda
 from .enhancer import (ConvPlan, _check_activation, _check_weights,
-                       _device_plan, pack_weights)
+                       _device_plan, conv3x3_flops, pack_weights)
 
 
 def conv3x3_valid_ref(x_padded: torch.Tensor, w: torch.Tensor,
@@ -37,8 +40,17 @@ def conv3x3_valid(x_padded: torch.Tensor, w: torch.Tensor,
     caller's choice) with OIHW w [Co, Ci, 3, 3] -> [B, Co, H, W]. On CUDA
     x_padded is channels_last bfloat16 and so is the result; `plan`
     (`enhancer.plan_conv`) overrides the route chosen for the shape."""
+    if plan is None and _cuda.tracing():
+        return conv3x3_valid_op(x_padded, w, relu)
     if x_padded.device.type == "cpu":
         return conv3x3_valid_ref(x_padded, w, relu)
+    return _conv3x3_valid_cuda(x_padded, w, relu, plan)
+
+
+def _conv3x3_valid_cuda(x_padded: torch.Tensor, w: torch.Tensor,
+                        relu: bool = False,
+                        plan: Optional[ConvPlan] = None) -> torch.Tensor:
+    """B5's launch, counted (p2p::conv3x3_valid's CUDA impl)."""
     _cuda.check_cuda("conv3x3_valid", x_padded, w)
     _check_activation("conv3x3_valid", x_padded=x_padded)
     B, Ci, Hp, Wp = x_padded.shape
@@ -69,3 +81,22 @@ def conv3x3_valid(x_padded: torch.Tensor, w: torch.Tensor,
 
 conv3x3_valid.launches = 0
 conv3x3_valid.launches_wgmma = 0
+
+
+def _conv3x3_valid_fake(x_padded, w, relu):
+    B, _, Hp, Wp = x_padded.shape
+    return torch.empty((B, w.shape[0], Hp - 2, Wp - 2), dtype=torch.bfloat16,
+                       device=x_padded.device,
+                       memory_format=torch.channels_last)
+
+
+conv3x3_valid_op = _cuda.define_op(
+    "conv3x3_valid(Tensor x_padded, Tensor w, bool relu) -> Tensor",
+    _conv3x3_valid_cuda, conv3x3_valid_ref, _conv3x3_valid_fake)
+
+
+@register_flop_formula(conv3x3_valid_op)
+def _conv3x3_valid_flops(x_shape, w_shape, *args, out_shape=None,
+                         **kwargs) -> int:
+    B, co, H, W = out_shape
+    return conv3x3_flops(B, w_shape[1], co, H, W)

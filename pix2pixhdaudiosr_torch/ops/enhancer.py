@@ -20,6 +20,9 @@ Numerics follow the JAX kernel: the
 prologue in f32 rounded once to bf16, f32 accumulation, bias added in f32
 before the bf16 round, statistics of the rounded output,
 var = max(E[y^2] - mean^2, 0). Inference only (no backward), as in JAX.
+`conv3x3_in` is also the operator p2p::conv3x3_in (`_cuda.define_op`; the
+statistics one [2, B, Co] output), which a traced wrapper calls, with the
+FLOP formula 2 * 9 Ci Co H W a sample.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _cuda
 from .norm import instance_stats
@@ -278,8 +282,23 @@ def conv3x3_in(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"conv3x3_in: prologue {prologue} needs mean, scale")
     if prologue in ("in_relu_add", "in_add") and res is None:
         raise ValueError(f"conv3x3_in: prologue {prologue} needs res")
+    if plan is None and _cuda.tracing():
+        y, stats = conv3x3_in_op(x, w, bias, mean, scale, res, prologue, eps)
+        return y, (stats[0], stats[1])
     if x.device.type == "cpu":
         return conv3x3_in_ref(x, w, bias, mean, scale, res, prologue, eps)
+    y, stats = _conv3x3_in_cuda(x, w, bias, mean, scale, res, prologue, eps,
+                                plan)
+    return y, (stats[0], stats[1])
+
+
+def _conv3x3_in_cuda(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                     mean: Optional[torch.Tensor],
+                     scale: Optional[torch.Tensor],
+                     res: Optional[torch.Tensor], prologue: Optional[str],
+                     eps: float, plan: Optional[ConvPlan] = None):
+    """B4's launch, counted (p2p::conv3x3_in's CUDA impl): (y, f32
+    [2, B, Co] mean and scale of y)."""
     with_res = prologue in ("in_relu_add", "in_add")
     vecs = [t for t in (mean, scale) if prologue is not None]
     _cuda.check_cuda("conv3x3_in", x, w, bias, *vecs,
@@ -320,11 +339,44 @@ def conv3x3_in(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         _cuda.launch("p2p_conv3x3_in", x.device, *args, plan.th, plan.tw,
                      plan.bn, plan.P)
     conv3x3_in.launches += 1
-    return y, (stats[0], stats[1])
+    return y, stats
 
 
 conv3x3_in.launches = 0
 conv3x3_in.launches_wgmma = 0
+
+
+def _conv3x3_in_cpu(x, w, bias, mean, scale, res, prologue, eps):
+    y, stats = conv3x3_in_ref(x, w, bias, mean, scale, res, prologue, eps)
+    return y, torch.stack(stats)
+
+
+def _conv3x3_in_fake(x, w, bias, mean, scale, res, prologue, eps):
+    B, _, H, W = x.shape
+    Co = w.shape[1]
+    return (torch.empty((B, Co, H, W), dtype=torch.bfloat16, device=x.device,
+                        memory_format=torch.channels_last),
+            x.new_empty(2, B, Co, dtype=torch.float32))
+
+
+conv3x3_in_op = _cuda.define_op(
+    "conv3x3_in(Tensor x, Tensor w, Tensor bias, Tensor? mean, "
+    "Tensor? scale, Tensor? res, str? prologue, float eps) "
+    "-> (Tensor, Tensor)", _conv3x3_in_cuda, _conv3x3_in_cpu,
+    _conv3x3_in_fake)
+
+
+def conv3x3_flops(batch: int, ci: int, co: int, h: int, w: int) -> int:
+    """2 * 9 Ci Co H W a sample: the multiply-adds of a 3x3 conv to an
+    H x W output (B4, B5)."""
+    return 2 * 9 * ci * co * h * w * batch
+
+
+@register_flop_formula(conv3x3_in_op)
+def _conv3x3_in_flops(x_shape, w_shape, *args, out_shape=None,
+                      **kwargs) -> int:
+    B, ci, H, W = x_shape
+    return conv3x3_flops(B, ci, w_shape[1], H, W)
 
 
 def conv_s2_raw(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,10 @@ Every launch counts in `<wrapper>.launches`; tensor-core launches also in
 `<wrapper>.launches_tc`. `imdct2_grad`, the gradient of `imdct2` for
 autograd (ops/mdct.py), is a launch of B1's kernel on the transposed
 inverse basis, counted on its own.
+
+`mdct2` and `imdct2` are also the operators p2p::mdct2 and p2p::imdct2
+(`_cuda.define_op`), which a traced wrapper calls; their FLOP formula,
+2 B T win n_fft, is registered for FlopCounterMode.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _cuda
 from .framing import frame, overlap_add
@@ -110,9 +115,20 @@ def mdct2(x_pad: torch.Tensor, basis: torch.Tensor, hop: int,
     x_pad [B, L] f32, basis [win, n_fft] f32 -> [B, T, n_fft] f32 with
     T = (L - win)//hop + 1. Any hop <= win. `planes`: `mdct2_planes(basis)`,
     used on the tensor-core route (derived here when None)."""
+    planes = planes or (None, None)
+    if _cuda.tracing():
+        return mdct2_op(x_pad, basis, hop, *planes)
     if x_pad.device.type == "cpu":
         return mdct2_ref(x_pad, basis, hop)
-    out, tc = _launch_mdct2("mdct2", x_pad, basis, hop, planes)
+    return _mdct2_cuda(x_pad, basis, hop, *planes)
+
+
+def _mdct2_cuda(x_pad: torch.Tensor, basis: torch.Tensor, hop: int,
+                hi: Optional[torch.Tensor] = None,
+                lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B1's launch, counted (p2p::mdct2's CUDA impl)."""
+    out, tc = _launch_mdct2("mdct2", x_pad, basis, hop,
+                            None if hi is None else (hi, lo))
     mdct2.launches += 1
     mdct2.launches_tc += tc
     return out
@@ -161,8 +177,18 @@ def imdct2(spec: torch.Tensor, basis: torch.Tensor, hop: int,
     [B, (T-1)*hop + win] f32, un-cropped. Any hop <= win. `planes`:
     `imdct2_planes(basis, hop)`, used on the tensor-core route (derived here
     when None)."""
+    planes = planes or (None, None)
+    if _cuda.tracing():
+        return imdct2_op(spec, basis, hop, *planes)
     if spec.device.type == "cpu":
         return imdct2_ref(spec, basis, hop)
+    return _imdct2_cuda(spec, basis, hop, *planes)
+
+
+def _imdct2_cuda(spec: torch.Tensor, basis: torch.Tensor, hop: int,
+                 hi: Optional[torch.Tensor] = None,
+                 lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B2's launch, counted (p2p::imdct2's CUDA impl)."""
     _cuda.check_cuda("imdct2", spec, basis)
     _check_f32_contiguous("imdct2", spec=spec, basis=basis)
     if spec.dim() != 3 or basis.dim() != 2 or spec.shape[2] != basis.shape[0]:
@@ -175,8 +201,7 @@ def imdct2(spec: torch.Tensor, basis: torch.Tensor, hop: int,
     out = torch.empty(B, (T - 1) * hop + win, dtype=torch.float32,
                       device=spec.device)
     if tc_route(win, hop, n_fft):
-        if planes is None:
-            planes = imdct2_planes(basis, hop)
+        planes = (hi, lo) if hi is not None else imdct2_planes(basis, hop)
         _check_planes("imdct2", planes, (hop, win // hop * n_fft))
         _cuda.check_cuda("imdct2", spec, *planes)
         x = _aligned(spec)
@@ -193,6 +218,32 @@ def imdct2(spec: torch.Tensor, basis: torch.Tensor, hop: int,
 
 imdct2.launches = 0
 imdct2.launches_tc = 0
+
+_PLANES = "Tensor? hi=None, Tensor? lo=None"
+mdct2_op = _cuda.define_op(
+    f"mdct2(Tensor x_pad, Tensor basis, int hop, {_PLANES}) -> Tensor",
+    _mdct2_cuda, lambda x_pad, basis, hop, hi=None, lo=None:
+    mdct2_ref(x_pad, basis, hop),
+    lambda x_pad, basis, hop, hi=None, lo=None: x_pad.new_empty(
+        x_pad.shape[0], (x_pad.shape[1] - basis.shape[0]) // hop + 1,
+        basis.shape[1]))
+imdct2_op = _cuda.define_op(
+    f"imdct2(Tensor spec, Tensor basis, int hop, {_PLANES}) -> Tensor",
+    _imdct2_cuda, lambda spec, basis, hop, hi=None, lo=None:
+    imdct2_ref(spec, basis, hop),
+    lambda spec, basis, hop, hi=None, lo=None: spec.new_empty(
+        spec.shape[0], (spec.shape[1] - 1) * hop + basis.shape[1]))
+
+
+@register_flop_formula([mdct2_op, imdct2_op])
+def _basis_product_flops(x_shape, basis_shape, hop, *args, out_shape=None,
+                         **kwargs) -> int:
+    """2 B T win n_fft: one multiply-add of each frame's window by each
+    basis column (MDCT2: x [B, L], out [B, T, n_fft]; IMDCT2: spec
+    [B, T, n_fft], basis [n_fft, win])."""
+    if len(x_shape) == 3:        # imdct2
+        return 2 * x_shape[0] * x_shape[1] * basis_shape[0] * basis_shape[1]
+    return 2 * out_shape[0] * out_shape[1] * basis_shape[0] * basis_shape[1]
 
 
 def imdct2_grad_ref(dy: torch.Tensor, basis_t: torch.Tensor,

@@ -46,6 +46,12 @@ activation), one launch each on a plan of the shape
 in place, counted in their own `.launches` and `.launches_by_shape`.
 Their twins are `instance_moments_ref` and `instance_apply_ref`, of which
 `instance_norm_act_ref` is made.
+
+The forward entries are also operators (`_cuda.define_op`), which a traced
+wrapper calls: p2p::instance_norm_act (the statistics always a second
+output, empty without `with_stats`), p2p::instance_stats ([2, B, C]: mean
+and rstd), p2p::instance_moments and p2p::instance_apply. The backward
+stays a direct launch inside models/layers.InstanceNormAct.
 """
 
 from __future__ import annotations
@@ -332,8 +338,18 @@ def instance_norm_act(x: torch.Tensor, act: str = "none",
     contiguous (`nhwc_pitches`). Returns y, of the input dtype and
     channels_last; with `with_stats`, (y, f32 [2, B, C] mean and clamped
     variance), what `instance_norm_act_grad` reads."""
+    if _cuda.tracing():
+        y, saved = instance_norm_act_op(x, act, eps, with_stats)
+        return (y, saved) if with_stats else y
     if x.device.type == "cpu":
         return instance_norm_act_ref(x, act, eps, with_stats)
+    y, saved = _instance_norm_act_cuda(x, act, eps, with_stats)
+    return (y, saved) if with_stats else y
+
+
+def _instance_norm_act_cuda(x: torch.Tensor, act: str, eps: float,
+                            with_stats: bool):
+    """B3's launch, counted: (y, the statistics or None)."""
     _cuda.check_cuda("instance_norm_act", x)
     pitches = nhwc_pitches("instance_norm_act", x)
     if act not in ACTS:
@@ -355,7 +371,39 @@ def instance_norm_act(x: torch.Tensor, act: str = "none",
     instance_norm_act.launches += 1
     shapes = instance_norm_act.launches_by_shape
     shapes[(H, W, C)] = shapes.get((H, W, C), 0) + 1
-    return (y, saved) if with_stats else y
+    return y, saved
+
+
+def _no_stats(x: torch.Tensor) -> torch.Tensor:
+    """The operator's second output without `with_stats`: empty f32."""
+    return x.new_empty(0, dtype=torch.float32)
+
+
+def _instance_norm_act_op_cuda(x: torch.Tensor, act: str, eps: float,
+                               with_stats: bool):
+    """p2p::instance_norm_act's CUDA impl: B3's launch, the statistics or
+    an empty tensor."""
+    y, saved = _instance_norm_act_cuda(x, act, eps, with_stats)
+    return y, saved if with_stats else _no_stats(x)
+
+
+def _instance_norm_act_cpu(x: torch.Tensor, act: str, eps: float,
+                           with_stats: bool):
+    if with_stats:
+        return instance_norm_act_ref(x, act, eps, True)
+    return instance_norm_act_ref(x, act, eps), _no_stats(x)
+
+
+def _channels_last_like(x: torch.Tensor, dtype=None) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=dtype or x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def _instance_norm_act_fake(x, act, eps, with_stats):
+    B, C = x.shape[:2]
+    return (_channels_last_like(x),
+            x.new_empty(2, B, C, dtype=torch.float32) if with_stats
+            else _no_stats(x))
 
 
 instance_norm_act.launches = 0
@@ -369,8 +417,18 @@ def instance_stats(x: torch.Tensor, eps: float = 1e-5):
     (pix2pixhdaudiosr_tpu/ops/enhancer_pallas.py:_instance_stats). On CUDA
     x must be channels_last float32 or bfloat16; launches counted in
     `instance_stats.launches`."""
-    if x.device.type == "cpu":
+    if _cuda.tracing():
+        stats = instance_stats_op(x, eps)
+    elif x.device.type == "cpu":
         return instance_stats_ref(x, eps)
+    else:
+        stats = _instance_stats_cuda(x, eps)
+    return stats[0], stats[1]
+
+
+def _instance_stats_cuda(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The statistics passes' launch, counted (p2p::instance_stats's CUDA
+    impl): f32 [2, B, C], mean and rstd."""
     _cuda.check_cuda("instance_stats", x)
     _check_input("instance_stats", x)
     B, C, H, W = x.shape
@@ -381,7 +439,7 @@ def instance_stats(x: torch.Tensor, eps: float = 1e-5):
                  partial.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
                  B, H * W, C, int(x.dtype == torch.bfloat16), float(eps), P)
     instance_stats.launches += 1
-    return stats[0], stats[1]
+    return stats
 
 
 instance_stats.launches = 0
@@ -517,8 +575,15 @@ def instance_moments(x: torch.Tensor) -> torch.Tensor:
     (`plan_instance_moments`; the blocks' sums added by the last block of
     each group of `plan.group`, the groups' by the last group of the
     plane), counted in `instance_moments.launches` and by (H, W, C)."""
+    if _cuda.tracing():
+        return instance_moments_op(x)
     if x.device.type == "cpu":
         return instance_moments_ref(x)
+    return _instance_moments_cuda(x)
+
+
+def _instance_moments_cuda(x: torch.Tensor) -> torch.Tensor:
+    """B3m's launch, counted (p2p::instance_moments's CUDA impl)."""
     name = "instance_moments"
     dev = x.device
     _cuda.check_cuda(name, x)
@@ -550,8 +615,16 @@ def instance_apply(x: torch.Tensor, moments: torch.Tensor, act: str = "none",
     it here. x as `instance_moments` takes it; returns x's dtype,
     channels_last. One launch of p2p_instance_apply (`plan_instance_apply`),
     counted in `instance_apply.launches` and by (H, W, C)."""
+    if _cuda.tracing():
+        return instance_apply_op(x, moments, act, eps, count)
     if x.device.type == "cpu":
         return instance_apply_ref(x, moments, act, eps, count)
+    return _instance_apply_cuda(x, moments, act, eps, count)
+
+
+def _instance_apply_cuda(x: torch.Tensor, moments: torch.Tensor, act: str,
+                         eps: float, count: int) -> torch.Tensor:
+    """B3a's launch, counted (p2p::instance_apply's CUDA impl)."""
     name = "instance_apply"
     _cuda.check_cuda(name, x, moments)
     pitches = nhwc_pitches(name, x, aligned=False)
@@ -577,6 +650,23 @@ def instance_apply(x: torch.Tensor, moments: torch.Tensor, act: str = "none",
 
 instance_apply.launches = 0
 instance_apply.launches_by_shape = {}
+
+instance_norm_act_op = _cuda.define_op(
+    "instance_norm_act(Tensor x, str act, float eps, bool with_stats) "
+    "-> (Tensor, Tensor)", _instance_norm_act_op_cuda,
+    _instance_norm_act_cpu, _instance_norm_act_fake)
+instance_stats_op = _cuda.define_op(
+    "instance_stats(Tensor x, float eps) -> Tensor", _instance_stats_cuda,
+    lambda x, eps: torch.stack(instance_stats_ref(x, eps)),
+    lambda x, eps: x.new_empty(2, *x.shape[:2], dtype=torch.float32))
+instance_moments_op = _cuda.define_op(
+    "instance_moments(Tensor x) -> Tensor", _instance_moments_cuda,
+    instance_moments_ref,
+    lambda x: x.new_empty(2, *x.shape[:2], dtype=torch.float32))
+instance_apply_op = _cuda.define_op(
+    "instance_apply(Tensor x, Tensor moments, str act, float eps, int count) "
+    "-> Tensor", _instance_apply_cuda, instance_apply_ref,
+    lambda x, moments, act, eps, count: _channels_last_like(x))
 
 
 def _slope_times(g: torch.Tensor, xhat: torch.Tensor, act: str):

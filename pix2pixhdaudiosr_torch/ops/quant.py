@@ -24,7 +24,9 @@ Port of pix2pixhdaudiosr_tpu/ops/quant.py.
   the card it takes one of two routes, chosen by the shape
   (`plan_quantize`): one launch and one read of x, a strip of columns
   staged in a thread-block cluster's shared memory, or three launches
-  (absmax, scale, quantize) where no cluster holds a strip.
+  (absmax, scale, quantize) where no cluster holds a strip. It is also the
+  operator p2p::stochastic_quantize_2d (`_cuda.define_op`), which a traced
+  wrapper calls.
 """
 
 from __future__ import annotations
@@ -280,8 +282,17 @@ def stochastic_quantize_2d(x: torch.Tensor, seed: int,
     the bits of `random_bits(seed, m * N + n)`. On CUDA x is contiguous
     float32; `plan` forces a route (`plan_quantize`'s by default). Counted
     in `stochastic_quantize_2d.launches` and `.launches_by_route`."""
+    if plan is None and _cuda.tracing():
+        return stochastic_quantize_2d_op(x, seed)
     if x.device.type == "cpu":
         return stochastic_quantize_2d_ref(x, seed)
+    return _stochastic_quantize_2d_cuda(x, seed, plan)
+
+
+def _stochastic_quantize_2d_cuda(x: torch.Tensor, seed: int,
+                                 plan: QuantPlan = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6's launch, counted (p2p::stochastic_quantize_2d's CUDA impl)."""
     _cuda.check_cuda("stochastic_quantize_2d", x)
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"stochastic_quantize_2d: x must be a contiguous "
@@ -309,3 +320,9 @@ def stochastic_quantize_2d(x: torch.Tensor, seed: int,
 
 stochastic_quantize_2d.launches = 0
 stochastic_quantize_2d.launches_by_route = {}
+
+stochastic_quantize_2d_op = _cuda.define_op(
+    "stochastic_quantize_2d(Tensor x, int seed) -> (Tensor, Tensor)",
+    _stochastic_quantize_2d_cuda, stochastic_quantize_2d_ref,
+    lambda x, seed: (x.new_empty(x.shape, dtype=torch.int8),
+                     x.new_empty(1, x.shape[1], dtype=torch.float32)))

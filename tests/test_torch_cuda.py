@@ -875,3 +875,55 @@ def test_dp_step_on_card_matches_one_process(cuda, tmp_path):
         cases.close_params(got["states"][0], want["states"][0], want["grads"],
                            want["void"], 1e-3 * lr, 2.2 * lr)
         cases.close_moments(got["states"][0], want["states"][0], want["void"])
+
+
+# the p2p operators' cases (chip_smoke.OP_CASES), one flagship shape each
+OP_CASES = ("mdct2", "imdct2", "instance_norm_act", "instance_norm_act_stats",
+            "instance_stats", "instance_moments", "instance_apply",
+            "conv3x3_in", "conv3x3_valid", "stochastic_quantize_2d")
+
+
+@pytest.mark.parametrize("name", OP_CASES)
+def test_op_cuda_opcheck(cuda, name):
+    """torch.library.opcheck of each operator's CUDA impl (the launch) and
+    fake impl at a flagship shape (chip_smoke.op_case): schema, fake
+    tensors against the real output's shape, dtype and strides (B3's
+    channels_last), AOT dispatch; and the operator's output the wrapper's
+    bits."""
+    import chip_smoke
+    assert tuple(chip_smoke.OP_CASES) == OP_CASES
+    op, args, eager = chip_smoke.op_case(name, cuda)
+    res = torch.library.opcheck(op, args)
+    assert all(v == "SUCCESS" for v in res.values()), res
+    got, want = op(*args), eager()
+    for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        assert torch.equal(g, w)
+
+
+def test_exported_toy_serve_on_card(cuda, tmp_path):
+    """tools/aot_engine_torch.py --tiny (f32) on the card: the reloaded
+    engine within atol 1e-5 of eager (the tool serves with
+    cudnn.benchmark, which may time another algorithm for the reloaded
+    weights), and one exported forward launches B1 once and B3 12 times,
+    on the routes an eager forward takes."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import aot_engine_torch as aot
+    from pix2pixhdaudiosr_torch.ops import mdct_kernels, norm
+    res = aot.main(["--tiny", "--out", str(tmp_path / "e.pt2")])
+    assert res["reload_err"] <= 1e-5
+    engine = torch.export.load(str(tmp_path / "e.pt2")).module()
+    counts = []
+    for run in (engine, lambda a, n: res["system"].inference(a, n)[0]):
+        fns = (mdct_kernels.mdct2, norm.instance_norm_act)
+        before = [(f.launches, getattr(f, "launches_tc", 0),
+                   getattr(f, "launches_onepass", 0)) for f in fns]
+        with torch.no_grad():
+            run(res["audio"], res["noise"])
+        counts.append([tuple(a - b for a, b in zip(
+            (f.launches, getattr(f, "launches_tc", 0),
+             getattr(f, "launches_onepass", 0)), bf))
+            for f, bf in zip(fns, before)])
+    assert counts[0] == counts[1]
+    assert counts[0][0][0] == 1 and counts[0][1][0] == 12

@@ -360,9 +360,11 @@ def test_jax_free_imports():
     the package (every module) and chip_smoke import, the codec's training
     inverses (to_frames, to_audio and its gradient) and the HiFi-GAN D
     run, the native audio library decodes a FLAC file and resamples, the
-    feature tools import, and no module of the JAX package gets loaded, by
-    name or from a file under pix2pixhdaudiosr_tpu/ (a module executed by
-    path under another name), and no file under it is mapped into the
+    feature tools, the port's other tools (the AOT engine, the checkpoint
+    import, the corpus tools) and the root CLI twins import, and no module
+    of the JAX package gets loaded, by name or from a file under
+    pix2pixhdaudiosr_tpu/ (a module executed by path under another name),
+    and no file under it is mapped into the
     process (/proc/self/maps: its libaudio_pipeline.so); nor do matplotlib
     and PIL, which only the gallery's first render imports."""
     code = (
@@ -392,6 +394,9 @@ def test_jax_free_imports():
         "native_audio.resample(np.ones(480, np.float32), 48000, 8000)\n"
         "sys.path.insert(0, 'tools')\n"
         "import encode_features_torch, precompute_feature_maps_torch\n"
+        "import aot_engine_torch, import_torch_checkpoint_torch\n"
+        "import seg_audio_torch, split_dataset_torch\n"
+        "import train_torch, generate_audio_torch, eval_matric_torch\n"
         "import chip_smoke\n"
         "for info in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(info.name)\n"
