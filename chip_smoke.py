@@ -208,7 +208,20 @@ Phases, each fatal on failure (exit code 1):
      beside it), the cross-shard entries launched on every CP rank and
      none of the one-launch norm, B3 at C/N channels on the TP ranks, the
      gloo transport's bytes and each rank's wall time, and the generate
-     CLI at those ranks (rank 0 writes the file); then a bf16 timing leg,
+     CLI at those ranks (rank 0 writes the file). In the CP world, dp x cp
+     serving: the 4 ranks as a 2 x 2 data x cp mesh
+     (parallel.mesh.make_serving_layout), 2 seeded segments, each rank's
+     block [1, 512, 64, 2] through make_cp_generator(..., batch_group=data),
+     the G in f32 and bf16 against the plain G within 2x its rounding
+     floor, B3m/B3a launched on every rank and no one-launch B3. In the TP
+     world, the int8 trunk (--int8_trunk) under TP: each split trunk conv's
+     int32 accumulator and scale equal to the one-rank conv's on the same
+     input, 6 int8 convs a forward a rank and every InstanceNorm on B3's
+     one-pass route (the trunk's at C/N = 768 channels), the G against the
+     one-rank int8 G (bf16: correlation >= 0.99; f32: within 2x the plain
+     G's floor), and generate --int8_trunk --tp_shards 2 (rank 0 writes
+     the file). Each leg prints each rank's gloo bytes, wall ms and peak
+     GiB. Then a bf16 timing leg,
      the one-rank CP forward of a 60 s synthetic file (11,264 frames): the
      G's wall ms, B3m + B3a device ms a forward and the kernels each
      cp_instance_norm call launches (torch.profiler), failing unless each
@@ -216,7 +229,9 @@ Phases, each fatal on failure (exit code 1):
      views.
  16. (after phase 15) the training half of the parallel modes: 2 ranks of this
      script (`--rank-worker dp|zero|fsdp`) sharing cuda:0 over gloo, at
-     flagship width (G 156,050,690 parameters, PatchGAN ndf 64), a wall
+     flagship width (PatchGAN ndf 64; the G 156,050,690 parameters, cut in
+     the parity legs to one resblock in the trunk and one in the enhancer,
+     DP_PARITY_DEPTH: 70,998,530), a wall
      limit of their own. Parity leg (f32, TF32 off, cuDNN's heuristic
      algorithms): 2 steps on a global batch of 8 (4 a rank) with the same
      mask noise, against the same steps in this process, each from the
@@ -240,7 +255,17 @@ Phases, each fatal on failure (exit code 1):
      32 a rank, 1 warm-up and 3 timed steps a mode, every count set to 0
      just before them: per rank the step's wall time, gloo bytes
      (Group.traffic), peak CUDA memory and launches a step, B1 2 (on the
-     tensor cores), B3 40 (one-pass) and B3' 40 asserted. Then the training
+     tensor cores), B3 40 (one-pass) and B3' 40 asserted. In the dp world,
+     the recipes under DP (DP_RECIPES: the time-D + match step and the
+     HiFi-GAN D, f32, the parity leg's batch and depth): one step from the
+     seeded init against the same step in this process (its rounding
+     floor from the rows in DP_ORDERS), within parity_bounds (a kind whose
+     one-process floor alone exceeds them, the time-D step's G moments,
+     read: recipe_bounds; the D optimizer's kinds held in any case), the
+     losses
+     within DP_FLOOR_FACTOR x the floor's and equal on both ranks, B1, B3
+     and B3' (and for HiFi-GAN B2 and B2') launched on each rank, with
+     each rank's wall ms, gloo bytes and peak GiB. Then the training
      CLI under 2 ranks (`--rank-worker cli`, the launcher's variables as
      torchrun sets them) with --zero_opt_state, 2 steps on phase 12's
      corpus and --continue_train for 2 more (G and D equal to the saved
@@ -269,7 +294,8 @@ Phases, each fatal on failure (exit code 1):
      under utils/profiling.trace: the host ms of its spans (read +
      resample, load, serve, metrics, write) and the device ms of its
      kernels and copies.
-Each phase prints its seconds ([phase] lines).
+Each phase prints its seconds ([phase] lines), and the script its total
+([total], before the two JSON lines).
 The line before the last is {"kernels": [...]} (`launches` from one
 serve forward, for the InstanceNorm backward, which serving never
 launches, from one flagship train step, and for B2's backward from one
@@ -3089,6 +3115,13 @@ G_STRIDE = 32
 CP_LONG_SECONDS = 60.0
 # a rank of the multi-rank phases: its own wall limit, seconds
 RANK_LIMIT = 420
+# dp x cp serving in phase 15's 4-rank world: the data x cp mesh
+# (parallel.mesh.make_serving_layout) and its batch: 2 seeded segments,
+# each split into 2 blocks of 64 frames
+DP_CP, DP_CP_BATCH = (2, 2), 2
+# the int8 trunk under TP in phase 15's 2-rank world: its convs a forward
+# (the flagship trunk's 3 resblocks x 2)
+INT8_TP_CONVS = 6
 
 
 def one_rank_group(dev):
@@ -3455,7 +3488,7 @@ def cp_long_forward(dev, seconds: float = CP_LONG_SECONDS):
     os.remove(wav)
     group = one_rank_group(dev)
     forward = make_cp_generator(full, group)
-    return (lambda: cp_forward(forward, spec, group)), spec.shape[2]
+    return (lambda: cp_forward(forward, spec)), spec.shape[2]
 
 
 def cp_long_leg(dev) -> dict:
@@ -3503,7 +3536,7 @@ def phase_cp_one_rank(dev, wav: str, n_in: int) -> dict:
     for dtype in ("float32", "bfloat16"):
         full, spec = full_length_spec(flagship_system(
             dev, ["--compute_dtype", dtype]), wav, 1)
-        got = cp_forward(make_cp_generator(full, group), spec, group)
+        got = cp_forward(make_cp_generator(full, group), spec)
         want = unsharded_forward(full, spec)
         r = ulp_reading(got, want)
         r["bit_identical"] = bool(torch.equal(got, want))
@@ -3681,9 +3714,11 @@ def rank_worker(mode: str) -> int:
     parallel.mesh (gloo, the ranks sharing cuda:0), runs the generator in
     f32 and bf16 on the spectrogram the parent saved (CP: this rank's
     frames, the blocks gathered on rank 0; TP: the resblocks split), once
-    to warm up and once timed with every count set to 0 just before it,
-    then the generate CLI in the mode at bf16; rank 0 saves the outputs.
-    Writes its record to WORK/<mode>_rank<r>.json."""
+    to warm up and once timed with every count set to 0 just before it;
+    then dp x cp serving on the 2 x 2 mesh (CP, dp_cp_rank) or the int8
+    trunk under TP (int8_tp_rank); then the generate CLI in the mode at
+    bf16 (TP: with --int8_trunk too); rank 0 saves the outputs. Writes its
+    record to WORK/<mode>_rank<r>.json."""
     if mode in DP_MODES:
         return dp_rank_worker(mode)
     if mode == "cli":
@@ -3718,8 +3753,7 @@ def rank_worker(mode: str) -> int:
         system = flagship_system(world.device, ["--compute_dtype", dtype])
         if mode == "cp":
             run = functools.partial(generate.cp_forward,
-                                    make_cp_generator(system, group), spec,
-                                    group)
+                                    make_cp_generator(system, group), spec)
         else:
             rec["sharded"] = shard_generator(system.netG, group)
             run = functools.partial(unsharded_forward, system, spec)
@@ -3737,23 +3771,153 @@ def rank_worker(mode: str) -> int:
             torch.save(out.cpu(), os.path.join(WORK, f"{mode}_out_{dtype}.pt"))
         del system, run, out
         torch.cuda.empty_cache()
+    if mode == "cp":
+        rec["dp_cp"] = dp_cp_rank(world, counters, counts)
+    else:
+        rec["int8_tp"] = int8_tp_rank(world, group, spec, counters, counts)
     rec["layers"] = (cp_layer_checks if mode == "cp" else tp_block_checks)(
         group, world.device)
-    for fn in counters.values():
-        reset_counts(fn)
-    argv = ["--name", f"{mode}{world.size}", "--checkpoints_dir", WORK,
-            "--dataroot", os.path.join(WORK, "input_48k.wav"),
-            "--load_pretrain", os.path.join(WORK, "smoke"), "--batchSize",
-            "16", "--no_html", "--device", "cuda:0", *FLAGSHIP,
-            f"--{mode}_shards", str(world.size)]
-    t0 = time.perf_counter()
-    audio = generate.main(argv)
-    rec["cli"] = dict(seconds=time.perf_counter() - t0, counts=counts(),
-                      returned_audio=audio is not None)
+    for name, extra in [(f"{mode}{world.size}", [])] + (
+            [(f"{mode}{world.size}_int8", ["--int8_trunk"])]
+            if mode == "tp" else []):
+        for fn in counters.values():
+            reset_counts(fn)
+        argv = ["--name", name, "--checkpoints_dir", WORK,
+                "--dataroot", os.path.join(WORK, "input_48k.wav"),
+                "--load_pretrain", os.path.join(WORK, "smoke"), "--batchSize",
+                "16", "--no_html", "--device", "cuda:0", *FLAGSHIP,
+                f"--{mode}_shards", str(world.size), *extra]
+        t0 = time.perf_counter()
+        audio = generate.main(argv)
+        rec["cli" + ("_int8" if extra else "")] = dict(
+            seconds=time.perf_counter() - t0, counts=counts(),
+            returned_audio=audio is not None)
     with open(os.path.join(WORK, f"{mode}_rank{world.rank}.json"), "w") as f:
         json.dump(rec, f)
     mesh.shutdown()
     return 0
+
+
+def timed_forward(run, world, groups, counters, counts) -> tuple:
+    """run() once with every count, each group's traffic and the peak
+    memory reset just before it, synchronized around it: (its output,
+    {wall_ms, counts, traffic by group, peak_gib})."""
+    import torch
+    for fn in counters.values():
+        reset_counts(fn)
+    for g in groups.values():
+        g.reset_traffic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(wall_ms=1e3 * (time.perf_counter() - t0),
+                     counts=counts(),
+                     traffic={k: g.traffic() for k, g in groups.items()},
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def dp_cp_rank(world, counters, counts) -> dict:
+    """dp x cp serving on one rank of the DP_CP data x cp mesh
+    (parallel.mesh.make_serving_layout over phase 15's 4 ranks): the
+    flagship G in f32 and bf16 through make_cp_generator(..., batch_group=
+    data) on this rank's block [1, 512, 64, 2] of the parent's 2-segment
+    spectrogram (WORK/dpcp_spec.pt), the blocks gathered on rank 0
+    (generate.cp_forward), once to warm up and once timed (timed_forward);
+    rank 0 saves the output. Returns the rank's groups and each dtype's
+    record."""
+    import torch
+    from pix2pixhdaudiosr_torch import generate
+    from pix2pixhdaudiosr_torch.parallel import mesh
+    from pix2pixhdaudiosr_torch.parallel.halo import make_cp_generator
+    lay = mesh.make_serving_layout(world, *DP_CP)
+    spec = torch.load(os.path.join(WORK, "dpcp_spec.pt")).to(world.device)
+    rec = dict(cp=lay.cp.ranks, data=lay.data.ranks)
+    for dtype in ("float32", "bfloat16"):
+        system = flagship_system(world.device, ["--compute_dtype", dtype])
+        run = functools.partial(generate.cp_forward, make_cp_generator(
+            system, lay.cp, batch_group=lay.data), spec)
+        run()
+        out, rec[dtype] = timed_forward(run, world, {"cp": lay.cp,
+                                                     "data": lay.data},
+                                        counters, counts)
+        if world.rank == 0:
+            torch.save(out.cpu(), os.path.join(WORK, f"dpcp_out_{dtype}.pt"))
+        del system, run, out
+        torch.cuda.empty_cache()
+    return rec
+
+
+def int8_tp_rank(world, group, spec, counters, counts) -> dict:
+    """The int8 trunk under TP on one rank of phase 15's 2, in f32 and
+    bf16, on the parent's batch of 16 segments: the one-rank int8 G first
+    (the flagship loaded with --int8_trunk, whole weights), each trunk
+    conv's input and int32 accumulator recorded; then the resblocks
+    sharded (parallel/tp.shard_generator), a warm-up (which quantizes the
+    shards and records the TP G's own accumulators) and a timed forward
+    (timed_forward, the int8 convs and B3's one-pass launches counted);
+    then each split conv run on the one-rank conv's recorded input (its
+    slice of the channels for ConvIN_1) with this rank's quantized shard:
+    its accumulator and scale against the one-rank conv's (ConvIN_0: the
+    accumulator's slice of this rank's output channels). Rank 0 saves the
+    TP G's output."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import quant
+    from pix2pixhdaudiosr_torch.ops.norm import instance_norm_act
+    from pix2pixhdaudiosr_torch.parallel.tp import shard_generator
+    acc_fn, rec = quant.conv3x3_int8_acc, {}
+    r, n = group.rank, group.size
+
+    def recording(into):
+        def spy(x, kq, g=None):
+            acc, sx = acc_fn(x, kq, g)
+            into.append((x, acc, sx))
+            return acc, sx
+        return spy
+
+    for dtype in ("float32", "bfloat16"):
+        system = flagship_system(world.device, ["--int8_trunk",
+                                                "--compute_dtype", dtype])
+        whole, split = [], []
+        quant.conv3x3_int8_acc = recording(whole)
+        try:
+            unsharded_forward(system, spec)
+            shard_generator(system.netG, group)
+            quant.conv3x3_int8_acc = recording(split)
+            unsharded_forward(system, spec)
+        finally:
+            quant.conv3x3_int8_acc = acc_fn
+        run = functools.partial(unsharded_forward, system, spec)
+        reset_counts(quant.conv3x3_int8)
+        out, rec[dtype] = timed_forward(run, world, {"tp": group},
+                                        dict(counters, conv3x3_int8=
+                                             quant.conv3x3_int8), counts)
+        rec[dtype].update(
+            int8_launches=quant.conv3x3_int8.launches,
+            in_onepass=instance_norm_act.launches_onepass,
+            in_launches=instance_norm_act.launches)
+        quantized = getattr(system.netG, "global")._int8_cache[2]
+        convs, g_acc = [], []
+        for i, ((x, acc, sx), (kq, _), (_, tp_acc, _)) in enumerate(
+                zip(whole, quantized, split)):
+            if i % 2 == 0:       # ConvIN_0: this rank's output channels
+                got, got_sx = acc_fn(x, kq)
+                want = acc.chunk(n, 1)[r]
+            else:                # ConvIN_1: this rank's input channels
+                got, got_sx = acc_fn(x.chunk(n, 1)[r], kq, group)
+                want = acc
+            convs.append(bool(torch.equal(got, want))
+                         and bool(torch.equal(got_sx, sx)))
+            g_acc.append(bool(torch.equal(tp_acc, want)))
+        rec[dtype].update(split_conv_acc_equal=convs, g_acc_equal=g_acc,
+                          convs=len(whole))
+        if world.rank == 0:
+            torch.save(out.cpu(), os.path.join(WORK,
+                                               f"int8tp_out_{dtype}.pt"))
+        del system, run, out, whole, split, quantized
+        torch.cuda.empty_cache()
+    return rec
 
 
 def phase_cp_ranks(dev, wav: str) -> dict:
@@ -3769,13 +3933,23 @@ def phase_cp_ranks(dev, wav: str) -> dict:
                                                         "float32"]),
                                   wav, CP_SHARDS)
     torch.save(spec.cpu(), os.path.join(WORK, "cp_spec.pt"))
-    want, floor = {}, {}
+    # dp x cp: DP_CP_BATCH seeded segments, their rows over `data`
+    seg = flagship_system(dev, ["--compute_dtype", "float32"])
+    lr, noise = seeded_batch(seg, dev, DP_CP_BATCH)
+    with torch.no_grad():
+        dspec = seg.encode_input(lr, noise)[0].contiguous()
+    del seg
+    torch.save(dspec.cpu(), os.path.join(WORK, "dpcp_spec.pt"))
+    want, floor, dwant, dfloor = {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         if dtype == "bfloat16":
             full = flagship_system(dev)
         ref = unsharded_forward(full, spec)
         floor[dtype] = rounding_floor(full, spec, ref)
         want[dtype] = ref.cpu()
+        ref = unsharded_forward(full, dspec)
+        dfloor[dtype] = rounding_floor(full, dspec, ref)
+        dwant[dtype] = ref.cpu()
     del full, ref
     torch.cuda.empty_cache()
     recs = run_ranks("cp", CP_SHARDS)
@@ -3802,7 +3976,50 @@ def phase_cp_ranks(dev, wav: str) -> dict:
               f"rank {r['rank']}: the CLI's return")
     check(os.path.exists(os.path.join(WORK, f"cp{CP_SHARDS}", "sr_audio.wav")),
           "the CP CLI at 4 ranks wrote no sr_audio.wav")
+    res["dp_cp"] = phase_dp_cp_checks(recs, dwant, dfloor, dspec.shape)
     print(f"[cp {CP_SHARDS} ranks] " + json.dumps(res))
+    return res
+
+
+def phase_dp_cp_checks(recs, want, floor, shape) -> dict:
+    """dp x cp serving at DP_CP (the CP world's ranks as a 2 x 2 data x cp
+    mesh): the gathered G output in f32 and bf16 against the plain G's in
+    one process within 2x its rounding floor; each rank's groups row-major
+    (cp: its data row, data: its column), B3's cross-shard entries
+    launched on every rank and no one-launch B3; each rank's gloo bytes by
+    group, wall ms and peak GiB printed."""
+    import torch
+    dp, cp = DP_CP
+    res = dict(shape=list(shape), mesh=DP_CP)
+    for dtype, ref in want.items():
+        got = torch.load(os.path.join(WORK, f"dpcp_out_{dtype}.pt"))
+        check(got.shape == ref.shape, f"dp x cp {dtype}: output "
+              f"{tuple(got.shape)}, expected {tuple(ref.shape)}")
+        res[dtype] = ulp_reading(got, ref)
+        check_against_floor(f"dp x cp at {dp} x {cp} ranks, {dtype}",
+                            res[dtype], floor[dtype], ref.abs().max().item())
+    res["ranks"] = []
+    for r in recs:
+        rank, d = r["rank"], r["dp_cp"]
+        check(d["cp"] == [rank // cp * cp + c for c in range(cp)]
+              and d["data"] == [rank % cp + k * cp for k in range(dp)],
+              f"rank {rank}: dp x cp groups {d['cp']}, {d['data']}")
+        row = dict(rank=rank)
+        for dtype in want:
+            c = d[dtype]["counts"]
+            check(c["instance_moments"]["launches"] > 0
+                  and c["instance_apply"]["launches"] > 0
+                  and c["instance_norm_act"]["launches"] == 0,
+                  f"dp x cp rank {rank} {dtype}: B3m/B3a not launched or a "
+                  f"one-launch B3 ran: {c}")
+            row[dtype] = dict(
+                wall_ms=d[dtype]["wall_ms"], peak_gib=d[dtype]["peak_gib"],
+                b3m=c["instance_moments"]["launches"],
+                b3a=c["instance_apply"]["launches"],
+                gloo_bytes={g: sum(v["bytes"] for v in t.values())
+                            for g, t in d[dtype]["traffic"].items()})
+        res["ranks"].append(row)
+    print(f"[dp x cp {dp} x {cp}] " + json.dumps(res))
     return res
 
 
@@ -3820,13 +4037,15 @@ def phase_tp_ranks(dev) -> dict:
     with torch.no_grad():
         spec = system.encode_input(lr, noise)[0].contiguous()
     torch.save(spec.cpu(), os.path.join(WORK, "tp_spec.pt"))
-    want, floor = {}, {}
+    want, floor, want8 = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         if dtype == "bfloat16":
             system = flagship_system(dev)
         ref = unsharded_forward(system, spec)
         floor[dtype] = rounding_floor(system, spec, ref)
         want[dtype] = ref.cpu()
+        want8[dtype] = unsharded_forward(flagship_system(dev, [
+            "--int8_trunk", "--compute_dtype", dtype]), spec).cpu()
     del system, ref
     torch.cuda.empty_cache()
     recs = run_ranks("tp", TP_SHARDS)
@@ -3847,7 +4066,68 @@ def phase_tp_ranks(dev) -> dict:
                   f"{s} (C/N channels): {shapes}")
     check(os.path.exists(os.path.join(WORK, f"tp{TP_SHARDS}", "sr_audio.wav")),
           "the TP CLI at 2 ranks wrote no sr_audio.wav")
+    res["int8_tp"] = phase_int8_tp_checks(recs, want8, floor)
     print(f"[tp {TP_SHARDS} ranks] " + json.dumps(res))
+    return res
+
+
+def phase_int8_tp_checks(recs, want, floor) -> dict:
+    """The int8 trunk under TP at TP_SHARDS ranks (int8_tp_rank): on every
+    rank each split trunk conv's int32 accumulator and activation scale
+    equal to the one-rank conv's on the same input, INT8_TP_CONVS int8
+    convs a forward and every InstanceNorm on B3's one-pass route, with the
+    trunk's at C/N channels (16 x 4 x 768); rank 0's G output against the
+    one-rank int8 G's: correlation >= 0.99 in bf16 (as the int8 path
+    against the plain one, phase 7) and, in f32, within 2x the plain G's
+    f32 rounding floor (the TP G's bound); generate --int8_trunk
+    --tp_shards 2 wrote its file (rank 0 alone returned it). Whether the
+    TP G's own accumulators equal the one-rank G's (they do where B3 at
+    C/N channels rounds each plane as at C) is read."""
+    import torch
+    res = dict(ranks=[])
+    for dtype, ref in want.items():
+        got = torch.load(os.path.join(WORK, f"int8tp_out_{dtype}.pt"))
+        r = ulp_reading(got, ref)
+        r["corr"] = torch.corrcoef(torch.stack([
+            got.flatten().double(), ref.flatten().double()]))[0, 1].item()
+        if dtype == "bfloat16":
+            check(r["corr"] >= 0.99, f"int8 TP G bf16: correlation "
+                  f"{r['corr']} < 0.99 with the one-rank int8 G")
+        else:
+            check_against_floor(f"int8 TP at {TP_SHARDS} ranks, f32", r,
+                                floor["float32"], ref.abs().max().item())
+        res[dtype] = r
+    for rec in recs:
+        rank, t = rec["rank"], rec["int8_tp"]
+        row = dict(rank=rank)
+        for dtype in want:
+            d = t[dtype]
+            shapes = d["counts"]["instance_norm_act"]["by_shape"]
+            check(d["convs"] == INT8_TP_CONVS and all(
+                d["split_conv_acc_equal"]), f"int8 TP rank {rank} {dtype}: "
+                f"split accumulators {d['split_conv_acc_equal']}")
+            check(d["int8_launches"] == INT8_TP_CONVS, f"int8 TP rank {rank} "
+                  f"{dtype}: {d['int8_launches']} int8 convs a forward")
+            check(d["in_onepass"] == d["in_launches"] > 0
+                  and shapes.get("(16, 4, 768)", 0) > 0,
+                  f"int8 TP rank {rank} {dtype}: B3 off the one-pass route "
+                  f"or not at C/N: {d['in_onepass']}/{d['in_launches']}, "
+                  f"{shapes}")
+            row[dtype] = dict(
+                wall_ms=d["wall_ms"], peak_gib=d["peak_gib"],
+                int8_launches=d["int8_launches"],
+                g_acc_equal=d["g_acc_equal"],
+                gloo_bytes=sum(v["bytes"]
+                               for v in d["traffic"]["tp"].values()),
+                traffic=d["traffic"]["tp"])
+        row["cli_seconds"] = rec["cli_int8"]["seconds"]
+        check(rec["cli_int8"]["returned_audio"] == (rank == 0),
+              f"rank {rank}: the int8 TP CLI's return")
+        res["ranks"].append(row)
+    check(os.path.exists(os.path.join(WORK, f"tp{TP_SHARDS}_int8",
+                                      "sr_audio.wav")),
+          "generate --int8_trunk --tp_shards 2 wrote no sr_audio.wav")
+    print(f"[int8 tp {TP_SHARDS} ranks] " + json.dumps(res))
     return res
 
 
@@ -3858,6 +4138,14 @@ DP_MODES, DP_RANKS = ("dp", "zero", "fsdp"), 2
 # the parity leg (f32, TF32 off): its global batch and steps; the timing
 # leg (bf16): its global batch (32 a rank) and timed steps after 1 warm-up
 DP_PARITY_BATCH, DP_PARITY_STEPS = 8, 2
+# the parity legs' depth: flagship widths, one resblock in the trunk and
+# one in the enhancer (the full flagship's 3 and 2; the timing leg keeps
+# them): G 70,998,530 parameters, whose host copies the readings take
+DP_PARITY_DEPTH = ["--n_blocks_global", "1", "--n_blocks_local", "1"]
+# the recipes held under DP in the dp world, f32 at the parity leg's batch
+# and depth: the time-D + match step and the HiFi-GAN D (RECIPES' flags;
+# the time-D step's G moments read, not held: recipe_bounds)
+DP_RECIPES = {"time_d_match": RECIPES[0][0], "hifigan": RECIPES[1][0]}
 DP_TIMING_BATCH, DP_TIMING_STEPS = TRAIN_BATCH, 3
 # a flagship train step's launches a rank at its share of the batch (all on
 # the fast routes): B1 2, B3 and its backward 40
@@ -3897,14 +4185,14 @@ DP_STEP_LAUNCHES = {"mdct2": TRAIN_MDCT_LAUNCHES,
                     "instance_norm_act_grad": TRAIN_IN_LAUNCHES}
 
 
-def dp_train_state(dev, dtype: str, batch: int, seed: int = 0):
-    """A flagship training system in `dtype` and its fresh train state
-    (seeded init: every rank draws the same)."""
+def dp_train_state(dev, dtype: str, batch: int, seed: int = 0, extra=()):
+    """A flagship training system in `dtype` (with the flags `extra`) and
+    its fresh train state (seeded init: every rank draws the same)."""
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
     from pix2pixhdaudiosr_torch.trainer import init_state
     cfg = parse_config([*FLAGSHIP, "--compute_dtype", dtype, "--batchSize",
-                        str(batch)], is_train=True, save=False)
+                        str(batch), *extra], is_train=True, save=False)
     return init_state(Pix2PixHDSystem(cfg, device=dev), seed)
 
 
@@ -3919,16 +4207,18 @@ def dp_noise(system, dev, batch: int, i: int):
 
 
 def dp_state_dict(state, nets_only: bool = False) -> dict:
-    """A train state's G and D parameters and, unless nets_only, Adam
-    moments, whole, on the host, by name ("G.<p>", "D.<p>",
+    """A train state's parameters of every trained net and, unless
+    nets_only, Adam moments, whole, on the host, by name ("G.<p>", netE's
+    "G.E.<p>", "D.<p>", "D.time_D.<p>", "D.hifigan_D.<p>",
     "opt_g.exp_avg.<p>", ...): collective under a parallel strategy (every
     rank calls it)."""
     from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
     par, system, out = state.parallel, state.system, {}
     with par.full_state(state) if par else contextlib.nullcontext():
-        for key, net in (("G", system.netG_train), ("D", system.netD)):
+        for key, named in (("G", ckpt.g_params(system)),
+                           ("D", ckpt.d_params(system))):
             out.update({f"{key}.{k}": v.detach().cpu()
-                        for k, v in net.state_dict().items()})
+                        for k, v in named.items()})
         if nets_only:
             return out
         for tag, opt, named in (("opt_g", state.opt_g, ckpt.g_params(system)),
@@ -3941,16 +4231,20 @@ def dp_state_dict(state, nets_only: bool = False) -> dict:
 
 
 def dp_grads(system) -> dict:
-    """The grads a step left on G's and D's parameters, on the host, by
-    "G.<p>" / "D.<p>" (one process: ZeRO and FSDP drop a sharded leaf's),
-    the names of those parameters that are conv biases feeding an
-    InstanceNorm (norm_fed_biases), and each leaf's grad noise (0 until
-    add_noise reads it)."""
+    """The grads a step left on every trained net's parameters, on the
+    host, by dp_state_dict's names (one process: ZeRO and FSDP drop a
+    sharded leaf's), the names of those parameters that are conv biases
+    feeding an InstanceNorm (norm_fed_biases), and each leaf's grad noise
+    (0 until add_noise reads it)."""
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
     grads = {f"{key}.{n}": q.grad.detach().float().cpu()
-             for key, net in (("G", system.netG_train), ("D", system.netD))
-             for n, q in net.named_parameters()}
-    void = norm_fed_biases(system.netG_train, "G.") | \
-        norm_fed_biases(system.netD, "D.")
+             for key, named in (("G", ckpt.g_params(system)),
+                                ("D", ckpt.d_params(system)))
+             for n, q in named.items()}
+    prefix = {"G": "G.", "E": "G.E.", "D": "D.", "time_D": "D.time_D.",
+              "hifigan_D": "D.hifigan_D."}
+    void = set().union(*(norm_fed_biases(net, prefix[k]) for k, net in {
+        **system.g_nets(), **system.d_nets()}.items()))
     return dict(grads=grads, void=sorted(void),
                 noise={k: 0.0 for k in grads})
 
@@ -4020,11 +4314,52 @@ def dp_parity_state(dev, i: int):
     reference's `latest` after step i (WORK/dp_ref_step<i>)."""
     from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
     if i == 0:
-        return dp_train_state(dev, "float32", DP_PARITY_BATCH)
-    state = dp_train_state(dev, "float32", DP_PARITY_BATCH, seed=99)
+        return dp_train_state(dev, "float32", DP_PARITY_BATCH,
+                              extra=DP_PARITY_DEPTH)
+    state = dp_train_state(dev, "float32", DP_PARITY_BATCH, seed=99,
+                           extra=DP_PARITY_DEPTH)
     ckpt.load_train_state(state, "latest",
                           os.path.join(WORK, f"dp_ref_step{i}"))
     return state
+
+
+def ordered_steps(dev, make_state, batch: dict, i: int, save=None) -> dict:
+    """Parity step i in this process on the rows of `batch` in each order
+    of DP_ORDERS, each from a state make_state() builds: the first order's
+    losses, state (dp_state_dict) and grads (dp_grads, each leaf's grad
+    noise raised over the other orders: add_noise), and the rounding
+    floor: the widest parity_gaps between two orders, kind by kind, and
+    the widest relative loss gap. With `save`, the first order's state is
+    saved there as `latest`."""
+    import torch
+    from pix2pixhdaudiosr_torch.trainer import make_train_step
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
+    runs = {}
+    for name, order in DP_ORDERS.items():
+        state = make_state()
+        data = {k: v[order].contiguous() for k, v in batch.items()}
+        lo = make_train_step(state.system)(state, data, dp_noise(
+            state.system, dev, DP_PARITY_BATCH, i)[order].contiguous())[0]
+        runs[name] = ({k: float(v) for k, v in lo.items()},
+                      dp_state_dict(state))
+        if name != "one":
+            add_noise(grads, dp_grads(state.system))
+        else:
+            grads = dp_grads(state.system)
+            if save:
+                ckpt.save_train_state(state, save, "latest")
+        lr = state.system.cfg.lr
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    pairs = [(a, b) for j, a in enumerate(runs) for b in list(runs)[j + 1:]]
+    gaps = [parity_gaps(runs[a][1], runs[b][1], grads, lr, dev)
+            for a, b in pairs]
+    return dict(losses=runs["one"][0], state=runs["one"][1], grads=grads,
+                lr=lr, floor={kind: max(g[kind] for g in gaps)
+                              for kind in gaps[0]},
+                floor_loss=max(loss_gaps([runs[a][0]], [runs[b][0]])
+                               for a, b in pairs))
 
 
 def beyond(bounds: dict) -> list:
@@ -4212,10 +4547,132 @@ def dp_rank_worker(mode: str) -> int:
         in_grad_by_route_per_step={
             k: v / n for k, v in instance_norm_act_grad.launches_by_route.items()})
     rec["seconds"]["timing"] = time.perf_counter() - t0
+    if mode == "dp":
+        del state, par, step, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["recipes"] = dp_recipe_rank(world, own)
+        rec["seconds"]["recipes"] = time.perf_counter() - t0
     with open(os.path.join(WORK, f"{mode}_rank{world.rank}.json"), "w") as f:
         json.dump(rec, f)
     mesh.shutdown()
     return 0
+
+
+def dp_recipe_rank(world, own) -> dict:
+    """The recipes of DP_RECIPES on one rank of phase 16's dp world, f32
+    (TF32 off, cuDNN's heuristic algorithms), at the parity leg's batch
+    and depth: one step on this rank's rows of the parent's batch with the
+    global mask noise, from the seeded init, under DP; its wall time (the
+    host clock, synchronized), gloo bytes (Group.traffic), peak memory and
+    launches; on rank 0 its whole state against the parent's one-process
+    step (parity_gaps) and its losses' gap."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import (imdct2, imdct2_grad,
+                                                         mdct2)
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_grad)
+    from pix2pixhdaudiosr_torch.parallel import mesh
+    from pix2pixhdaudiosr_torch.parallel.dp import apply_dp
+    from pix2pixhdaudiosr_torch.trainer import make_train_step
+    torch.backends.cudnn.benchmark = False
+    dev = world.device
+    counters = {"mdct2": mdct2, "imdct2": imdct2, "imdct2_grad": imdct2_grad,
+                "instance_norm_act": instance_norm_act,
+                "instance_norm_act_grad": instance_norm_act_grad}
+    layout = mesh.make_data_layout(world, DP_PARITY_BATCH)
+    rows = own(flagship_train_batch(dev, DP_PARITY_BATCH), layout)
+    ref = torch.load(os.path.join(WORK, "dp_recipe_ref.pt"), mmap=True,
+                     weights_only=True) if world.rank == 0 else None
+    out = {}
+    for name, flags in DP_RECIPES.items():
+        state = dp_train_state(dev, "float32", DP_PARITY_BATCH,
+                               extra=[*flags, *DP_PARITY_DEPTH])
+        apply_dp(state, layout)
+        step = make_train_step(state.system)
+        noise = dp_noise(state.system, dev, DP_PARITY_BATCH, 0)
+        for fn in counters.values():
+            reset_counts(fn)
+        layout.members.reset_traffic()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lo = step(state, rows, noise)[0]
+        torch.cuda.synchronize()
+        r = dict(wall_ms=1e3 * (time.perf_counter() - t0),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 losses=[{k: float(v) for k, v in lo.items()}],
+                 gloo_bytes=sum(v["bytes"] for v in
+                                layout.members.traffic().values()),
+                 launches={k: fn.launches for k, fn in counters.items()})
+        got = dp_state_dict(state)
+        if ref is not None:
+            r.update(gaps=parity_gaps(got, ref[name]["state"],
+                                      ref[name]["grads"],
+                                      state.system.cfg.lr, dev),
+                     loss_gap=loss_gaps(r["losses"], ref[name]["losses"]))
+        out[name] = r
+        del state, step, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def recipe_bounds(gaps: dict, floor: dict) -> tuple:
+    """parity_bounds of a recipe's gaps split in two: (the kinds whose
+    rounding floor, one process on the rows in DP_ORDERS, is within its
+    bound, held; the kinds whose floor is not, read only). With the
+    time-domain D, G's grads follow the rounding of the frames at the dB
+    floor (20 / (ln 10 f) a unit of f): at flagship width the floor of G's
+    moments alone reads 0.5x to 2.4x a leaf's max (--min_value 1e-3 or the
+    recipe's 1e-7; an H100, this script), and two such floors differ by as
+    much, so no bound on them would separate a fault from rounding."""
+    held, read = {}, {}
+    for kind, (gap, bound, leaf) in parity_bounds(gaps).items():
+        (read if floor[kind][0] > bound else held)[kind] = (gap, bound, leaf)
+    return held, read
+
+
+def dp_recipe_checks(recs, recipes: dict, fails: list) -> None:
+    """The recipes under DP (dp_recipe_rank) against their one-process
+    steps: every rank's losses equal, rank 0's within DP_FLOOR_FACTOR x
+    the floor's (relative) and its parameters and moments within
+    parity_bounds, but a kind whose one-process floor alone exceeds them
+    (recipe_bounds: the time-D step's G moments), which is read; D's
+    parameters and the D optimizer's moments (every discriminator's,
+    reduced in the same all-reduce as G's grads) must be held; B1, B3 and
+    B3' launched on every rank, and with the HiFi-GAN D, B2 and its
+    backward (B2'). A reading beyond its bound is added to `fails`; each
+    recipe's readings go into `recipes`."""
+    for name, row in recipes.items():
+        first = recs[0]["recipes"][name]
+        check(all(r["recipes"][name]["losses"] == first["losses"]
+                  for r in recs), f"{name} under DP: the ranks report "
+              f"different losses")
+        row["within"], row["read_only"] = recipe_bounds(first["gaps"],
+                                                        row["floor"])
+        row["loss_gap"] = first["loss_gap"]
+        if not {"D", "opt_d.exp_avg", "opt_d.exp_avg_sq"} <= set(
+                row["within"]):
+            fails.append(f"{name}: the D kinds' rounding floor beyond the "
+                         f"bounds: {row['floor']}")
+        if beyond(row["within"]):
+            fails.append(f"{name} under DP at {DP_RANKS} ranks, f32: beyond "
+                         f"the bounds: {row['within']}")
+        if first["loss_gap"] > DP_FLOOR_FACTOR * row["floor_loss_gap"] + 1e-6:
+            fails.append(f"{name} under DP: loss gap {first['loss_gap']} "
+                         f"beyond {DP_FLOOR_FACTOR}x the floor's "
+                         f"{row['floor_loss_gap']}")
+        want = ["mdct2", "instance_norm_act", "instance_norm_act_grad"] + (
+            ["imdct2", "imdct2_grad"] if name == "hifigan" else [])
+        row["ranks"] = []
+        for r in recs:
+            d = r["recipes"][name]
+            check(all(d["launches"][k] > 0 for k in want), f"{name} under "
+                  f"DP rank {r['rank']}: launches {d['launches']}")
+            row["ranks"].append({k: d[k] for k in (
+                "wall_ms", "peak_gib", "gloo_bytes", "launches")})
+        print(f"[dp recipe {name}] " + json.dumps(row))
 
 
 def dp_cli_rank_worker() -> int:
@@ -4314,36 +4771,17 @@ def phase_dp_ranks(dev) -> dict:
     ref, floor, floor_loss, fails = dict(losses=[], states=[], grads=[]), [], \
         0.0, []
     for i in range(DP_PARITY_STEPS):
-        runs = {}
-        for name, order in DP_ORDERS.items():
-            state = dp_parity_state(dev, i)
-            data = {k: v[order].contiguous() for k, v in batch.items()}
-            lo = make_train_step(state.system)(state, data, dp_noise(
-                state.system, dev, DP_PARITY_BATCH, i)[order].contiguous())[0]
-            runs[name] = ({k: float(v) for k, v in lo.items()},
-                          dp_state_dict(state))
-            if name != "one":
-                add_noise(grads, dp_grads(state.system))
-            else:
-                grads = dp_grads(state.system)
-                if i + 1 < DP_PARITY_STEPS:
-                    ckpt.save_train_state(state, os.path.join(
-                        WORK, f"dp_ref_step{i + 1}"), "latest")
-            lr = state.system.cfg.lr
-            del state
-            gc.collect()
-            torch.cuda.empty_cache()
-        # the floor: the widest gap between two orders of the rows
-        pairs = [(a, b) for j, a in enumerate(runs) for b in list(runs)[j + 1:]]
-        gaps = [parity_gaps(runs[a][1], runs[b][1], grads, lr, dev)
-                for a, b in pairs]
-        floor.append({kind: max(g[kind] for g in gaps) for kind in gaps[0]})
-        floor_loss = max(floor_loss, *(loss_gaps([runs[a][0]], [runs[b][0]])
-                                       for a, b in pairs))
+        one = ordered_steps(dev, functools.partial(dp_parity_state, dev, i),
+                            batch, i, save=os.path.join(
+                                WORK, f"dp_ref_step{i + 1}")
+                            if i + 1 < DP_PARITY_STEPS else None)
+        floor.append(one["floor"])
+        floor_loss = max(floor_loss, one["floor_loss"])
+        grads, lr = one["grads"], one["lr"]
         for key, value in zip(("losses", "states", "grads"),
-                              (runs["one"][0], runs["one"][1], grads)):
+                              (one["losses"], one["state"], grads)):
             ref[key].append(value)
-        del runs
+        del one
     res = dict(floor=[parity_bounds(f) for f in floor],
                floor_loss_gap=floor_loss, modes={}, grad_noise=[max(
                    (n / max(g["grads"][k].abs().max().item(), 1e-30), k)
@@ -4359,6 +4797,23 @@ def phase_dp_ranks(dev) -> dict:
     del ref
     gc.collect()
     res["seconds"] = dict(reference=time.perf_counter() - t0)
+    # the recipes' one-process steps (from the seeded init) and floors
+    t1 = time.perf_counter()
+    recipe_ref, res["recipes"] = {}, {}
+    for name, flags in DP_RECIPES.items():
+        one = ordered_steps(dev, functools.partial(
+            dp_train_state, dev, "float32", DP_PARITY_BATCH,
+            extra=[*flags, *DP_PARITY_DEPTH]), batch, 0)
+        recipe_ref[name] = dict(losses=[one["losses"]], state=one["state"],
+                                grads=one["grads"])
+        res["recipes"][name] = dict(floor=parity_bounds(one["floor"]),
+                                    floor_loss_gap=one["floor_loss"])
+        del one
+        gc.collect()
+    torch.save(recipe_ref, os.path.join(WORK, "dp_recipe_ref.pt"))
+    del recipe_ref
+    gc.collect()
+    res["seconds"]["recipe_reference"] = time.perf_counter() - t1
     for mode in DP_MODES:
         t1 = time.perf_counter()
         recs = run_ranks(mode, DP_RANKS)
@@ -4401,6 +4856,8 @@ def phase_dp_ranks(dev) -> dict:
             check(all(v == v and abs(v) != float("inf") for lo in t["losses"]
                       for v in lo.values()), f"{mode}: a bf16 loss is not "
                   f"finite")
+        if mode == "dp":
+            dp_recipe_checks(recs, res["recipes"], fails)
         res["modes"][mode] = recs
         print(f"[dp {mode}] " + json.dumps({
             "parity": par, "timing": [
@@ -4408,7 +4865,8 @@ def phase_dp_ranks(dev) -> dict:
                     "step_s", "gloo_bytes_per_step", "peak_gib",
                     "launches_per_step", "held")} for r in recs]}))
     # ZeRO's checkpoint, resumed in one process to the same third step
-    state = dp_train_state(dev, "float32", DP_PARITY_BATCH, seed=99)
+    state = dp_train_state(dev, "float32", DP_PARITY_BATCH, seed=99,
+                           extra=DP_PARITY_DEPTH)
     ckpt.load_train_state(state, "latest", os.path.join(WORK, "dp_zero_ck"))
     check(state.step == DP_PARITY_STEPS, f"the ZeRO save resumed at step "
           f"{state.step}")
@@ -4944,6 +5402,7 @@ def nvidia_smi() -> str:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5103,6 +5562,9 @@ def main() -> int:
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}) for k in KERNELS]
+    phase_s["total"] = time.perf_counter() - t_start
+    print(f"[total] {phase_s['total']:.1f} s of the script (its "
+          f"{len(phase_s) - 1} phases, the build and the readings)")
     print("[detail] " + json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         kernel_detail=detail, generate=gen_res, generate_fused=gen_fused,

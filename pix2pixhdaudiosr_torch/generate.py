@@ -20,10 +20,10 @@ The parallel modes (parallel/): --cp_shards N serves the whole file as one
 spectrogram, its frames split over min(N, ranks) ranks (`cp_generate`,
 :28-108 of the JAX CLI), with no segment seams; in one process that is
 one seamless full-length forward. --tp_shards N splits the resblocks'
-channels over min(N, ranks) ranks (parallel/tp.py, :167-176). Rank 0
-writes the outputs. The device defaults to cuda; the CPU runs only when
-asked for (--device cpu), and then every kernel runs its plain PyTorch
-twin.
+channels over min(N, ranks) ranks (parallel/tp.py, :167-176), the int8
+trunk's (--int8_trunk) too. Rank 0 writes the outputs. The device
+defaults to cuda; the CPU runs only when asked for (--device cpu), and
+then every kernel runs its plain PyTorch twin.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from .data.wavio import write_wav
 from .metrics import compute_metrics, segmental_snr
 from .ops.quant import dequantize_state_dict, quantize_state_dict
 from .parallel import mesh
-from .parallel.halo import make_cp_generator
+from .parallel.halo import cp_block, cp_gather, make_cp_generator
 from .parallel.tp import shard_generator
 from .system import Pix2PixHDSystem, generator_stride, make_codec
 from .utils.checkpoint import generator_path, load_generator
@@ -53,8 +53,10 @@ from .utils.visualizer import Visualizer
 
 def check_supported(cfg) -> None:
     """Refuse what the JAX CLI refuses, in its words
-    (pix2pixhdaudiosr_tpu/generate.py:78-83, :120-132), and what it
-    cannot serve."""
+    (pix2pixhdaudiosr_tpu/generate.py:78-83, :120-132), and nothing else:
+    --tp_shards with --cp_shards; --int8_trunk or --fused_enhancer with
+    --cp_shards; feature configs (with --cp_shards, cp_generate's
+    message). --int8_trunk with --tp_shards is served (parallel/tp.py)."""
     if cfg.tp_shards > 1 and cfg.cp_shards > 1:
         raise SystemExit("--tp_shards and --cp_shards cannot be combined in "
                          "generate; pick one parallelism for inference")
@@ -62,13 +64,6 @@ def check_supported(cfg) -> None:
         raise SystemExit("--int8_trunk/--fused_enhancer cannot be combined "
                          "with --cp_shards in generate; these serving "
                          "kernels are not context-parallel-aware")
-    if cfg.int8_trunk and cfg.tp_shards > 1:
-        raise SystemExit(
-            "--int8_trunk cannot be combined with --tp_shards in generate: "
-            "the int8 trunk quantizes each conv's input over all its "
-            "channels, and a rank holding C/N of them would need an "
-            "all-reduce of the scale that the int8 stack does not make "
-            "(the JAX package's GSPMD inserts one)")
     if cfg.use_features:
         if cfg.cp_shards > 1:
             raise SystemExit("--cp_shards does not support feature-encoder "
@@ -198,16 +193,16 @@ def full_length_system(system: Pix2PixHDSystem, need: int) -> Pix2PixHDSystem:
     return full
 
 
-def cp_forward(forward: Callable, spec: torch.Tensor, group) -> Optional[
+def cp_forward(forward: Callable, spec: torch.Tensor) -> Optional[
         torch.Tensor]:
-    """The generator over spec [B, F, T, C], its frames split over `group`:
-    this rank's T / n frames through `forward` (make_cp_generator), the
-    blocks gathered on rank 0 in order. Returns the sr spectrogram (f32
-    [B, F, T, C]) on rank 0, None on the others."""
-    per = spec.shape[2] // group.size
-    block = spec[:, :, group.rank * per:(group.rank + 1) * per].contiguous()
-    parts = group.gather_to_first(forward(block))
-    return None if parts is None else torch.cat(parts, dim=2)
+    """The generator over spec [B, F, T, C], its frames split over the
+    forward's group (and with a batch group, its batch over that: dp x
+    cp): this rank's block through `forward` (make_cp_generator), the
+    blocks gathered on rank 0 in (data, cp) order (halo.cp_block,
+    halo.cp_gather). Returns the sr spectrogram (f32 [B, F, T, C]) on rank
+    0, None on the others."""
+    groups = forward.group, forward.batch_group
+    return cp_gather(forward(cp_block(spec, *groups)), *groups)
 
 
 @torch.no_grad()
@@ -241,7 +236,7 @@ def cp_generate(system: Pix2PixHDSystem, lr_audio: np.ndarray, cfg, group,
         print(f"context-parallel inference: {t_frames} frames over "
               f"{group.size} shards")
     group.broadcast(lr_spec)
-    sr_spec = cp_forward(make_cp_generator(full, group), lr_spec, group)
+    sr_spec = cp_forward(make_cp_generator(full, group), lr_spec)
     if sr_spec is None:
         return None
     wav = full.codec.imdct_eval(torch.abs(sr_spec), lr_pha, lr_norm)

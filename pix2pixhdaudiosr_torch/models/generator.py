@@ -30,10 +30,11 @@ class GlobalTrunk(nn.Module):
     c7s1 head, strided downs, resnet blocks, mirrored deconvs.
 
     int8_blocks: run the resblocks as ops/quant.int8_resblock_stack (int8
-    convs, inference only). Their weights are quantized once and kept until
-    a weight changes (a new tensor, dtype or device, or an in-place write
-    such as load_state_dict): the result is bit-identical to quantizing on
-    every call, as the JAX package does."""
+    convs, inference only; tensor-parallel where the blocks' `tp` is set).
+    Their weights are quantized once and kept until a weight changes (a
+    new tensor, dtype or device, or an in-place write such as
+    load_state_dict): the result is bit-identical to quantizing on every
+    call, as the JAX package does."""
 
     def __init__(self, input_nc: int, ngf: int = 64, n_downsampling: int = 4,
                  n_blocks: int = 9, deconv_mode: str = "same",
@@ -63,8 +64,9 @@ class GlobalTrunk(nn.Module):
         for layer in layers[:n_pre]:
             x = layer(x)
         if self.int8_blocks and self.cp is None and self.n_blocks > 0:
-            x = quant.int8_resblock_stack(x, self._int8_blocks(
-                layers[n_pre:n_post]))
+            blocks = layers[n_pre:n_post]
+            x = quant.int8_resblock_stack(x, self._int8_blocks(blocks),
+                                          tp=blocks[0].tp)
         else:
             for blk in layers[n_pre:n_post]:
                 x = blk(x)
@@ -74,8 +76,14 @@ class GlobalTrunk(nn.Module):
 
     @torch.no_grad()
     def _int8_blocks(self, blocks):
-        """[((kq1, sw1, b1), (kq2, sw2, b2)), ...] of the resblocks."""
+        """[((kq1, sw1, b1), (kq2, sw2, b2)), ...] of the resblocks. Under
+        TP (the blocks' `tp`, parallel/tp.py) each ConvIN_1 weight is this
+        rank's input-channel shard, quantized with the whole weight's
+        scales (quantize_conv_weight's group: a MAX over the ranks), so no
+        shard is quantized on its own; every rank refreshes the cache at
+        the same call, its weights changing together."""
         convs = [c.Conv_0 for blk in blocks for c in (blk.ConvIN_0, blk.ConvIN_1)]
+        groups = [g for blk in blocks for g in (None, blk.tp)]
         weights = [c.weight for c in convs]
         versions = [w._version for w in weights]
         cache = self._int8_cache
@@ -88,7 +96,8 @@ class GlobalTrunk(nn.Module):
                 for a, b in zip(weights, cache[0])):
             self._int8_cache = cache = (
                 [w.detach() for w in weights], versions,
-                [quant.quantize_conv_weight(w) for w in weights])
+                [quant.quantize_conv_weight(w, g)
+                 for w, g in zip(weights, groups)])
         q = [kq_sw + (c.bias,) for kq_sw, c in zip(cache[2], convs)]
         return list(zip(q[0::2], q[1::2]))
 

@@ -53,13 +53,16 @@ def _div127(a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Weight quantization (pix2pixhdaudiosr_tpu/ops/quant.py:23-70)
 # ---------------------------------------------------------------------------
-def quantize_leaf(w: torch.Tensor, axis: int = 0
+def quantize_leaf(w: torch.Tensor, axis: int = 0, group=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per channel along `axis`: (q int8, scale f32), the
     scale with w's rank (size 1 off `axis`). abs, max, /127 and w/scale
-    run in w's dtype."""
+    run in w's dtype. With a `group` over which w is split off `axis`,
+    each channel's absmax is the MAX over it, the whole tensor's."""
     dims = [d for d in range(w.dim()) if d != axis % w.dim()]
     amax = w.abs().amax(dim=dims, keepdim=True)
+    if group is not None and group.size > 1:
+        amax = group.all_reduce_max(amax)
     scale = _div127(torch.clamp_min(amax, 1e-12))
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale.float()
@@ -101,19 +104,30 @@ def quantized_size_bytes(qstate: StateDict) -> int:
 # ---------------------------------------------------------------------------
 # The int8 trunk (pix2pixhdaudiosr_tpu/ops/quant.py:86-124)
 # ---------------------------------------------------------------------------
-def _quant_act_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8 of an activation, in f32: (q, 0-d scale)."""
+def _quant_act_tensor(x: torch.Tensor, group=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 of an activation, in f32: (q, 0-d scale).
+    With a `group` over which x's channels are split (TP), the absmax is
+    the MAX over it, the whole tensor's."""
     xf = x.float()
-    s = _div127(torch.clamp_min(xf.abs().amax(), 1e-8))
+    amax = xf.abs().amax()
+    if group is not None and group.size > 1:
+        amax = group.all_reduce_max(amax.reshape(1)).reshape(())
+    s = _div127(torch.clamp_min(amax, 1e-8))
     q = torch.clamp(torch.round(xf / s), -127, 127)
     return q.to(torch.int8), s
 
 
-def quantize_conv_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_conv_weight(w: torch.Tensor, group=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """OIHW 3x3 weight [Co, Ci, 3, 3] -> (kq int8 [Co, 9 Ci], K-major with
     k = (dh * 3 + dw) * Ci + ci, and sw f32 [Co]): the operand the int8
-    product takes, quantized per output channel as quantize_leaf does."""
-    q, s = quantize_leaf(w, axis=0)
+    product takes, quantized per output channel as quantize_leaf does.
+    With a `group` over which the input channels are split (TP's
+    row-parallel conv), each output channel's absmax is the MAX over it,
+    the whole weight's, so this rank's kq is its slice of the whole
+    weight's and sw the whole weight's."""
+    q, s = quantize_leaf(w, axis=0, group=group)
     co, ci = w.shape[:2]
     kq = q.permute(0, 2, 3, 1).reshape(co, 9 * ci).contiguous()
     return kq, s.reshape(co)
@@ -125,12 +139,17 @@ def _reflect_index(n: int, device) -> torch.Tensor:
     return torch.where(i > n - 1, 2 * (n - 1) - i, i)
 
 
-def conv3x3_int8_acc(x: torch.Tensor, kq: torch.Tensor
+def conv3x3_int8_acc(x: torch.Tensor, kq: torch.Tensor, group=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int32 accumulator of the int8 3x3 conv: x [B, C, H, W] (any
     float dtype, any layout; H, W >= 2) is quantized per tensor, reflect
     padded by one and multiplied, as im2col [B*H*W, 9C], with kq
     [Co, 9C] (quantize_conv_weight). Returns (acc int32 [B*H*W, Co], sx).
+
+    With a `group` over which x's channels (and kq's input channels) are
+    split (TP's row-parallel conv): sx is the whole tensor's scale (the
+    absmax's MAX over the group) and the accumulators are summed over it
+    in int32, which is exact, so acc is the one-rank conv's bit for bit.
 
     torch._int_mm needs K = 9C and N = Co to be multiples of 8 (so C and
     Co are) and M > 16 on the card; M is padded with zero rows up to 17,
@@ -141,7 +160,7 @@ def conv3x3_int8_acc(x: torch.Tensor, kq: torch.Tensor
         raise ValueError(f"conv3x3_int8: needs C and Co multiples of 8 and "
                          f"kq [Co, 9 C]; got x {tuple(x.shape)}, kq "
                          f"{tuple(kq.shape)}")
-    xq, sx = _quant_act_tensor(x.permute(0, 2, 3, 1))          # NHWC int8
+    xq, sx = _quant_act_tensor(x.permute(0, 2, 3, 1), group)   # NHWC int8
     xp = xq[:, _reflect_index(H, x.device)][:, :, _reflect_index(W, x.device)]
     m = B * H * W
     cols = torch.cat([xp[:, dh:dh + H, dw:dw + W] for dh in range(3)
@@ -150,15 +169,19 @@ def conv3x3_int8_acc(x: torch.Tensor, kq: torch.Tensor
         cols = torch.cat([cols, cols.new_zeros(17 - m, 9 * C)])
     acc = torch._int_mm(cols, kq.t())[:m]
     conv3x3_int8.launches += 1
+    if group is not None and group.size > 1:
+        acc = group.all_reduce_sum(acc)
     return acc, sx
 
 
 def conv3x3_int8(x: torch.Tensor, kq: torch.Tensor, sw: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
+                 b: torch.Tensor, group=None) -> torch.Tensor:
     """Reflect-padded SAME 3x3 conv in int8: acc * (sx * sw) + b in f32,
-    cast to x's dtype. x [B, C, H, W] -> [B, Co, H, W] channels_last."""
+    cast to x's dtype. x [B, C, H, W] -> [B, Co, H, W] channels_last. With
+    a `group` (conv3x3_int8_acc), the whole conv's output on every rank,
+    its bias added once, after the sum."""
     B, _, H, W = x.shape
-    acc, sx = conv3x3_int8_acc(x, kq)
+    acc, sx = conv3x3_int8_acc(x, kq, group)
     y = acc.float() * (sx * sw)[None] + b.float()[None]
     return y.to(x.dtype).reshape(B, H, W, -1).permute(0, 3, 1, 2)
 
@@ -170,15 +193,22 @@ QuantConv = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # kq, sw, bias
 
 def int8_resblock_stack(x: torch.Tensor,
                         blocks: Sequence[Tuple[QuantConv, QuantConv]],
-                        eps: float = 1e-5) -> torch.Tensor:
+                        eps: float = 1e-5, tp=None) -> torch.Tensor:
     """Sequential ResnetBlocks with int8 convs. blocks:
     [((kq1, sw1, b1), (kq2, sw2, b2)), ...], each conv's weight through
     quantize_conv_weight. InstanceNorm and ReLU run on instance_norm_act
-    (B3 on the card); the residual add in x's dtype."""
+    (B3 on the card); the residual add in x's dtype.
+
+    tp: the group over which the blocks are tensor-parallel
+    (parallel/tp.py; the weights are this rank's shards, the second conv's
+    quantized with that group): the first conv gives this rank's C/N
+    output channels (column-parallel), normalized locally; the second sums
+    its int32 accumulators over the group (conv3x3_int8_acc). Each block's
+    output is the one-rank stack's bit for bit."""
     cur = x
     for c1, c2 in blocks:
         h = instance_norm_act(conv3x3_int8(cur, *c1), "relu", eps)
-        h = instance_norm_act(conv3x3_int8(h, *c2), "none", eps)
+        h = instance_norm_act(conv3x3_int8(h, *c2, group=tp), "none", eps)
         cur = cur + h
     return cur
 

@@ -10,7 +10,8 @@ its own, which the Adam steps. A step gathers every net's full weights
 before the forward (one all_gather a bucket), reduce-scatters the sharded
 leaves' grads as ZeRO-1 does, steps Adam on the slices and frees the
 weights again. The gather is whole-step, not per module: the JAX package's XLA
-gathers per layer, which a later slice may add. The step equals the
+gathers per layer, which ROADMAP A11d holds for a PR of its own (a
+regather in the backward). The step equals the
 replicated one: the slices' grads are the averaged grads' slices and Adam
 is elementwise.
 """

@@ -17,7 +17,7 @@ package's NHWC axis 2).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -90,7 +90,38 @@ def set_cp(net: torch.nn.Module, group) -> torch.nn.Module:
     return net
 
 
-def make_cp_generator(system, group: Group) -> Callable:
+def cp_block(spec: torch.Tensor, group: Group,
+             batch_group: Optional[Group] = None) -> torch.Tensor:
+    """This rank's block of a global spectrogram [B, F, T, C] (NHWC): its
+    T / n frames of the split over `group` and, with a `batch_group`, its
+    B / dp rows of the split over that (dp x cp serving), contiguous."""
+    per = spec.shape[2] // group.size
+    x = spec[:, :, group.rank * per:(group.rank + 1) * per]
+    if batch_group is not None:
+        rows = spec.shape[0] // batch_group.size
+        x = x[batch_group.rank * rows:(batch_group.rank + 1) * rows]
+    return x.contiguous()
+
+
+def cp_gather(block: torch.Tensor, group: Group,
+              batch_group: Optional[Group] = None) -> Optional[torch.Tensor]:
+    """The inverse of cp_block, on the first rank of both groups (world
+    rank 0 of the serving mesh): each data row's blocks gathered on the
+    row's first rank along the frames, then, with a `batch_group`, the rows
+    gathered on its first rank along the batch, in (data, cp) order (each
+    step Group.gather_to_first). None on every other rank."""
+    parts = group.gather_to_first(block)
+    if parts is None:
+        return None
+    row = torch.cat(parts, dim=2)
+    if batch_group is None:
+        return row
+    rows = batch_group.gather_to_first(row)
+    return None if rows is None else torch.cat(rows, dim=0)
+
+
+def make_cp_generator(system, group: Group,
+                      batch_group: Optional[Group] = None) -> Callable:
     """A forward of the system's generator over a block [B, F, T_local, C]
     (NHWC) of a spectrogram whose frame axis is split over `group`,
     returning the block of the output in f32; T_local must be a multiple of
@@ -98,7 +129,16 @@ def make_cp_generator(system, group: Group) -> Callable:
     layer's `cp` set and shares the system's parameters (the same tensors,
     names and dtype), as the JAX package rebuilds its module with cp_axis
     and the same param tree; the fused enhancer and the int8 trunk, which
-    have no context-parallel path, are not in it."""
+    have no context-parallel path, are not in it.
+
+    batch_group: the ranks over which the batch is split too (dp x cp
+    serving on a 2-D mesh, parallel.mesh.make_serving_layout), the
+    counterpart of the JAX package's `batch_axis`
+    (pix2pixhdaudiosr_tpu/parallel/halo.py:67-99). The forward is per
+    sample, so it runs as it is on a block [B / dp, F, T / cp, C]; only the
+    blocks change (cp_block, cp_gather: generate.cp_forward takes the
+    groups from the forward's `.group` and `.batch_group`), and every
+    collective of the layers stays inside `group`, this rank's data row."""
     from ..models.generator import build_generator
     from ..system import share_parameters
 
@@ -118,4 +158,5 @@ def make_cp_generator(system, group: Group) -> Callable:
         return net(x).permute(0, 2, 3, 1).float()
 
     forward.net = net
+    forward.group, forward.batch_group = group, batch_group
     return forward

@@ -9,7 +9,9 @@ WORLD_SIZE of 1, the world is this process alone and no group is made, as
 a one-device JAX run has a one-device mesh. `make_group(world, n)` gives
 the first min(n, world size) ranks, over which an axis is split;
 `make_data_layout` lays the ranks out on the training mesh (--mesh_shape,
---mesh_axes) and gives the group that splits the batch.
+--mesh_axes) and gives the group that splits the batch;
+`make_serving_layout` lays them out on a 2-D data x cp serving mesh
+(parallel/halo.py, `make_cp_generator`'s `batch_group`).
 
 The backend is chosen, and printed:
   nccl  every rank of the host has a card of its own (`--device cuda` and
@@ -356,6 +358,35 @@ def make_data_layout(world: World, batch_size: int,
                       members=_subgroups(world, [list(range(total))]),
                       data=_subgroups(world, list(by_rest.values())),
                       replica=_subgroups(world, list(by_data.values())))
+
+
+@dataclass
+class ServingLayout:
+    """This rank's place on a dp x cp serving mesh (`shape`, axes ("data",
+    "cp")): `cp` holds the ranks of its data row, over which the frames are
+    split (the halo exchanges and the InstanceNorm moments' all-reduce stay
+    inside it); `data` the ranks of its column, over which the batch is
+    split. A rank beyond the mesh is a member of neither."""
+    shape: Tuple[int, int]
+    data: Group
+    cp: Group
+
+
+def make_serving_layout(world: World, dp: int, cp: int) -> ServingLayout:
+    """The dp x cp serving mesh over the world's first dp * cp ranks, laid
+    out row-major as make_data_layout lays out its axes (the JAX package's
+    make_mesh((dp, cp), ("data", "cp"))): rank d * cp + c holds data index d
+    and frame shard c. Every rank calls it (each process group is made
+    collectively, in the same order on every rank); a mesh larger than the
+    world is refused (ValueError)."""
+    total = dp * cp
+    if dp < 1 or cp < 1 or total > world.size:
+        raise ValueError(f"a {dp} x {cp} data x cp mesh needs {total} ranks, "
+                         f"the world has {world.size}")
+    rows = [list(range(d * cp, (d + 1) * cp)) for d in range(dp)]
+    cols = [list(range(c, total, cp)) for c in range(cp)]
+    return ServingLayout((dp, cp), data=_subgroups(world, cols),
+                         cp=_subgroups(world, rows))
 
 
 def _unravel(r: int, shape: Tuple[int, ...]) -> List[int]:

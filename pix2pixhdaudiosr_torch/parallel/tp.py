@@ -13,7 +13,14 @@ forward (models/layers.py ResnetBlock, its `tp` path) the InstanceNorm +
 ReLU after the first conv is local (B3 on the shard's C/N channels), the
 second conv's partial sums are all-reduced (SUM), its bias is added after
 the reduction, and the second InstanceNorm and the residual add run whole
-on every rank: one all-reduce a block.
+on every rank: one all-reduce a block. With the int8 trunk
+(`--int8_trunk`, ops/quant.int8_resblock_stack) the trunk's blocks split
+the same way: the second conv's activation scale and weight scales are
+MAXes over the group (the whole tensor's) and its int32 accumulators are
+summed over it: two all-reduces a block a forward (the weight scales'
+once a weight), each block's output the
+one-rank int8 block's bit for bit; each rank's channel count must then be
+a multiple of 8.
 """
 
 from __future__ import annotations
@@ -57,13 +64,17 @@ def shard_generator(net: nn.Module, group: Group,
     of the whole one) and set the block's `tp` to `group`; returns the
     blocks' names. With `replicate_enhancer` the enhancer's blocks stay
     whole (the fused enhancer section takes whole weights). Channels must
-    divide by the group's size."""
+    divide by the group's size, and in an int8 trunk into multiples of 8
+    (ValueError)."""
     r, n = group.rank, group.size
     sharded = []
     for name, block in net.named_modules():
         if not is_block(name.rsplit(".", 1)[-1]) or (
                 replicate_enhancer and name.startswith("enh")):
             continue
+        parent = net.get_submodule(name.rsplit(".", 1)[0]) if "." in name \
+            else net
+        int8 = getattr(parent, "int8_blocks", False)
         for key, p in list(block.named_parameters()):
             d = split_dim(f"{name}.{key}")
             if d is None:
@@ -71,6 +82,11 @@ def shard_generator(net: nn.Module, group: Group,
             if p.shape[d] % n:
                 raise ValueError(f"--tp_shards {n}: {name}.{key} has "
                                  f"{p.shape[d]} channels, not a multiple")
+            if int8 and (p.shape[d] // n) % 8:
+                raise ValueError(f"--tp_shards {n} with --int8_trunk: "
+                                 f"{name}.{key} has {p.shape[d]} channels, "
+                                 f"{p.shape[d] // n} a rank, not a multiple "
+                                 f"of 8 (the int8 product's)")
             fmt = (torch.channels_last if p.dim() == 4 and p.is_contiguous(
                 memory_format=torch.channels_last) else torch.contiguous_format)
             piece = p.detach().chunk(n, d)[r].clone(memory_format=fmt)

@@ -5,7 +5,10 @@ exchange, every layer kind and the toy generators at 2 and 4 gloo ranks
 unsharded full-length forward within 1e-5 max|y|, and against the JAX
 package: plan_cp_padding over its test grid, InstanceNorm's moments under
 shard_map, the CP generator on the virtual 8-device mesh, the
-full-length forward and cp_generate. Toy size: n_fft 64, ngf 4, f32."""
+full-length forward and cp_generate; dp x cp serving on a 2 x 2 mesh
+(make_serving_layout, make_cp_generator's batch_group) against the
+unsharded G and the JAX package's batch_axis forward. Toy size: n_fft 64,
+ngf 4, f32."""
 
 import os
 import sys
@@ -64,14 +67,34 @@ def jax_case():
     want = np.asarray(make_cp_generator(jsys, mesh2, axis="cp")(
         params, jnp.asarray(spec)))
     state = jax_to_torch_generator(jax.device_get(params))
-    return dict(spec=spec, state=state, want=want)
+    return dict(spec=spec, state=state, want=want, params=params)
+
+
+DP_CP_SPEC = cases.seeded((2, 64, 64, 2), 13).numpy()
 
 
 @pytest.fixture(scope="module")
-def world4():
-    return cases.run_world(4, dict(lr=LR, in_x=IN_X), [
+def jax_dp_cp(jax_case):
+    """The JAX package's make_cp_generator(..., batch_axis="data") on a
+    (2, 2) data x cp virtual mesh, on jax_case's weights, of DP_CP_SPEC
+    (2 samples)."""
+    jcfg = jparse(["--netG", "global", *cases.TOY], is_train=False,
+                  save=False)
+    jsys = JSystem(jcfg)
+    params = jax_case["params"]
+    mesh22 = make_mesh((2, 2), ("data", "cp"), devices=jax.devices()[:4])
+    return np.asarray(make_cp_generator(jsys, mesh22, axis="cp",
+                                        batch_axis="data")(
+        params, jnp.asarray(DP_CP_SPEC)))
+
+
+@pytest.fixture(scope="module")
+def world4(jax_case):
+    return cases.run_world(4, dict(lr=LR, in_x=IN_X,
+                                   jax_state=jax_case["state"],
+                                   dp_cp_spec=DP_CP_SPEC), [
         "halo", "pad", "layers", "torch_deconv_refused", "generator",
-        "cp_generate"])
+        "cp_generate", "dp_cp"])
 
 
 @pytest.fixture(scope="module")
@@ -175,6 +198,39 @@ def test_cp_generator_matches_full_length(world2, world4, net_g, ranks):
     else:
         err, scale, _ = {2: world2, 4: world4}[ranks][0]["generator"][net_g]
     assert scale > 0 and err <= 1e-5 * scale, (err, scale)
+
+
+def test_serving_layout_is_row_major(world4):
+    """make_serving_layout(world, 2, 2): rank d * 2 + c holds data index d
+    and frame shard c, as make_mesh((2, 2), ("data", "cp")) lays out its
+    devices: cp groups {0, 1}, {2, 3} (a data row), data groups {0, 2},
+    {1, 3}; the halo exchanges stay inside the cp row."""
+    got = [r["dp_cp"] for r in world4]
+    assert [g["cp"] for g in got] == [[0, 1], [0, 1], [2, 3], [2, 3]]
+    assert [g["data"] for g in got] == [[0, 2], [1, 3], [0, 2], [1, 3]]
+    assert [(g["cp_rank"], g["data_rank"]) for g in got] == [
+        (0, 0), (1, 0), (0, 1), (1, 1)]
+    assert all(g["traffic"]["exchange"] > 0 for g in got)
+
+
+def test_dp_x_cp_matches_unsharded(world4):
+    """Twin of tests/test_halo_cp.py::test_cp_generator_2d_dp_x_cp: dp x cp
+    serving on a 2 x 2 mesh (the batch of 2 over `data`, the frames over
+    `cp`; make_cp_generator's batch_group) against the port's unsharded
+    G, atol 5e-6; only rank 0 holds the gathered output."""
+    res = world4[0]["dp_cp"]
+    assert all("err" not in r["dp_cp"] for r in world4[1:])
+    assert res["scale"] > 0 and res["err"] <= 5e-6, res["err"]
+
+
+def test_dp_x_cp_matches_jax_batch_axis(world4, jax_dp_cp):
+    """The port's dp x cp forward at 2 x 2 gloo ranks against the JAX
+    package's make_cp_generator(..., axis="cp", batch_axis="data") on a
+    (2, 2) virtual mesh, the same converted weights and spectrogram: atol
+    5e-6."""
+    got = world4[0]["dp_cp"]["jax"]
+    assert got.shape == jax_dp_cp.shape == DP_CP_SPEC.shape
+    np.testing.assert_allclose(got, jax_dp_cp, atol=5e-6)
 
 
 def test_cp_generator_matches_jax_cp_at_2_shards(world2, jax_case):

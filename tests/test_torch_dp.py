@@ -24,8 +24,11 @@ held to
     2e-3 of their leaf's max;
 
 every rank reporting the same losses and holding the same parameters and
-moments; and make_data_layout against make_data_mesh on the default shape
-(batch 6 on 4 ranks), a 2 x 2 data x model mesh and the refusals.
+moments; the recipe configs (time-D + match, HiFi-GAN in explicit and
+implicit encoding, Family A's netE, --remat_g full) over 2 data ranks
+against their one-process steps under the first bounds; and
+make_data_layout against make_data_mesh on the default shape (batch 6 on
+4 ranks), a 2 x 2 data x model mesh and the refusals.
 """
 
 import os
@@ -117,11 +120,25 @@ def jax_run():
 
 
 @pytest.fixture(scope="module")
-def world(jax_run):
+def recipe_one(jax_run, tmp_path_factory):
+    """Each recipe's two steps in one process on the whole batch
+    (cases.recipe_reference), and the job that holds their states after
+    the first step."""
+    tmp = tmp_path_factory.mktemp("recipes")
+    job = dict(batch=jax_run["batch"], noise=jax_run["noise"],
+               recipe_dirs={n: str(tmp / n) for n in cases.RECIPE_NAMES})
+    return job, {name: cases.recipe_reference(job, name)
+                 for name in cases.RECIPE_NAMES}
+
+
+@pytest.fixture(scope="module")
+def world(jax_run, recipe_one):
     job = dict(batch=jax_run["batch"], noise=jax_run["noise"],
                params=jax_run["params"][0], params1=jax_run["params"][1],
-               adam1=jax_run["adam1"], layouts=LAYOUTS)
-    return cases.run_world(4, job, ["dp_steps", "layouts"], timeout=240)
+               adam1=jax_run["adam1"], layouts=LAYOUTS,
+               recipe_dirs=recipe_one[0]["recipe_dirs"])
+    return cases.run_world(4, job, ["dp_steps", "layouts", "recipe_steps"],
+                           timeout=300)
 
 
 @pytest.fixture(scope="module")
@@ -166,6 +183,43 @@ def test_every_rank_reports_the_same(world, key):
         for a, b in zip(other["states"], runs[0]["states"]):
             assert a.keys() == b.keys()
             assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("name", cases.RECIPE_NAMES)
+@pytest.mark.parametrize("step", [0, 1])
+def test_recipe_under_dp_matches_one_process(world, recipe_one, name, step):
+    """The recipe configs under 2 data ranks (--mesh_shape 2 in the world
+    of 4): the time-D + match step (its frames' norm_param per rank), the
+    HiFi-GAN D (explicit encoding, and implicit, where to_audio draws the
+    pseudo-phase at the global shape), Family A's netE (--instance_feat)
+    and --remat_g full. Each step from the state the one-process step
+    starts from (cases.recipe_steps: the seeded init, then the one-process
+    state after step 1), against that step on the whole batch under the
+    one-step bounds of test_dp_matches_the_jax_mesh_step and
+    test_torch_zero_fsdp's resume: losses rtol 1e-5; every net's
+    parameters (G, netE, D, time_D, hifigan_D) within 1e-3 lr where the
+    step's grad is above 1e-3 of its leaf's max|g| (not a conv bias feeding
+    an InstanceNorm), all within 2.2 lr; the moments as close_moments
+    holds them. Both member ranks the same, ranks 2 and 3 idle."""
+    ref = recipe_one[1][name][step]
+    runs = [r["recipe_steps"][name] for r in world]
+    assert runs[2] is None and runs[3] is None
+    got, other = runs[0][step], runs[1][step]
+    assert other["losses"] == got["losses"]
+    assert got["step_before"] == ref["step_before"] == step
+    for lo, want in zip(got["losses"], ref["losses"]):
+        assert lo.keys() == want.keys()
+        for k in want:
+            np.testing.assert_allclose(lo[k], want[k], rtol=1e-5, err_msg=k)
+    g, w = got["states"][-1], ref["states"][-1]
+    assert g.keys() == w.keys()
+    nets = {k.split(".")[1] for k in w
+            if k.startswith(("G.E.", "D.time_D.", "D.hifigan_D."))}
+    assert nets == {"time_d_match": {"time_D"}, "hifigan": {"hifigan_D"},
+                    "hifigan_implicit": {"hifigan_D"}, "family_a": {"E"},
+                    "remat_full": set()}[name]
+    cases.close_params(g, w, ref["grads"], ref["void"], 1e-3 * LR, 2.2 * LR)
+    cases.close_moments(g, w, ref["void"])
 
 
 def _check_step(got, want, before, grads, void):

@@ -257,9 +257,9 @@ def test_int8_trunk_weights_quantized_once_per_weight_version(rng_np,
     calls = []
     orig = T.quantize_conv_weight
 
-    def spy(w):
+    def spy(w, group=None):
         calls.append(w.dtype)
-        return orig(w)
+        return orig(w, group)
 
     monkeypatch.setattr(T, "quantize_conv_weight", spy)
     with torch.no_grad():

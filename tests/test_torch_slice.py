@@ -165,14 +165,13 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--cp_shards", "2", "--tp_shards", "2"], "cannot be combined"),
     (["--int8_trunk", "--cp_shards", "2"], "not context-parallel-aware"),
-    (["--tp_shards", "2", "--int8_trunk"],
-     "--int8_trunk cannot be combined with --tp_shards"),
+    (["--fused_enhancer", "--cp_shards", "2"], "not context-parallel-aware"),
     (["--instance_feat"], "the JAX package's generate and evaluate fail"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):
     """What generate refuses, before any work: the parallel modes'
-    combinations the JAX CLI refuses (or, --int8_trunk with --tp_shards,
-    the port's int8 stack cannot split) and feature configs."""
+    combinations the JAX CLI refuses and feature configs (--int8_trunk
+    with --tp_shards is served: tests/test_torch_tp.py)."""
     argv = TOY + ["--name", "run", "--checkpoints_dir", str(tmp_path),
                   "--dataroot", "missing.wav", "--device", "cpu", "--no_html",
                   *extra]

@@ -2,8 +2,11 @@
 models/layers.ResnetBlock's `tp` path, generate --tp_shards) on the CPU at
 2 gloo ranks (tests/torch_parallel_cases.py): a resblock stack and the toy
 LocalEnhancer against their unsharded forwards, generate --tp_shards 2
-against --tp_shards 1, within 1e-5 max|y|; which tensors are split, along
-which dim, against the JAX package's shard_generator_params."""
+against --tp_shards 1, within 1e-5 max|y|; the int8 trunk under TP (its
+split int32 accumulators and scales against the one-rank conv's, bit for
+bit; the int8 G and generate --int8_trunk --tp_shards 2 against one rank);
+which tensors are split, along which dim, against the JAX package's
+shard_generator_params."""
 
 import os
 import sys
@@ -20,7 +23,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_parallel_cases as cases  # noqa: E402
 
 from pix2pixhdaudiosr_torch import generate  # noqa: E402
-from pix2pixhdaudiosr_torch.config import parse_config  # noqa: E402
 from pix2pixhdaudiosr_torch.data.wavio import write_wav  # noqa: E402
 from pix2pixhdaudiosr_torch.parallel import mesh  # noqa: E402
 from pix2pixhdaudiosr_torch.parallel.tp import (shard_generator,  # noqa: E402
@@ -45,8 +47,11 @@ def _cli(tmp_path, name):
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp")
-    return cases.run_world(2, dict(argv=_cli(tmp, "tp2")),
-                           ["tp_blocks", "tp_generator", "tp_generate"]), tmp
+    return cases.run_world(2, dict(argv=_cli(tmp, "tp2"),
+                                   argv_int8=_cli(tmp, "tp2_int8")
+                                   + ["--int8_trunk"]),
+                           ["tp_blocks", "tp_generator", "tp_generate",
+                            "int8_tp", "int8_tp_generate"]), tmp
 
 
 def _fake_group(rank, size):
@@ -161,12 +166,68 @@ def test_shard_generator_takes_the_rank_s_slice():
         shard_generator(cases.toy_system("global").netG, _fake_group(0, 3))
 
 
-def test_int8_trunk_with_tp_refused():
-    cfg = parse_config(["--netG", "local", *cases.TOY, "--int8_trunk",
-                        "--tp_shards", "2"], is_train=False, save=False)
-    with pytest.raises(SystemExit, match="--int8_trunk cannot be combined "
-                                         "with --tp_shards"):
-        generate.check_supported(cfg)
+@pytest.mark.parametrize("conv", ["col", "row"])
+def test_int8_tp_split_accumulator_equals_one_rank(world2, conv):
+    """The int8 trunk's convs split over 2 ranks: ConvIN_0's (its output
+    channels split) int32 accumulator is the one-rank accumulator's slice;
+    ConvIN_1's (its input channels split, the activation's absmax and the
+    weight's per-channel absmax MAXed over the ranks, the int32 partial
+    sums summed over them) is the one-rank accumulator; each with the
+    one-rank activation scale, bit for bit, on both ranks."""
+    res, _ = world2
+    for r in res:
+        t = r["int8_tp"]
+        assert t["acc_nonzero"]
+        assert t[f"{conv}_acc"] and t[f"{conv}_sx"] and t[f"{conv}_sw"], t
+
+
+def test_int8_tp_row_parallel_sw_is_the_whole_weight_s(world2):
+    """ConvIN_1's per-output-channel weight scale on each rank equals the
+    whole weight's (quantize_leaf over every input channel); the scale of
+    a shard quantized alone differs on some rank, so the MAX over the
+    group is what makes it whole."""
+    res, _ = world2
+    assert all(r["int8_tp"]["row_sw_whole"] for r in res)
+    assert not all(r["int8_tp"]["row_sw_shard_alone"] for r in res)
+
+
+def test_int8_tp_generator_matches_one_rank_int8(world2):
+    """The toy LocalEnhancer with --int8_trunk, the trunk's and the
+    enhancer's resblocks sharded over 2 ranks, against its one-rank int8
+    forward within 1e-5 max|y| (test_tp_generator_matches_unsharded's
+    bound), on both ranks; the int8 convs still 2 a forward (one block)."""
+    for r in world2[0]:
+        t = r["int8_tp"]
+        assert t["names"] == ["global.ResnetBlock_0", "enh1_block0"]
+        assert t["launches"] == 2
+        assert t["scale"] > 0 and t["err"] <= 1e-5 * t["scale"], t
+
+
+def test_generate_int8_tp2_matches_tp1(world2):
+    """generate --int8_trunk --tp_shards 2 at 2 ranks (served, not refused;
+    rank 0 writes) against --int8_trunk --tp_shards 1 in this process,
+    within 1e-5 max|wav|."""
+    res, tmp = world2
+    two = res[0]["int8_tp_generate"]
+    assert res[1]["int8_tp_generate"] is None
+    assert (tmp / "tp2_int8" / "sr_audio.wav").exists()
+    one = generate.main(_cli(tmp, "tp1_int8") + ["--int8_trunk",
+                                                 "--tp_shards", "1"])
+    assert two.shape == one.shape and np.abs(one).max() > 0
+    np.testing.assert_allclose(two, one, atol=1e-5 * np.abs(one).max())
+
+
+def test_int8_tp_needs_8_channels_a_rank():
+    """--int8_trunk with --tp_shards: each rank's share of a trunk block's
+    channels must be a multiple of 8 (torch._int_mm's K = 9 C / N); 16
+    channels over 4 ranks are refused, in shard_generator's words; without
+    --int8_trunk the same split is taken."""
+    with pytest.raises(ValueError, match="--tp_shards 4 with --int8_trunk: "
+                                         ".* 4 a rank, not a multiple of 8"):
+        shard_generator(cases.toy_system("global", extra=["--int8_trunk"])
+                        .netG, _fake_group(0, 4))
+    assert shard_generator(cases.toy_system("global").netG,
+                           _fake_group(0, 4)) == ["GlobalTrunk_0.ResnetBlock_0"]
 
 
 def test_generate_tp_in_one_process_prints_one_shard(tmp_path, capsys):

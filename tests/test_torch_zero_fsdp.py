@@ -7,7 +7,8 @@ equals the replicated one (losses rtol 1e-4, params atol 1e-6, as
 tests/test_zero.py and tests/test_fsdp.py hold the JAX package; its
 moments too), every shardable leaf's slice and its moments hold 1/N of the
 whole on each rank, and the shard dims follow the JAX package's
-_leaf_spec leaf by leaf. The save and restore of test_fsdp.py
+_leaf_spec leaf by leaf; the time-D + match step (a third net in the D
+optimizer) likewise under ZeRO-1 and FSDP. The save and restore of test_fsdp.py
 (test_sharded_save_restore_continues) for both, the saved file loaded by
 one process, and a one-process file resumed under ZeRO-1."""
 
@@ -48,8 +49,8 @@ def _job(tmp):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     job = _job(tmp_path_factory.mktemp("zero_fsdp"))
-    return job, cases.run_world(N, job, ["sharded_steps", "sharded_resume"],
-                                timeout=240)
+    return job, cases.run_world(N, job, ["sharded_steps", "sharded_resume",
+                                         "sharded_recipe"], timeout=240)
 
 
 def _same_run(got, want, params_atol=1e-6):
@@ -84,9 +85,54 @@ def test_sharded_step_matches_replicated(world, mode, ref):
     assert bf16
 
 
-def _whole(res):
-    """Every G/D parameter's whole shape, by "G.<p>" / "D.<p>"."""
-    state = res["sharded_steps"]["dp"]["states"][0]
+@pytest.mark.parametrize("mode", ["zero", "fsdp"])
+def test_time_d_match_sharded_matches_replicated(world, mode):
+    """The time-D + match step (cases.RECIPES["time_d_match"]: a third net,
+    time_D, in the D optimizer) under ZeRO-1 and FSDP against the
+    replicated step over the same 2 ranks, 2 steps (test_sharded_step_
+    matches_replicated's bounds), on both ranks; time_D's parameters and
+    moments are in every state read."""
+    _, res = world
+    for r in res:
+        runs = r["sharded_recipe"]
+        _same_run(runs[mode], runs["dp"])
+    keys = res[0]["sharded_recipe"]["dp"]["states"][0]
+    assert any(k.startswith("D.time_D.") for k in keys)
+    assert any(k.startswith("opt_d.exp_avg.time_D.") for k in keys)
+
+
+@pytest.mark.parametrize("mode", ["zero", "fsdp"])
+def test_time_d_match_shards_and_held_bytes(world, mode):
+    """Under the time-D + match step, every shardable leaf of every net (G,
+    D and time_D) is sliced per shard_dim and its moments hold 1/N on each
+    rank: held_bytes counts time_D's moments (and under FSDP its
+    parameters) at 1/N, as the replicated run's less the slices'."""
+    _, res = world
+    whole = _whole(res[0], "sharded_recipe")
+    assert any(k.startswith("D.time_D.") for k in whole)
+    for r in res:
+        run = r["sharded_recipe"][mode]
+        split = {"all": 0, "time_D": 0}
+        for name, shape in whole.items():
+            d = shard_dim(name.split(".", 1)[1], shape, N)
+            want = list(shape)
+            if d is not None:
+                want[d] //= N
+                split["all"] += int(np.prod(shape))
+                if name.startswith("D.time_D."):
+                    split["time_D"] += int(np.prod(shape))
+            assert run["shards"][name] == tuple(want), name
+        assert split["time_D"] > 0
+        rep, held = r["sharded_recipe"]["dp"]["held"], run["held"]
+        assert held["moments"] == rep["moments"] - 8 * split["all"] // N
+        assert held["params"] == (rep["params"] if mode == "zero" else
+                                  rep["params"] - 4 * split["all"] // N)
+
+
+def _whole(res, case="sharded_steps"):
+    """Every parameter's whole shape, by read_state's names ("G.<p>",
+    "D.<p>", "D.time_D.<p>", ...)."""
+    state = res[case]["dp"]["states"][0]
     return {k: state[k].shape for k in state if k[:2] in ("G.", "D.")}
 
 

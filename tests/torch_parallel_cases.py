@@ -50,8 +50,37 @@ def run_world(n: int, job: dict, cases, timeout: float = 120.0):
                 for p in ctx.processes:
                     p.kill()
                 raise TimeoutError(f"{n} ranks ran past {timeout} s")
-        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                           weights_only=False) for r in range(n)]
+        return [_unwrap(torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                                   weights_only=False)) for r in range(n)]
+
+
+class _Array:
+    """A numpy array on its way from a rank as a tensor: torch.save writes
+    a tensor's storage as it is, but pickles a numpy array element by
+    element (~20 s for 1.6 GB)."""
+
+    def __init__(self, a: np.ndarray):
+        self.t = torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _wrap(x):
+    if isinstance(x, np.ndarray) and x.dtype != object:
+        return _Array(x)
+    if isinstance(x, dict):
+        return {k: _wrap(v) for k, v in x.items()}
+    if type(x) in (list, tuple):
+        return type(x)(_wrap(v) for v in x)
+    return x
+
+
+def _unwrap(x):
+    if isinstance(x, _Array):
+        return x.t.numpy()
+    if isinstance(x, dict):
+        return {k: _unwrap(v) for k, v in x.items()}
+    if type(x) in (list, tuple):
+        return type(x)(_unwrap(v) for v in x)
+    return x
 
 
 def _rank_main(rank: int, n: int, port: int, path: str) -> None:
@@ -64,7 +93,8 @@ def _rank_main(rank: int, n: int, port: int, path: str) -> None:
     world = mesh.initialize(torch.device(job.get("device", "cpu")))
     group = mesh.make_group(world, n)
     out = {name: CASES[name](group, job) for name in job["cases"]}
-    torch.save(out, os.path.join(os.path.dirname(path), f"rank{rank}.pt"))
+    torch.save(_wrap(out), os.path.join(os.path.dirname(path),
+                                        f"rank{rank}.pt"))
     mesh.shutdown()
 
 
@@ -187,7 +217,7 @@ def _cp_vs_full(group, net_g, state=None, shape=(1, 64, 64, 2)):
     from pix2pixhdaudiosr_torch.parallel.halo import make_cp_generator
     system = toy_system(net_g, state=state)
     spec = seeded(shape, 3)
-    got = cp_forward(make_cp_generator(system, group), spec, group)
+    got = cp_forward(make_cp_generator(system, group), spec)
     if got is None:
         return None
     with torch.no_grad():
@@ -207,8 +237,37 @@ def case_jax_generator(group, job):
     from pix2pixhdaudiosr_torch.parallel.halo import make_cp_generator
     system = toy_system("global", state=job["jax_state"])
     spec = torch.from_numpy(job["jax_spec"])
-    got = cp_forward(make_cp_generator(system, group), spec, group)
+    got = cp_forward(make_cp_generator(system, group), spec)
     return None if got is None else got.numpy()
+
+
+def case_dp_cp(group, job):
+    """dp x cp serving on a 2 x 2 data x cp mesh (make_serving_layout): the
+    toy global G (seeded) on a spectrogram of 2 samples, each rank's block
+    [1, F, T / 2, C] through make_cp_generator(..., batch_group=data), the
+    blocks gathered on rank 0, against the unsharded forward: (max|err|,
+    max|y|); the same on the JAX-initialised weights and job["dp_cp_spec"]
+    (rank 0's output); and every rank's groups (cp ranks, data ranks)."""
+    from pix2pixhdaudiosr_torch.generate import cp_forward
+    from pix2pixhdaudiosr_torch.parallel import mesh as M
+    from pix2pixhdaudiosr_torch.parallel.halo import make_cp_generator
+    lay = M.make_serving_layout(group.world, 2, 2)
+    out = dict(cp=lay.cp.ranks, data=lay.data.ranks, cp_rank=lay.cp.rank,
+               data_rank=lay.data.rank)
+    system = toy_system("global")
+    spec = seeded((2, 64, 64, 2), 12)
+    fwd = make_cp_generator(system, lay.cp, batch_group=lay.data)
+    got = cp_forward(fwd, spec)
+    jsys = toy_system("global", state=job["jax_state"])
+    got_j = cp_forward(make_cp_generator(jsys, lay.cp, lay.data),
+                       torch.from_numpy(job["dp_cp_spec"]))
+    out["traffic"] = {k: v["calls"] for k, v in lay.cp.traffic().items()}
+    if got is not None:
+        with torch.no_grad():
+            want = system.netG(spec.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        out.update(err=(got - want).abs().max().item(),
+                   scale=want.abs().max().item(), jax=got_j.numpy())
+    return out
 
 
 def case_cp_generate(group, job):
@@ -296,6 +355,57 @@ def case_tp_generator(group, job):
                 scale=want.abs().max().item(), names=names)
 
 
+def case_int8_tp(group, job):
+    """The int8 trunk under TP at the group's ranks. A 16-channel block's
+    two int8 convs, whole and split: ConvIN_0 (output channels split) and
+    ConvIN_1 (input channels split, quantized with the group): each
+    split accumulator and scale against the one-rank conv's (equal: bools),
+    ConvIN_1's sw against the whole weight's; and the toy LocalEnhancer
+    with --int8_trunk, its resblocks sharded, against its one-rank int8
+    forward: (max|err|, max|y|) and the int8 convs a forward."""
+    from pix2pixhdaudiosr_torch.ops import quant
+    from pix2pixhdaudiosr_torch.parallel.tp import shard_generator
+    r, n = group.rank, group.size
+    w0, w1 = seeded((16, 16, 3, 3), 30, 0.1), seeded((16, 16, 3, 3), 31, 0.1)
+    x, h = seeded((2, 16, 8, 6), 32), seeded((2, 16, 8, 6), 33)
+    kq0, sw0 = quant.quantize_conv_weight(w0)
+    acc0, sx0 = quant.conv3x3_int8_acc(x, kq0)
+    kq0_l, sw0_l = quant.quantize_conv_weight(w0.chunk(n, 0)[r])
+    acc0_l, sx0_l = quant.conv3x3_int8_acc(x, kq0_l)
+    kq1, sw1 = quant.quantize_conv_weight(w1)
+    acc1, sx1 = quant.conv3x3_int8_acc(h, kq1)
+    kq1_l, sw1_l = quant.quantize_conv_weight(w1.chunk(n, 1)[r], group)
+    acc1_l, sx1_l = quant.conv3x3_int8_acc(h.chunk(n, 1)[r], kq1_l, group)
+    _, whole_sw1 = quant.quantize_leaf(w1, 0)
+    out = dict(
+        col_acc=torch.equal(acc0_l, acc0.chunk(n, 1)[r]),
+        col_sw=torch.equal(sw0_l, sw0.chunk(n)[r]),
+        col_sx=torch.equal(sx0_l, sx0),
+        row_acc=torch.equal(acc1_l, acc1), row_sx=torch.equal(sx1_l, sx1),
+        row_sw=torch.equal(sw1_l, sw1),
+        row_sw_whole=torch.equal(sw1_l, whole_sw1.reshape(-1)),
+        row_sw_shard_alone=torch.equal(
+            quant.quantize_conv_weight(w1.chunk(n, 1)[r])[1], sw1),
+        acc_nonzero=bool(acc1.abs().max() > 0))
+    system = toy_system("local", extra=["--int8_trunk"])
+    xg = seeded((2, 2, 64, 16), 6)
+    with torch.no_grad():
+        want = system.netG(xg)
+        out["names"] = shard_generator(system.netG, group)
+        before = quant.conv3x3_int8.launches
+        got = system.netG(xg)
+        out["launches"] = quant.conv3x3_int8.launches - before
+    out.update(err=(got - want).abs().max().item(),
+               scale=want.abs().max().item())
+    return out
+
+
+def case_int8_tp_generate(group, job):
+    """generate.main with --int8_trunk --tp_shards on job["argv_int8"]."""
+    from pix2pixhdaudiosr_torch import generate
+    return generate.main(job["argv_int8"] + ["--tp_shards", str(group.size)])
+
+
 def case_tp_generate(group, job):
     """generate.main with --tp_shards on job["wav"] (rank 0's audio)."""
     from pix2pixhdaudiosr_torch import generate
@@ -309,16 +419,16 @@ TRAIN = ["--netG", "local", *TOY, "--ndf", "4", "--n_layers_D", "3"]
 
 
 def train_state(batch: int, extra=(), params=None, adam=None, seed: int = 3,
-                device: str = "cpu"):
-    """A toy training system on `device` and its fresh train state (seeded init,
-    or the torch state_dicts `params` = {"G": ..., "D": ...}; `adam`:
-    {"G": (mu, nu, count), "D": ...} as optax trees, installed with
-    convert.load_adam_state)."""
+                device: str = "cpu", base=TRAIN):
+    """A toy training system on `device` (the flags `base` + `extra`) and
+    its fresh train state (seeded init, or the torch state_dicts `params` =
+    {"G": ..., "D": ...}; `adam`: {"G": (mu, nu, count), "D": ...} as optax
+    trees, installed with convert.load_adam_state)."""
     from pix2pixhdaudiosr_torch import trainer
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.convert import load_adam_state
     from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
-    cfg = parse_config([*TRAIN, "--batchSize", str(batch), *extra],
+    cfg = parse_config([*base, "--batchSize", str(batch), *extra],
                        is_train=True, save=False)
     system = Pix2PixHDSystem(cfg, device=device)
     state = trainer.init_state(system, seed)
@@ -340,18 +450,20 @@ def train_rows(job, group) -> dict:
 
 
 def read_state(state) -> dict:
-    """Parameters and Adam moments by name ("G.<p>", "D.<p>"; moments under
-    "opt_g." / "opt_d."), whole, as numpy: collective under a sharded
-    strategy (every rank calls it)."""
+    """Parameters and Adam moments by name ("G.<p>" for the G optimizer's
+    parameters, netE's "G.E.<p>"; "D.<p>" for the D optimizer's, time_D's
+    "D.time_D.<p>", hifigan_D's "D.hifigan_D.<p>"; moments under "opt_g." /
+    "opt_d."), whole, as numpy: collective under a sharded strategy (every
+    rank calls it)."""
     import contextlib
     from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
     par = state.parallel
     with par.full_state(state) if par else contextlib.nullcontext():
         system = state.system
-        out = {f"G.{k}": v.detach().cpu().numpy().copy()
-               for k, v in system.netG_train.state_dict().items()}
-        out.update({f"D.{k}": v.detach().cpu().numpy().copy()
-                    for k, v in system.netD.state_dict().items()})
+        out = {f"{key}.{k}": v.detach().cpu().numpy().copy()
+               for key, named in (("G", ckpt.g_params(system)),
+                                  ("D", ckpt.d_params(system)))
+               for k, v in named.items()}
         for tag, opt, named in (("opt_g", state.opt_g,
                                  ckpt.g_params(system)),
                                 ("opt_d", state.opt_d,
@@ -365,8 +477,8 @@ def read_state(state) -> dict:
 
 
 def shard_shapes(state) -> dict:
-    """The shape of the tensor each G/D parameter's Adam steps on this rank
-    (its slice under ZeRO and FSDP), by "G.<p>" / "D.<p>"."""
+    """The shape of the tensor each parameter's Adam steps on this rank
+    (its slice under ZeRO and FSDP), by read_state's names."""
     from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
     out = {}
     for key, opt, named in (("G", state.opt_g, ckpt.g_params(state.system)),
@@ -379,11 +491,15 @@ def shard_shapes(state) -> dict:
 
 def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
               mesh_axes=("data",), steps: int = 2, first_noise: int = 0,
-              params=None, adam=None, pool: int = 0, resume=None, save=None):
-    """`steps` toy train steps of the job's global batch (job["batch"],
-    numpy [B, S]) under `mode` (dp, zero, fsdp; "one": this process alone,
-    no strategy, `group` unused), step i with the global mask noise
-    job["noise"][first_noise + i]: {"losses": [per step], "states":
+              params=None, adam=None, pool: int = 0, resume=None, save=None,
+              base=TRAIN, draw: bool = False):
+    """`steps` toy train steps (the flags `base` + `extra`) of the job's
+    global batch (job["batch"], numpy [B, S]) under `mode` (dp, zero, fsdp;
+    "one": this process alone, no strategy, `group` unused), step i with
+    the global mask noise job["noise"][first_noise + i] (with `draw`: every
+    draw of the step, the mask noise and to_audio's pseudo-phase signs, at
+    the global batch's shape from a generator seeded with 40 + i, the same
+    in every process): {"losses": [per step], "states":
     [read_state after each step], "step"; under a strategy "held"
     (held_bytes between steps), and under ZeRO / FSDP "shards"
     (shard_shapes); in one process without the pool, "grads" (step_grads
@@ -403,7 +519,7 @@ def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
     from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
     batch, device = len(job["batch"]["label"]), job.get("device", "cpu")
     state = train_state(batch, extra, params, adam, device=device,
-                        seed=99 if resume else 3)
+                        seed=99 if resume else 3, base=base)
     if resume:
         ckpt.load_train_state(state, "latest", resume)
     step_before = state.step
@@ -416,7 +532,12 @@ def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
             state, layout)
         data = layout.data
     rows = train_rows(job, data)
-    noises = [torch.tensor(n, device=device) for n in job["noise"][first_noise:]]
+    if draw:
+        noises = [torch.Generator(device=device).manual_seed(40 + i)
+                  for i in range(first_noise, first_noise + steps)]
+    else:
+        noises = [torch.tensor(n, device=device)
+                  for n in job["noise"][first_noise:]]
     losses, states = [], []
     if pool:
         g_step, d_step = trainer.make_pool_steps(state.system)
@@ -450,20 +571,26 @@ def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
 
 
 def step_grads(system) -> dict:
-    """The grads a step left on G's and D's parameters, by "G.<p>" /
-    "D.<p>", as numpy (in one process: under ZeRO and FSDP a sharded
-    leaf's full grad is dropped after the reduction)."""
+    """The grads a step left on every trained parameter, by read_state's
+    names, as numpy (in one process: under ZeRO and FSDP a sharded leaf's
+    full grad is dropped after the reduction)."""
+    from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
     return {f"{key}.{n}": q.grad.detach().cpu().numpy().copy()
-            for key, net in (("G", system.netG_train), ("D", system.netD))
-            for n, q in net.named_parameters()}
+            for key, named in (("G", ckpt.g_params(system)),
+                               ("D", ckpt.d_params(system)))
+            for n, q in named.items()}
 
 
 def void_of(system) -> set:
-    """The conv biases of G and D that feed an InstanceNorm, by "G.<p>" /
-    "D.<p>": their exact grad is 0, what a step computes there rounding."""
+    """The conv biases of every trained net that feed an InstanceNorm, by
+    read_state's names: their exact grad is 0, what a step computes there
+    rounding."""
     from chip_smoke import norm_fed_biases
-    return norm_fed_biases(system.netG_train, "G.") | \
-        norm_fed_biases(system.netD, "D.")
+    prefix = {"G": "G.", "E": "G.E.", "D": "D.", "time_D": "D.time_D.",
+              "hifigan_D": "D.hifigan_D."}
+    nets = {**system.g_nets(), **system.d_nets()}
+    return set().union(*(norm_fed_biases(net, prefix[k])
+                         for k, net in nets.items()))
 
 
 def close_params(got, want, grads, void, big_tol, all_tol):
@@ -508,6 +635,78 @@ def case_dp_steps(group, job):
             "from1": train_run(group, job, steps=1, first_noise=1,
                                params=job["params1"], adam=job["adam1"]),
             "pool": train_run(group, job, params=p, pool=2)}
+
+
+# the recipe configs the DP, ZeRO-1 and FSDP parity cases add to TRAIN:
+# the time-D + match step (scripts/train_recipes.sh:168-171; the frames'
+# dB floor --min_value at 1e-3, as chip_smoke.TOY_RECIPES), the HiFi-GAN D
+# (:162-164; 2 of its 3 scales and 2 of its 5 periods, as
+# tests/test_torch_hifigan_d.py's SMALL: its widths are the recipe's, 36 M
+# parameters), Family A's netE (chip_smoke.TOY_FEAT) and --remat_g full
+RECIPES = {
+    "time_d_match": ["--use_match_loss", "--use_time_D", "--lambda_time",
+                     "10", "--min_value", "1e-3"],
+    "hifigan": ["--use_hifigan_D", "--hifigan_scales", "2",
+                "--hifigan_periods", "2,7"],
+    "family_a": ["--instance_feat", "--feat_num", "3", "--nef", "4",
+                 "--n_downsample_E", "2"],
+    "remat_full": ["--remat_g", "full"],
+}
+# the HiFi-GAN step with implicit encoding (a 1-channel spectrogram), where
+# to_audio draws the pseudo-phase signs at the global batch's shape
+TRAIN_IMPLICIT = [f for f in TRAIN if f != "--explicit_encoding"] + [
+    "--input_nc", "1", "--output_nc", "1"]
+RECIPE_NAMES = (*RECIPES, "hifigan_implicit")
+
+
+def recipe_run(group, job, name: str, mode: str = "dp", **kw):
+    """train_run of a recipe of RECIPES (or "hifigan_implicit": the
+    HiFi-GAN step on TRAIN_IMPLICIT, every draw from a seeded generator)."""
+    if name == "hifigan_implicit":
+        return train_run(group, job, mode, extra=RECIPES["hifigan"],
+                         base=TRAIN_IMPLICIT, draw=True, **kw)
+    return train_run(group, job, mode, extra=RECIPES[name], **kw)
+
+
+def recipe_steps(group, job, name: str, mode: str = "dp", **kw):
+    """A recipe's two steps, each from the state the one-process step
+    starts from: the first from the seeded init, the second from the
+    one-process state after the first (job["recipe_dirs"][name]'s `latest`,
+    which recipe_reference writes), with the second noise. (From a second
+    step on, Adam turns the first step's rounding into whole steps of ~lr
+    where a grad is rounding alone, the conv biases that feed an
+    InstanceNorm, and the time-domain D's dB floor amplifies the change to
+    percents of some G grads: two steps run on from one init drift apart
+    beyond the bounds, one process on its rows in another order too.)
+    Returns [first, second] (train_run's records), None off the mesh."""
+    first = recipe_run(group, job, name, mode, steps=1, **kw)
+    second = recipe_run(group, job, name, mode, steps=1, first_noise=1,
+                        resume=job["recipe_dirs"][name], **kw)
+    return None if first is None else [first, second]
+
+
+def recipe_reference(job, name: str):
+    """recipe_steps in one process on the whole batch; writes the state
+    after the first step to job["recipe_dirs"][name]."""
+    first = recipe_run(None, job, name, "one", steps=1,
+                       save=job["recipe_dirs"][name])
+    second = recipe_run(None, job, name, "one", steps=1, first_noise=1,
+                        resume=job["recipe_dirs"][name])
+    return [first, second]
+
+
+def case_recipe_steps(group, job):
+    """Each recipe's recipe_steps over 2 data ranks (--mesh_shape 2: in a
+    world of 4, ranks 2 and 3 sit out)."""
+    return {name: recipe_steps(group, job, name, mesh_shape=(2,))
+            for name in RECIPE_NAMES}
+
+
+def case_sharded_recipe(group, job):
+    """The time-D + match step's 2 steps at the group's ranks: replicated
+    (DP), ZeRO-1 and FSDP, from one seeded init."""
+    return {mode: recipe_run(group, job, "time_d_match", mode)
+            for mode in ("dp", "zero", "fsdp")}
 
 
 def case_sharded_steps(group, job):
