@@ -270,6 +270,22 @@ Phases, each fatal on failure (exit code 1):
      torchrun sets them) with --zero_opt_state, 2 steps on phase 12's
      corpus and --continue_train for 2 more (G and D equal to the saved
      ones before its first step).
+ 16b. (after phase 16) the long tail, which no serve or train path calls
+     (phase_long_tail): MDCT4 -> IMDCT4 at the README recipe (1024/512
+     kbd, [64, 130816]) and at 512/256 ([128, 32512]), and the legacy
+     MCLT spectrogram round trip at 2048 with a sine window ([16,
+     130816]), on B1 / B2: each output within 1e-5 of max|y| of its CPU
+     twin on the same input, the round trip's MSE < 1e-10, one B1 and one
+     B2 launch a transform on the tensor-core route, each direction timed;
+     every transform of ops/dct.py and ops/dctlib.py at [64, 512] within
+     1e-5 of max|y| of the CPU's (the Lee pair within twice the CPU's
+     distance of the float64 recursion) and the Lee DCT against the basis
+     product; the device resampler on the 5 s wav (48k -> 8k -> 48k)
+     against resample_np; VGG19 (models/vgg.py) at [4, 3, 224, 224] f32
+     within 1e-4 of each slice's max of the CPU's, one forward timed; the
+     UI model's single_forward at the flagship config (bf16, [1, 512, 128,
+     2]) bit-equal to system.netG (else within one bf16 ulp, said), 22
+     one-pass B3 launches;
  17. (run last) the tools and entry points: torch.library.opcheck of every
      p2p operator's CUDA and fake impl at a flagship shape (op_case), each
      operator's output the eager wrapper's bits; the import round trip:
@@ -4914,6 +4930,199 @@ def phase_dp_ranks(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16b: the long tail (the DCT family, MDCT4, the legacy MCLT codec,
+# the device resampler, VGG19, the UI model), which no serve or train path
+# calls. MDCT4 / IMDCT4 legs (n_fft, hop, batch, samples): the README
+# recipe (1024/512 kbd, 130,816-sample segments) and the half-size codec at
+# the flagship segment; the legacy lapped spectrogram (frame length, batch,
+# samples) with a sine window
+LONG_TAIL_MDCT4 = [(1024, 512, 64, 130816), (512, 256, 128, SEG)]
+LONG_TAIL_LEGACY = (2048, 16, 130816)
+# the DCT family's input [rows, N] and the VGG19 input [B, 3, H, W]
+LONG_TAIL_DCT = (64, 512)
+LONG_TAIL_VGG = (4, 3, 224, 224)
+# the transforms of ops/dct.py and ops/dctlib.py held on the card
+LONG_TAIL_DCT_FNS = {
+    "dct": ("dct_2n", "idct_2n", "dct_n", "dct2d", "idct2d", "dct_2n_rfft",
+            "idct_2n_rfft"),
+    "dctlib": ("dst", "idst", "idxct", "idxst", "idct_n", "dst2", "idcct2",
+               "idsct2", "idcst2", "idxst_idct", "idct_idxst", "dct_lee",
+               "idct_lee")}
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| over max|want|, on the CPU in float64."""
+    want = want.detach().double().cpu()
+    return ((got.detach().double().cpu() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def long_tail_codec(name: str, card, cpu, x) -> dict:
+    """A lapped codec's round trip on the card (card = (fwd, inv)) against
+    the CPU's (cpu = (fwd, inv)) on the same input, the inverse fed the
+    card's spectrum: each output within 1e-5 of max|y|, the MSE < 1e-10,
+    one B1 and one B2 launch, on the tensor-core route; timed (CUDA
+    events)."""
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
+    n0 = (mdct2.launches, mdct2.launches_tc, imdct2.launches,
+          imdct2.launches_tc)
+    spec = card[0](x)
+    rec = card[1](spec)
+    launches = [a - b for a, b in zip(
+        (mdct2.launches, mdct2.launches_tc, imdct2.launches,
+         imdct2.launches_tc), n0)]
+    r = dict(spec=list(spec.shape), spec_rel_err=rel_err(spec, cpu[0](x.cpu())),
+             rec_rel_err=rel_err(rec, cpu[1](spec.cpu())),
+             mse=((rec - x) ** 2).mean().item(),
+             b1_b2_launches=launches,
+             fwd_ms=cuda_ms(lambda: card[0](x), 5, 1),
+             inv_ms=cuda_ms(lambda: card[1](spec), 5, 1))
+    print(f"[long tail] {name}: " + json.dumps(r))
+    check(r["spec_rel_err"] <= 1e-5 and r["rec_rel_err"] <= 1e-5,
+          f"{name}: the card disagrees with the CPU: {r}")
+    check(r["mse"] < 1e-10, f"{name}: round trip MSE {r['mse']}")
+    check(launches == [1, 1, 1, 1], f"{name}: B1 / B2 launches (all, "
+          f"tensor-core) {launches}, expected one each on the tensor cores")
+    return r
+
+
+def phase_long_tail(dev, wav: str) -> dict:
+    """The long tail on the card against its CPU twins (f32, TF32 off):
+      MDCT4 -> IMDCT4 at each LONG_TAIL_MDCT4 leg and the legacy
+      spectrogram round trip (LONG_TAIL_LEGACY, sine window) on B1 / B2
+      (long_tail_codec); MDCT4's first row within 1e-5 of max|y| of the
+      float64 oracle mdct4_np;
+      every transform of LONG_TAIL_DCT_FNS at LONG_TAIL_DCT within 1e-5 of
+      max|y| of the CPU's, but the Lee pair, each within twice the CPU's
+      distance (+ 1e-6) of the same recursion in float64, and the Lee DCT
+      within 1e-5 of the basis product (dct_n * N) on the card;
+      resample of the 5 s wav 48k -> 8k -> 48k within 1e-5 of max|y| of
+      resample_np;
+      VGG19 at LONG_TAIL_VGG (an init seeded on the CPU) within 1e-4 of
+      each slice's max of the CPU's, one forward timed (CUDA events);
+      UIModel.single_forward at the flagship config (the seeded G of phase
+      5, bf16) on [1, 512, 128, 2]: bit-equal to system.netG on the same
+      input (else within one bf16 ulp, and said), 22 B3 launches, all on
+      the one-pass route."""
+    import numpy as np
+    import torch
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.data.wavio import read_wav
+    from pix2pixhdaudiosr_torch.models.vgg import Vgg19Features
+    from pix2pixhdaudiosr_torch.ops import audio, dct, dctlib, legacy
+    from pix2pixhdaudiosr_torch.ops.mdct import IMDCT4, MDCT4, mdct4_np
+    from pix2pixhdaudiosr_torch.ops.norm import instance_norm_act
+    from pix2pixhdaudiosr_torch.ops.window import kbdwin
+    from pix2pixhdaudiosr_torch.ui_model import UIModel
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    res = {}
+    for n_fft, hop, b, s in LONG_TAIL_MDCT4:
+        kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft,
+                  window=kbdwin(n_fft))
+        fwd = [MDCT4(device=d, **kw) for d in (dev, "cpu")]
+        inv = [IMDCT4(out_length=s, device=d, **kw) for d in (dev, "cpu")]
+        x = torch.randn(b, s, generator=gen, device=dev) * 0.3
+        name = f"MDCT4 {n_fft}/{hop} [{b}, {s}]"
+        r = long_tail_codec(name, (fwd[0], inv[0]), (fwd[1], inv[1]), x)
+        r["oracle_rel_err"] = rel_err(fwd[0](x[:1]), torch.from_numpy(
+            mdct4_np(x[:1].cpu().numpy(), n_fft, hop, kw["window"])))
+        print(f"[long tail] {name}: first row against mdct4_np "
+              f"{r['oracle_rel_err']:.3e} of max|y|")
+        check(r["oracle_rel_err"] <= 1e-5, f"{name} disagrees with mdct4_np")
+        res[name] = r
+    frame, b, s = LONG_TAIL_LEGACY
+    w = legacy.sine_window(frame)
+    x = torch.randn(b, s, generator=gen, device=dev) * 0.3
+    codec = (lambda v: legacy.mdct_spectrogram(v, w, frame),
+             lambda v: legacy.imdct_spectrogram(v, w, out_length=s))
+    name = f"legacy spectrogram {frame} sine [{b}, {s}]"
+    res[name] = long_tail_codec(name, codec, codec, x)
+
+    x = torch.randn(*LONG_TAIL_DCT, generator=gen, device=dev)
+    errs, lee = {}, {}
+    for mod in (dct, dctlib):
+        for f in LONG_TAIL_DCT_FNS[mod.__name__.rsplit(".", 1)[1]]:
+            fn = getattr(mod, f)
+            got, want = fn(x), fn(x.cpu())
+            errs[f] = rel_err(got, want)
+            if f in ("dct_lee", "idct_lee"):
+                exact = fn(x.cpu().double())
+                lee[f] = dict(card=rel_err(got, exact), cpu=rel_err(want, exact))
+    errs["dct_lee vs dct_n * N"] = rel_err(
+        dctlib.dct_lee(x), dctlib.dct_n(x) * x.shape[-1])
+    res["dct_family_rel_err"] = errs
+    res["lee_rel_err_from_f64"] = lee
+    print("[long tail] the DCT family at "
+          f"{list(LONG_TAIL_DCT)}, card vs CPU: " + json.dumps(errs)
+          + "; Lee from the float64 recursion: " + json.dumps(lee))
+    # the Lee recursion's f32 rounding (~1e-5 of max|y| in idct_lee's
+    # alternating suffix sums) is its own: the card is held to the float64
+    # recursion, no farther than twice the CPU's f32
+    bad = {k: e for k, e in errs.items() if not e <= 1e-5 and k not in lee}
+    bad.update({k: e for k, e in lee.items()
+                if not e["card"] <= 2 * e["cpu"] + 1e-6})
+    check(not bad, f"the DCT family disagrees on the card: {bad}")
+
+    audio_in = read_wav(wav)[0].reshape(-1)
+    errs = {}
+    for orig, new in ((48000, 8000), (8000, 48000)):
+        got = audio.resample(torch.from_numpy(audio_in).to(dev), orig, new)
+        want = audio.resample_np(audio_in, orig, new)
+        check(got.shape == want.shape, f"resample {orig}->{new}: "
+              f"{tuple(got.shape)} against {want.shape}")
+        errs[f"{orig}->{new}"] = rel_err(got, torch.from_numpy(want))
+        audio_in = want
+    res["resample_rel_err"] = errs
+    print("[long tail] resample of the 5 s wav against resample_np: "
+          + json.dumps(errs))
+    check(max(errs.values()) <= 1e-5, f"resample disagrees: {errs}")
+
+    vgg = Vgg19Features(device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    vgg_card = Vgg19Features(device=dev)
+    vgg_card.load_state_dict(vgg.state_dict())
+    x = torch.randn(*LONG_TAIL_VGG, generator=gen, device=dev)
+    with torch.no_grad():
+        got, want = vgg_card(x), vgg(x.cpu())
+        errs = [rel_err(g, w_) for g, w_ in zip(got, want)]
+        vgg_ms = cuda_ms(lambda: vgg_card(x), 5, 2)
+    res["vgg"] = dict(shape=list(LONG_TAIL_VGG), slice_rel_err=errs,
+                      forward_ms=vgg_ms)
+    print(f"[long tail] VGG19 {list(LONG_TAIL_VGG)} f32: " + json.dumps(
+        res["vgg"]))
+    check(max(errs) <= 1e-4, f"VGG19 disagrees with the CPU: {errs}")
+    del vgg, vgg_card, got, want
+
+    cfg, _ = run_quiet(lambda: parse_config(FLAGSHIP, is_train=False,
+                                            save=False))
+    sd = torch.load(os.path.join(WORK, "smoke", "latest_net_G.pth"),
+                    map_location="cpu", weights_only=True)
+    ui = UIModel()
+    ui.initialize(cfg, state_dict=sd, device=dev)
+    net_in = torch.randn(1, 512, 128, 2, generator=gen, device=dev)
+    reset_counts(instance_norm_act)
+    got = ui.single_forward(net_in.cpu().numpy())
+    launches = (instance_norm_act.launches, instance_norm_act.launches_onepass)
+    with torch.no_grad():
+        want = ui.system.netG(net_in.to(ui.system.dtype).permute(0, 3, 1, 2))
+        want = want.permute(0, 2, 3, 1).float()
+    got = torch.from_numpy(got).to(dev)
+    res["ui"] = dict(bit_equal=bool(torch.equal(got, want)),
+                     ulp_excess=ulp_excess(got, want),
+                     in_launches=launches[0], in_onepass=launches[1],
+                     finite=bool(torch.isfinite(got).all()))
+    print("[long tail] UIModel.single_forward, flagship bf16 [1, 512, 128, "
+          "2], against system.netG: " + json.dumps(res["ui"]))
+    check(res["ui"]["finite"], "UIModel.single_forward output not finite")
+    check(res["ui"]["bit_equal"] or res["ui"]["ulp_excess"] <= 0,
+          "UIModel.single_forward beyond one bf16 ulp of system.netG")
+    check(launches == (22, 22), f"UIModel.single_forward: B3 launches "
+          f"(all, one-pass) {launches}, expected 22 one-pass")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 17: the tools and entry points
 # the p2p operators (ops/_cuda.define_op) opcheck'd at one flagship shape
 # each (op_case; tests/test_torch_cuda.py runs the same cases)
@@ -5510,6 +5719,7 @@ def main() -> int:
         cli = timed("cli", phase_cli, dev, train_counters)
         flac = timed("flac", phase_flac)
         dp = timed("dp ranks", phase_dp_ranks, dev)
+        long_tail = timed("long tail", phase_long_tail, dev, wav)
         sys.path.insert(0, os.path.join(ROOT, "tools"))
         tools = dict(opcheck=timed("opcheck", phase_opcheck, dev))
         tools["import"] = timed("import round trip", phase_import_round_trip,
@@ -5577,7 +5787,8 @@ def main() -> int:
         remat_grads=remat, train_cli=train_cli, recipe_cli=recipe_cli,
         family_a_cli=family_a,
         in_backward_per_step=in_bwd, cli=cli, flac=flac, cp_one_rank=cp1,
-        cp_ranks=cpn, tp_ranks=tpn, dp_ranks=dp, tools=tools,
+        cp_ranks=cpn, tp_ranks=tpn, dp_ranks=dp, long_tail=long_tail,
+        tools=tools,
         phase_seconds=phase_s)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

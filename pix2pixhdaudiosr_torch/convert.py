@@ -16,6 +16,10 @@ moments, which are trees of the params' shape (`load_adam_state`).
   the same weight for both deconv modes (models/layers.ConvTransposeIN;
   the inverse of tools/import_torch_checkpoint.py's `_deconv_w`).
 
+The VGG19 feature extractor's flax convs are named `conv{s}_{i}`, which
+the walk does not match: `jax_to_torch_vgg` maps them to torchvision's
+`features.<idx>` keys (models/vgg.py).
+
 A reference (pix2pixHD torch) `.pth` goes in through
 tools/import_torch_checkpoint.convert_generator_state_dict, then here, and
 is served with --torch_deconv.
@@ -29,6 +33,8 @@ import torch.nn as nn
 
 import numpy as np
 import torch
+
+from .models.vgg import CONV_INDICES, CONV_NAMES
 
 
 def _conv_weight(kernel: np.ndarray) -> np.ndarray:
@@ -101,3 +107,20 @@ def load_adam_state(opt: torch.optim.Adam, net: nn.Module, mu: Mapping,
             "step": torch.tensor(float(np.asarray(count))),
             "exp_avg": torch.empty_like(p).copy_(moments[0][name]),
             "exp_avg_sq": torch.empty_like(p).copy_(moments[1][name])}
+
+
+def jax_to_torch_vgg(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Vgg19Features param tree (flax `conv{s}_{i}` {kernel HWIO, bias},
+    with or without the top-level "params" key) -> state_dict of
+    models/vgg.Vgg19Features: `features.<idx>.weight` (OIHW) and `.bias`
+    at torchvision's conv indices."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for idx, name in zip(CONV_INDICES, CONV_NAMES):
+        leaf = params[name]
+        out[f"features.{idx}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            _conv_weight(np.asarray(leaf["kernel"], np.float32))))
+        out[f"features.{idx}.bias"] = torch.from_numpy(
+            np.array(leaf["bias"], np.float32))
+    return out

@@ -1,8 +1,10 @@
-"""Audio utilities: dB conversion, STFT power spectrogram, and the host
-polyphase sinc resampler.
+"""Audio utilities: dB conversion, STFT power spectrogram, the polyphase
+sinc resampler (host and device), and the LSD metric's window.
 
-Port of pix2pixhdaudiosr_tpu/ops/audio.py:25-103. `resample_np` and its
-kernel bank are numpy, copied (that package's `ops` imports jax).
+Port of pix2pixhdaudiosr_tpu/ops/audio.py. `resample_np` and its kernel
+bank are numpy, copied (that package's `ops` imports jax); `resample`
+(:106-123) frames the padded signal at stride p against the [q, K] bank
+in one f32 product, a plain product as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .window import kbdwin
 
 
 def amplitude_to_db(x: torch.Tensor, multiplier: float = 20.0,
@@ -88,3 +92,35 @@ def resample_np(x: np.ndarray, orig_freq: int, new_freq: int,
     out = np.einsum("...fk,qk->...fq", frames, kernels)  # [..., n_frames, q]
     out = out.reshape(x.shape[:-1] + (n_frames * q,))[..., :target_len]
     return out.astype(x.dtype if np.issubdtype(x.dtype, np.floating) else np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _bank_tensor(orig_freq: int, new_freq: int, lowpass_filter_width: int,
+                 rolloff: float, device: str) -> torch.Tensor:
+    """The kernel bank's transpose [K, q] in f32 on `device`, cached."""
+    kernels = sinc_resample_kernel(orig_freq, new_freq, lowpass_filter_width,
+                                   rolloff)[0]
+    return torch.tensor(kernels.T, dtype=torch.float32, device=device)
+
+
+def resample(x: torch.Tensor, orig_freq: int, new_freq: int,
+             lowpass_filter_width: int = 6, rolloff: float = 0.99) -> torch.Tensor:
+    """Device polyphase resample, torchaudio parity: [..., L] f32 ->
+    [..., ceil(L q / p)], the frames of the padded signal at stride p
+    (`unfold`) times the [q, K] kernel bank, output sample j q + i the
+    dot of frame j with kernel i."""
+    if orig_freq == new_freq:
+        return x
+    _, width, p, q = sinc_resample_kernel(orig_freq, new_freq,
+                                          lowpass_filter_width, rolloff)
+    bank = _bank_tensor(int(orig_freq), int(new_freq), lowpass_filter_width,
+                        rolloff, str(x.device))
+    target_len = int(math.ceil(x.shape[-1] * q / p))
+    frames = F.pad(x, (width, width + p)).unfold(-1, bank.shape[0], p)
+    out = frames @ bank                                # [..., n_frames, q]
+    return out.reshape(x.shape[:-1] + (-1,))[..., :target_len]
+
+
+def lsd_window(win_length: int) -> np.ndarray:
+    """The kbd window the LSD metric uses."""
+    return kbdwin(win_length)

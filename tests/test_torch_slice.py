@@ -359,7 +359,9 @@ def test_jax_free_imports():
     the package (every module) and chip_smoke import, the codec's training
     inverses (to_frames, to_audio and its gradient) and the HiFi-GAN D
     run, the native audio library decodes a FLAC file and resamples, the
-    feature tools, the port's other tools (the AOT engine, the checkpoint
+    long tail (MDCT4 / IMDCT4, the legacy spectrogram, the Lee DCT, the
+    device resampler, VGG19, the UI model) imports and runs, the feature
+    tools, the port's other tools (the AOT engine, the checkpoint
     import, the corpus tools) and the root CLI twins import, and no module
     of the JAX package gets loaded, by name or from a file under
     pix2pixhdaudiosr_tpu/ (a module executed by path under another name),
@@ -391,6 +393,17 @@ def test_jax_free_imports():
         "assert flac.read_flac(f)[0].shape == (1, 500)\n"
         "assert flac.decodes['native'] == 1\n"
         "native_audio.resample(np.ones(480, np.float32), 48000, 8000)\n"
+        "import pix2pixhdaudiosr_torch.ui_model as ui\n"
+        "import pix2pixhdaudiosr_torch.models.vgg as vgg\n"
+        "from pix2pixhdaudiosr_torch.ops import audio, dctlib, legacy, mdct\n"
+        "m4 = mdct.MDCT4(64, 32, 64, device='cpu')\n"
+        "mdct.IMDCT4(64, 32, 64, device='cpu')(m4(torch.randn(1, 480)))\n"
+        "w = legacy.sine_window(64)\n"
+        "legacy.imdct_spectrogram(legacy.mdct_spectrogram(torch.randn(1, 480), w, 64), w)\n"
+        "dctlib.idct_lee(dctlib.dct_lee(torch.randn(2, 8)))\n"
+        "audio.resample(torch.randn(480), 48000, 8000)\n"
+        "vgg.Vgg19Features(device='cpu')(torch.zeros(1, 3, 16, 16))\n"
+        "assert ui.get_edges(np.eye(4, dtype=np.int32)).sum() > 0\n"
         "sys.path.insert(0, 'tools')\n"
         "import encode_features_torch, precompute_feature_maps_torch\n"
         "import aot_engine_torch, import_torch_checkpoint_torch\n"
