@@ -227,7 +227,16 @@ Phases, each fatal on failure (exit code 1):
      cp_instance_norm call launches (torch.profiler), failing unless each
      is one B3m and one B3a kernel with no copy before the 5 cropped
      views.
- 16. (after phase 15) the training half of the parallel modes: 2 ranks of this
+ 16. (after phase 15) the training half of the parallel modes. First, in
+     this process, the reference's default G (G9L3 at ngf 64, G730:
+     730,713,346 parameters checked on the card, seeded N(0, 0.02)):
+     served at batch 128 in bf16 (system.inference + codec.imdct_eval; B1
+     1, B3 36, B2 1 a forward, each launch's route printed, ms a batch by
+     CUDA events, peak GiB), its f32 G at batch 1 against the CPU twin
+     within 2x its rounding floor (rounding_floor), its GAN step at the
+     recipe's batch 32 in bf16 (B1 2, B3 54, B3' 54 a step, ms/step, peak
+     GiB, every loss finite), and B3 / B3' timed at its InstanceNorm
+     planes beside their bounds (g730_in_timing). Then 2 ranks of this
      script (`--rank-worker dp|zero|fsdp`) sharing cuda:0 over gloo, at
      flagship width (PatchGAN ndf 64; the G 156,050,690 parameters, cut in
      the parity legs to one resblock in the trunk and one in the enhancer,
@@ -255,7 +264,17 @@ Phases, each fatal on failure (exit code 1):
      32 a rank, 1 warm-up and 3 timed steps a mode, every count set to 0
      just before them: per rank the step's wall time, gloo bytes
      (Group.traffic), peak CUDA memory and launches a step, B1 2 (on the
-     tensor cores), B3 40 (one-pass) and B3' 40 asserted. In the dp world,
+     tensor cores), B3 40 (one-pass) and B3' 40 asserted; FSDP's and DP's
+     rank peaks printed side by side, and FSDP's gathered-bytes peak (it
+     gathers a unit at a time: parallel/fsdp.py) within its two largest
+     units' bytes. In the dp and fsdp worlds, last, the 730M G's step at 16
+     rows a rank of a global 32 (bf16, one step after one warm-up,
+     g730_rank): each rank's peak GiB, the bytes it holds between steps,
+     FSDP's gathered-bytes peak (within its two largest units), gloo bytes
+     and launches (B1 2, B3 54, B3' 54) a step, every rank's losses finite
+     and equal; an FSDP rank's peak at least G730_FSDP_SAVING_GIB below
+     every DP rank's and its parameter and moment bytes between steps at
+     most G730_HELD_SHARE of DP's (g730_checks). In the dp world,
      the recipes under DP (DP_RECIPES: the time-D + match step and the
      HiFi-GAN D, f32, the parity leg's batch and depth): one step from the
      seeded init against the same step in this process (its rounding
@@ -321,7 +340,8 @@ HiFi-GAN recipe step; `serve_launches` from one plain serve forward,
 `knob_launches_per_step` from one step of each memory knob and
 `family_a_launches_per_step` from one step of Family A's CLI run,
 `dp_launches_per_step` from one bf16 step of phase 16 on rank 0, a mode
-each; `export_launches` from one forward of phase 17's exported engine;
+each; `g730_serve_launches` and `g730_launches_per_step` from one forward
+and one step of phase 16's 730M G; `export_launches` from one forward of phase 17's exported engine;
 for B3's cross-shard entries, from the one-rank generate --cp_shards
 4 run);
 the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -3164,24 +3184,40 @@ def moments_err(got, exact) -> float:
     return ((got.double() - exact).abs() / scale).max().item()
 
 
-def kernels_per_call(fn, calls: int = 4, tries: int = 5) -> list:
+def kernels_per_call(fn, calls: int = 4, tries: int = 8) -> list:
     """The names of the CUDA kernels one call of fn() launches, from
-    torch.profiler over `calls` calls: a trace whose kernels do not divide
-    evenly among the calls (one that dropped events, as a trace now and
-    then does) is taken again, up to `tries` times; then all its names."""
+    torch.profiler over `calls` calls. A trace can lose the kernels that
+    run while its tracing is still starting or already stopping, so the
+    calls are framed by `pad` spin kernels on each side (torch.cuda._sleep,
+    left out of the names), each side synchronised. A trace whose kernels
+    still do not divide evenly among the calls, or that lost every spin of
+    the closing frame, is taken again, up to `tries` times; then all its
+    names."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    pad, spin = 4, 200_000  # ~0.1 ms a spin
+
+    def frame():
+        for _ in range(pad):
+            torch.cuda._sleep(spin)
+        torch.cuda.synchronize()
+
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            frame()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if names and len(names) % calls == 0:
+            frame()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events if "spin_kernel" not in e.name]
+        closed = bool(events) and "spin_kernel" in events[-1].name
+        if closed and names and len(names) % calls == 0:
             return names[:len(names) // calls]
     return names
 
@@ -4201,6 +4237,343 @@ DP_STEP_LAUNCHES = {"mdct2": TRAIN_MDCT_LAUNCHES,
                     "instance_norm_act_grad": TRAIN_IN_LAUNCHES}
 
 
+# The reference's default generator, --netG local at its defaults: G9L3 at
+# ngf 64 (scripts/train_recipes.sh:73-78, Family C's pretrain at batch 32,
+# which Family D fine-tunes), 9 trunk resblocks at 2048 channels and 3
+# enhancer ones at 128; the flagship's other flags. Its serve at batch 128
+# and its one-process step at the recipe's batch 32 in bf16, then DP and
+# FSDP at 2 ranks of 16 rows each (phase 16)
+G730 = [*FLAGSHIP, "--ngf", "64", "--n_blocks_global", "9",
+        "--n_blocks_local", "3"]
+G730_PARAMS = 730_713_346
+G730_SERVE_BATCH, G730_STEP_BATCH = 128, 32
+# a forward's InstanceNorms: 27 in the trunk (the head, 4 downs, 18 in the
+# resblocks, 4 deconvs) and 9 in the enhancer (2 downs, 6 in the
+# resblocks, the deconv); a step's: G's and 6 in each of 3 D forwards,
+# each with its backward
+G730_SERVE_LAUNCHES = {"mdct2": 1, "instance_norm_act": 36, "imdct2": 1}
+G730_STEP_LAUNCHES = {"mdct2": 2, "instance_norm_act": 54,
+                      "instance_norm_act_grad": 54}
+# its InstanceNorm planes (C, H, W): the trunk's resblocks, the enhancer's
+# resblocks (and the trunk's head), the enhancer's first conv
+G730_IN_SHAPES = [(2048, 16, 4), (128, 256, 64), (64, 512, 128)]
+# an FSDP rank's peak below a DP rank's at G730_STEP_BATCH over DP_RANKS
+# ranks (the moments, slices and slice grads halved), and the share of
+# DP's parameter and moment bytes it may hold between steps
+G730_FSDP_SAVING_GIB, G730_HELD_SHARE = 4.0, 0.6
+
+
+def g730_train_state(dev, batch: int = G730_STEP_BATCH):
+    """A bf16 G730 training system and its fresh train state (seeded
+    init: every rank draws the same), its parameter counts checked."""
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
+    from pix2pixhdaudiosr_torch.trainer import init_state
+    cfg = parse_config([*G730, "--batchSize", str(batch)], is_train=True,
+                       save=False)
+    state = init_state(Pix2PixHDSystem(cfg, device=dev), 0)
+    n = [sum(p.numel() for p in net.parameters())
+         for net in (state.system.netG_train, state.system.netD)]
+    check(n == [G730_PARAMS, 5_531_522], f"the 730M G and its D: {n}")
+    return state
+
+
+def g730_serve(dev, counters) -> dict:
+    """The 730M G served (system.inference + codec.imdct_eval, bf16,
+    batch 128): its weights seeded N(0, 0.02) on the card in f32 (730,713,346
+    parameters checked), cast once to bf16 as generate's load_system does;
+    one forward's launches (B1 1, B3 36, B2 1) and routes, ms a batch by
+    CUDA events (5 after 2) and peak GiB. In f32 at batch 1 the card's G
+    output against the port's CPU twin on the same weights and
+    spectrogram, within 2x the G's f32 rounding floor on the card
+    (rounding_floor, check_against_floor: the two devices round every
+    layer apart)."""
+    import torch
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.models.generator import init_normal_
+    from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
+
+    def system(dtype: str, device):
+        cfg = parse_config([*G730, "--compute_dtype", dtype],
+                           is_train=False, save=False)
+        return Pix2PixHDSystem(cfg, device=device)
+
+    f32 = system("float32", dev)
+    init_normal_(f32.netG, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in f32.netG.parameters())
+    check(n_params == G730_PARAMS, f"the 730M G has {n_params} parameters")
+    f32.netG.to(memory_format=torch.channels_last).eval()
+    cpu = system("float32", "cpu")
+    cpu.netG.load_state_dict({k: v.cpu() for k, v in
+                              f32.netG.state_dict().items()})
+    cpu.netG.to(memory_format=torch.channels_last).eval()
+    lr1, noise1 = seeded_batch(f32, dev, 1)
+    with torch.no_grad():
+        spec = f32.encode_input(lr1, noise1)[0]
+    want = unsharded_forward(f32, spec)
+    floor = rounding_floor(f32, spec, want)
+    t0 = time.perf_counter()
+    got = unsharded_forward(cpu, spec.cpu())
+    reading = ulp_reading(got, want.cpu())
+    reading["cpu_forward_s"] = time.perf_counter() - t0
+    check_against_floor("the 730M G in f32 at batch 1, the CPU twin against "
+                        "the card", reading, floor, want.abs().max().item())
+    del cpu, got
+    serve_sys = system("bfloat16", dev)
+    serve_sys.netG.load_state_dict(f32.netG.state_dict())
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_sys.netG.to(dtype=serve_sys.dtype,
+                      memory_format=torch.channels_last).eval()
+    lr, noise = seeded_batch(serve_sys, dev, G730_SERVE_BATCH)
+
+    def serve():
+        with torch.no_grad():
+            sr, pha, norm, _ = serve_sys.inference(lr, noise=noise)
+            return serve_sys.codec.imdct_eval(torch.abs(sr), pha, norm)
+
+    for fn in counters.values():
+        reset_counts(fn)
+    out = serve()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    inorm = counters["instance_norm_act"]
+    routes = dict(mdct2_tc=counters["mdct2"].launches_tc,
+                  imdct2_tc=counters["imdct2"].launches_tc,
+                  in_onepass=inorm.launches_onepass,
+                  in_twopass=inorm.launches - inorm.launches_onepass,
+                  in_by_shape={f"{h}x{w}x{c}": n for (h, w, c), n
+                               in inorm.launches_by_shape.items()})
+    check(bool(torch.isfinite(out).all()) and out.abs().max().item() > 0,
+          "the 730M serve's waveform is not finite, or silent")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(serve, iters=5, warmup=2)
+    res = dict(params=n_params, batch=G730_SERVE_BATCH, ms_per_batch=ms,
+               frames_per_s=G730_SERVE_BATCH * serve_sys.n_frames / (ms / 1e3),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, routes=routes, f32_vs_cpu=reading)
+    print("[g730 serve] " + json.dumps(res))
+    check({k: n for k, n in launches.items() if n}
+          == G730_SERVE_LAUNCHES, f"the 730M serve launched {launches}, "
+          f"expected {G730_SERVE_LAUNCHES}")
+    del serve_sys, lr, noise, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def g730_step(dev, counters) -> dict:
+    """The 730M G's GAN step in one process through
+    trainer.make_train_step at the recipe's batch 32, bf16 (G and D
+    parameter counts checked): 1 warm-up and 3 timed steps (CUDA events),
+    every count set to 0 just before the warm-up: ms/step, peak GiB,
+    launches a step (B1 2, B3 54, B3' 54) with B3's and B3''s routes,
+    every loss finite and every parameter moved."""
+    import torch
+    from pix2pixhdaudiosr_torch.trainer import make_train_step
+    torch.backends.cudnn.benchmark = True
+    state = g730_train_state(dev)
+    step = make_train_step(state.system)
+    data = flagship_train_batch(dev, G730_STEP_BATCH)
+    probe = [p for net in (state.system.netG_train, state.system.netD)
+             for p in net.parameters()][::7]
+    before = [p.detach().clone() for p in probe]
+    seeds = iter(range(2000, 3000))
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(next(seeds))
+        return {k: float(v) for k, v in step(state, data, gen)[0].items()}
+
+    for fn in counters.values():
+        reset_counts(fn)
+    losses = [run()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses.append(run())
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    n = len(losses)
+    inorm, grad = counters["instance_norm_act"], counters["instance_norm_act_grad"]
+    res = dict(batch=G730_STEP_BATCH, steps=n, ms_per_step=sum(ms) / len(ms),
+               ms_runs=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches_per_step={k: fn.launches / n
+                                  for k, fn in counters.items()},
+               mdct2_tc_per_step=counters["mdct2"].launches_tc / n,
+               in_onepass_per_step=inorm.launches_onepass / n,
+               in_grad_by_route_per_step={
+                   k: v / n for k, v in grad.launches_by_route.items()},
+               losses=losses,
+               probed_moved=sum(int(not torch.equal(a, p.detach()))
+                                for a, p in zip(before, probe)),
+               probed=len(probe))
+    print("[g730 step] " + json.dumps(res))
+    check(all(v == v and abs(v) != float("inf") for lo in losses
+              for v in lo.values()), "a 730M step's loss is not finite")
+    check(res["probed_moved"] == res["probed"],
+          f"{res['probed'] - res['probed_moved']} probed parameter tensors "
+          f"of the 730M step did not move")
+    got = {k: res["launches_per_step"].get(k, 0) for k in G730_STEP_LAUNCHES}
+    check(got == G730_STEP_LAUNCHES, f"the 730M step launched {got} a step, "
+          f"expected {G730_STEP_LAUNCHES}")
+    del state, step, data, before, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def g730_in_timing(dev) -> dict:
+    """B3 (forward, relu, one launch) and B3' (its backward) at the 730M
+    G's InstanceNorm planes, bf16 channels_last: B3 at the serve's batch
+    and the step's, B3' at the step's; CUDA events (10 after 3), the route
+    each shape takes and its bound (B3: x read and y written; B3': x and
+    dy read, dx written: in_grad_bound)."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import norm
+    out = {}
+    for c, h, w in G730_IN_SHAPES:
+        for b, grad in ((G730_SERVE_BATCH, False), (G730_STEP_BATCH, False),
+                        (G730_STEP_BATCH, True)):
+            gen = torch.Generator(device=dev).manual_seed(c + b)
+            x = torch.randn(b, c, h, w, generator=gen, device=dev,
+                            dtype=torch.bfloat16).contiguous(
+                                memory_format=torch.channels_last)
+            if grad:
+                _, saved = norm.instance_norm_act(x, "relu", with_stats=True)
+                dy = torch.randn_like(x)
+                ms = cuda_ms(lambda: norm.instance_norm_act_grad(
+                    x, dy, saved, "relu"), iters=10)
+                r = dict(in_grad_bound(x), route=norm.plan_instance_norm_grad(
+                    b, h, w, c, x.dtype).route)
+            else:
+                ms = cuda_ms(lambda: norm.instance_norm_act(x, "relu"),
+                             iters=10)
+                r = dict(bound(2 * 2 * x.numel(), 8 * x.numel(), F32_FLOPS),
+                         route=norm.plan_instance_norm(b, h, w, c,
+                                                       x.dtype).route)
+            r.update(ms=ms, share_of_bound=r["bound_ms"] / ms)
+            out[f"{'B3p' if grad else 'B3'} [{b},{c},{h},{w}]"] = r
+            del x
+    torch.cuda.empty_cache()
+    print("[g730 in] " + json.dumps(out))
+    return out
+
+
+def g730_rank(world, mode: str, own) -> dict:
+    """The 730M leg of a phase-16 rank (dp or fsdp): G730 in bf16 on this
+    rank's 16 rows of a global batch of 32, one step after one warm-up,
+    every count set to 0 just before it: the step's wall time (host clock,
+    synchronized), peak GiB, the bytes held between steps (held_bytes)
+    beside the replicated ones, gloo bytes (Group.traffic), launches, the
+    losses; under FSDP the gathered-bytes peak and the two largest units'
+    bytes."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import mdct2
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_grad)
+    from pix2pixhdaudiosr_torch.parallel import mesh
+    from pix2pixhdaudiosr_torch.parallel.dp import apply_dp
+    from pix2pixhdaudiosr_torch.parallel.fsdp import apply_fsdp
+    from pix2pixhdaudiosr_torch.trainer import make_train_step
+    torch.backends.cudnn.benchmark = True
+    dev = world.device
+    counters = {"mdct2": mdct2, "instance_norm_act": instance_norm_act,
+                "instance_norm_act_grad": instance_norm_act_grad}
+    layout = mesh.make_data_layout(world, G730_STEP_BATCH)
+    state = g730_train_state(dev)
+    n_params = sum(p.numel() for net in (state.system.netG_train,
+                                         state.system.netD)
+                   for p in net.parameters())
+    par = {"dp": apply_dp, "fsdp": apply_fsdp}[mode](state, layout)
+    step = make_train_step(state.system)
+    rows = own(flagship_train_batch(dev, G730_STEP_BATCH), layout)
+    seeds = iter(range(3000, 3100))
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(next(seeds))
+        return {k: float(v) for k, v in step(state, rows, gen)[0].items()}
+
+    t0 = time.perf_counter()
+    losses = [run()]
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    groups = {"members": layout.members, "data": layout.data}
+    for fn in counters.values():
+        reset_counts(fn)
+    for g in groups.values():
+        g.reset_traffic()
+    if mode == "fsdp":
+        par.reset_gathered_peak()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses.append(run())
+    torch.cuda.synchronize()
+    traffic = {k: g.traffic() for k, g in groups.items()}
+    rec = dict(rows=G730_STEP_BATCH // layout.data.size, warmup_s=warm,
+               step_s=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               held=par.held_bytes(state),
+               replicated=dict(params=4 * n_params, moments=8 * n_params),
+               gloo_bytes=sum(v["bytes"] for t in traffic.values()
+                              for v in t.values()),
+               traffic=traffic, losses=losses,
+               launches={k: fn.launches for k, fn in counters.items()})
+    if mode == "fsdp":
+        sizes = sorted(par.unit_bytes().values())
+        rec.update(gathered_peak=par.gathered_peak,
+                   two_largest_units=sizes[-1] + sizes[-2],
+                   units=len(sizes))
+    del state, par, step, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def g730_checks(recs: dict, fails: list) -> dict:
+    """Phase 16's 730M rank legs (g730_rank, dp and fsdp): every rank's
+    losses finite and equal; the launches a rank-step (B1 2, B3 54, B3'
+    54); FSDP's gathered-bytes peak within its two largest units; an FSDP
+    rank's peak at least G730_FSDP_SAVING_GIB below every DP rank's, and
+    the parameter and moment bytes it holds between steps at most
+    G730_HELD_SHARE of DP's. A reading beyond its bound is added to
+    `fails`. Returns the readings by mode and rank."""
+    out = {}
+    for mode, rs in recs.items():
+        rows = [r["g730"] for r in rs]
+        check(all(r["losses"] == rows[0]["losses"] for r in rows)
+              and all(v == v and abs(v) != float("inf")
+                      for lo in rows[0]["losses"] for v in lo.values()),
+              f"the 730M step under {mode}: losses not finite or not equal "
+              f"on every rank")
+        for r in rows:
+            got = {k: r["launches"][k] for k in G730_STEP_LAUNCHES}
+            check(got == G730_STEP_LAUNCHES, f"the 730M step under {mode} "
+                  f"launched {got}")
+            if mode == "fsdp" and r["gathered_peak"] > r["two_largest_units"]:
+                fails.append(f"730M FSDP gathered {r['gathered_peak']} bytes "
+                             f"at once, beyond its two largest units' "
+                             f"{r['two_largest_units']}")
+        out[mode] = [{k: v for k, v in r.items() if k != "traffic"}
+                     for r in rows]
+    dp, fsdp = out["dp"], out["fsdp"]
+    saving = min(d["peak_gib"] for d in dp) - max(f["peak_gib"] for f in fsdp)
+    held = sum(fsdp[0]["held"].values()) / sum(dp[0]["held"].values())
+    out["fsdp_saving_gib"], out["fsdp_held_share"] = saving, held
+    if saving < G730_FSDP_SAVING_GIB:
+        fails.append(f"730M: an FSDP rank peaks {saving:.3f} GiB below a DP "
+                     f"rank, not {G730_FSDP_SAVING_GIB}")
+    if held > G730_HELD_SHARE:
+        fails.append(f"730M: FSDP holds {held:.3f} of DP's parameter and "
+                     f"moment bytes between steps")
+    print("[dp g730] " + json.dumps(out))
+    return out
+
+
 def dp_train_state(dev, dtype: str, batch: int, seed: int = 0, extra=()):
     """A flagship training system in `dtype` (with the flags `extra`) and
     its fresh train state (seeded init: every rank draws the same)."""
@@ -4396,7 +4769,10 @@ def dp_rank_worker(mode: str) -> int:
     for the parent. Timing leg, bf16: 32 rows a rank of a
     batch of 64, 1 warm-up and DP_TIMING_STEPS timed steps (host clock
     around each, synchronized), every count set to 0 just before them:
-    launches a step, gloo bytes a step (Group.traffic), peak CUDA memory.
+    launches a step, gloo bytes a step (Group.traffic), peak CUDA memory,
+    and with fsdp the gathered-bytes peak beside the two largest units'
+    bytes. Then with dp the recipes (dp_recipe_rank), and with dp and fsdp
+    the 730M G's step (g730_rank).
     Writes its record to WORK/<mode>_rank<r>.json."""
     import torch
     from pix2pixhdaudiosr_torch.ops.mdct_kernels import mdct2
@@ -4541,6 +4917,8 @@ def dp_rank_worker(mode: str) -> int:
     for g in groups.values():
         g.reset_traffic()
     torch.cuda.reset_peak_memory_stats()
+    if mode == "fsdp":
+        par.reset_gathered_peak()
     wall, losses = [], []
     for _ in range(DP_TIMING_STEPS):
         torch.cuda.synchronize()
@@ -4562,13 +4940,21 @@ def dp_rank_worker(mode: str) -> int:
         in_onepass_per_step=instance_norm_act.launches_onepass / n,
         in_grad_by_route_per_step={
             k: v / n for k, v in instance_norm_act_grad.launches_by_route.items()})
+    if mode == "fsdp":
+        sizes = sorted(par.unit_bytes().values())
+        rec["timing"].update(gathered_peak=par.gathered_peak,
+                             two_largest_units=sizes[-1] + sizes[-2],
+                             units=len(sizes))
     rec["seconds"]["timing"] = time.perf_counter() - t0
+    del state, par, step, rows
+    gc.collect()
+    torch.cuda.empty_cache()
     if mode == "dp":
-        del state, par, step, rows
-        gc.collect()
-        torch.cuda.empty_cache()
         rec["recipes"] = dp_recipe_rank(world, own)
         rec["seconds"]["recipes"] = time.perf_counter() - t0
+    if mode in ("dp", "fsdp"):
+        rec["g730"] = g730_rank(world, mode, own)
+        rec["seconds"]["g730"] = time.perf_counter() - t0
     with open(os.path.join(WORK, f"{mode}_rank{world.rank}.json"), "w") as f:
         json.dump(rec, f)
     mesh.shutdown()
@@ -4777,10 +5163,21 @@ def phase_dp_ranks(dev) -> dict:
     under 2 ranks with --zero_opt_state and its --continue_train. The
     parity readings are all taken before any is checked."""
     import torch
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import imdct2, mdct2
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_grad)
     from pix2pixhdaudiosr_torch.trainer import make_train_step
     from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
     gc.collect()
     torch.cuda.empty_cache()
+    # the 730M G served and stepped in this process
+    t0 = time.perf_counter()
+    counters = {"mdct2": mdct2, "imdct2": imdct2,
+                "instance_norm_act": instance_norm_act,
+                "instance_norm_act_grad": instance_norm_act_grad}
+    g730 = dict(serve=g730_serve(dev, counters),
+                step=g730_step(dev, counters), kernels=g730_in_timing(dev))
+    g730_s = time.perf_counter() - t0
     torch.backends.cudnn.benchmark = False     # as the ranks' parity leg
     t0 = time.perf_counter()
     batch = flagship_train_batch(dev, DP_PARITY_BATCH)
@@ -4812,7 +5209,7 @@ def phase_dp_ranks(dev) -> dict:
     ref_losses = ref["losses"]
     del ref
     gc.collect()
-    res["seconds"] = dict(reference=time.perf_counter() - t0)
+    res["seconds"] = dict(g730=g730_s, reference=time.perf_counter() - t0)
     # the recipes' one-process steps (from the seeded init) and floors
     t1 = time.perf_counter()
     recipe_ref, res["recipes"] = {}, {}
@@ -4880,6 +5277,24 @@ def phase_dp_ranks(dev) -> dict:
                 {k: r["timing"][k] for k in (
                     "step_s", "gloo_bytes_per_step", "peak_gib",
                     "launches_per_step", "held")} for r in recs]}))
+    # the flagship's bf16 timing leg: a rank's peak under FSDP and DP, and
+    # FSDP's gathered-bytes peak within its two largest units
+    for r in res["modes"]["fsdp"]:
+        t = r["timing"]
+        if t["gathered_peak"] > t["two_largest_units"]:
+            fails.append(f"flagship FSDP rank {r['rank']} gathered "
+                         f"{t['gathered_peak']} bytes at once, beyond its two "
+                         f"largest units' {t['two_largest_units']}")
+    print("[dp flagship peaks] bf16, 32 rows a rank, GiB: " + json.dumps({
+        **{m: [r["timing"]["peak_gib"] for r in res["modes"][m]]
+           for m in ("dp", "fsdp")},
+        "fsdp_gathered_peak": [r["timing"]["gathered_peak"]
+                               for r in res["modes"]["fsdp"]],
+        "two_largest_units": res["modes"]["fsdp"][0]["timing"][
+            "two_largest_units"]}))
+    g730["ranks"] = g730_checks({m: res["modes"][m] for m in ("dp", "fsdp")},
+                                fails)
+    res["g730"] = g730
     # ZeRO's checkpoint, resumed in one process to the same third step
     state = dp_train_state(dev, "float32", DP_PARITY_BATCH, seed=99,
                            extra=DP_PARITY_DEPTH)
@@ -4924,7 +5339,8 @@ def phase_dp_ranks(dev) -> dict:
     check(os.path.exists(os.path.join(WORK, "dp_cli", "latest_optim.pth")),
           "the CLI under 2 ranks saved no latest_optim.pth")
     res["cli"] = cli
-    print("[dp] " + json.dumps({k: v for k, v in res.items() if k != "modes"}))
+    print("[dp] " + json.dumps({k: v for k, v in res.items()
+                                if k not in ("modes", "g730")}))
     check(not fails, "phase 16's parity: " + "; ".join(fails))
     return res
 
@@ -5132,7 +5548,7 @@ OP_CASES = ("mdct2", "imdct2", "instance_norm_act", "instance_norm_act_stats",
 # the file-to-file legs: the 5 s wav of phase 4 and a 60 s one, 2 runs of
 # generate_audio_torch.py in a process of its own each, then in this
 # process 1 warm-up and 3 timed runs of the generate CLI and one traced run
-F2F_SECONDS, F2F_RUNS, F2F_PROCESS_RUNS = 60.0, 4, 2
+F2F_SECONDS, F2F_RUNS, F2F_PROCESS_RUNS = 60.0, 4, 1
 # the flagship G's InstanceNorms in one forward (the exported engine's),
 # and the batches the AOT tool runs at (the first with --out)
 ENGINE_IN_LAUNCHES = IN_LAUNCHES["plain"]
@@ -5768,6 +6184,10 @@ def main() -> int:
                     dp_launches_per_step={
                         mode: recs[0]["timing"]["launches_per_step"].get(k, 0)
                         for mode, recs in dp["modes"].items()},
+                    g730_serve_launches=dp["g730"]["serve"]["launches"].get(
+                        k, 0),
+                    g730_launches_per_step=dp["g730"]["step"][
+                        "launches_per_step"].get(k, 0),
                     export_launches=tools["engine"]["launches"][k],
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -133,8 +133,13 @@ class DataParallel:
                           if p.grad is not None],
                          self.members, self.members.size)
 
+    def grad_holder(self, p: torch.nn.Parameter) -> torch.Tensor:
+        """The tensor whose .grad holds p's grad between the backward and
+        reduce_grads: p (FSDP: a sharded leaf's slice)."""
+        return p
+
     def begin_step(self, state) -> None:
-        """Before a step's forward (FSDP gathers the weights here)."""
+        """Before a step's forward (ZeRO-1 and FSDP drop the slices' grads)."""
 
     def end_step(self, state) -> None:
         """After a step's optimizers (FSDP frees the weights here)."""

@@ -11,8 +11,10 @@ replicated leaf's averaged as in parallel/dp.py; each rank runs Adam
 the sharded leaves and over the whole replicated ones; after the update
 every rank rebuilds the full parameters with one all_gather a bucket.
 Adam is elementwise, so the step equals the replicated one. Saves 2 * 4
-bytes a parameter * (1 - 1/N). parallel/fsdp.py differs only in freeing
-the full parameters between steps.
+bytes a parameter * (1 - 1/N). parallel/fsdp.py shards the parameters
+too: it gathers them a unit at a time and reduce-scatters a unit's grads
+from a hook as soon as its backward is done (`scatter_grads`, the half of
+`reduce_grads` that handles the sharded leaves).
 
 `ShardedAdam.state_dict()` gathers the moments to full size, in the
 layout a one-process Adam keeps them, so a save writes the one-process
@@ -239,23 +241,37 @@ class ZeroParallel(DataParallel):
             [self.shard.get(id(p), p) for p in params],
             [self.meta[id(p)] for p in params], gather=self.publish)
 
+    def begin_step(self, state) -> None:
+        for sh in self.shard.values():
+            sh.grad = None
+
     @torch.no_grad()
     def reduce_grads(self, state) -> None:
-        """The replicated leaves' grads averaged as DP's; each sharded
-        leaf's grad reduce-scattered into its slice's grad (over the
-        replicas first on a 2-D mesh), the full grad dropped."""
-        n = self.members.size
+        """The replicated leaves' grads averaged as DP's; every sharded
+        leaf's grad still whole reduce-scattered (scatter_grads)."""
         whole = [p for p in self.params
                  if id(p) not in self.shard and p.grad is not None]
-        all_reduce_mean_([p.grad for p in whole], self.members, n)
-        split = [p for p in self._split() if p.grad is not None]
+        all_reduce_mean_([p.grad for p in whole], self.members,
+                         self.members.size)
+        self.scatter_grads([p for p in self._split() if p.grad is not None])
+
+    @torch.no_grad()
+    def scatter_grads(self, split: Sequence[nn.Parameter]) -> None:
+        """Each sharded leaf's grad in `split` reduce-scattered into its
+        slice's grad (over the replicas first on a 2-D mesh; one
+        reduce-scatter a bucket), the mean over the mesh's ranks added to
+        the slice's grad (set where it has none), the full grad dropped."""
+        if not split:
+            return
         grads = [p.grad for p in split]
         if self.layout.replica.size > 1:
             all_reduce_mean_(grads, self.layout.replica, 1)
         pieces = scatter_along(self.data, grads,
                                [self.dim[id(p)] for p in split])
         for p, g in zip(split, pieces):
-            self.shard[id(p)].grad = g.div_(n)
+            shard = self.shard[id(p)]
+            g = g.div_(self.members.size)
+            shard.grad = g if shard.grad is None else shard.grad.add_(g)
             p.grad = None
 
     def reshard(self, opt, cfg) -> ShardedAdam:

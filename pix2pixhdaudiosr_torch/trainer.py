@@ -15,9 +15,10 @@ inverse (`make_eval_step`, :180-191). Parameters and Adam moments are f32;
 the step computes in the compute dtype (system.py). The state is mutated
 in place, where the JAX step returns a new one. Under the parallel modes
 (`TrainState.parallel`: parallel/dp.py, zero.py, fsdp.py) every step
-brackets its work with the strategy's `begin_step` (FSDP gathers the
-weights), `reduce_grads` after the backward and `end_step` after the
-optimizers; without one, a step is this process's alone.
+brackets its work with the strategy's `begin_step`, `reduce_grads` after
+the backward and `end_step` after the optimizers (FSDP gathers the
+weights a unit at a time inside the step, and reduce-scatters a unit's
+grads from its backward); without one, a step is this process's alone.
 """
 
 from __future__ import annotations
@@ -179,16 +180,20 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
 
 
 @torch.no_grad()
-def _mask_fixed_global(net_g: torch.nn.Module) -> None:
+def _mask_fixed_global(net_g: torch.nn.Module, par=None) -> None:
     """Zero (not drop: Adam steps every parameter) the grad of every G
     parameter whose top module is not an enhancer branch (`enh<n>_*`).
-    netE is not net_g: it keeps training, as in the JAX package."""
+    netE is not net_g: it keeps training, as in the JAX package. Under a
+    strategy the grad is where its `grad_holder` says: under FSDP a
+    sharded leaf's slice, its whole grad already reduce-scattered
+    (zeroing the slice equals slicing the zeroed grad)."""
     for name, p in net_g.named_parameters():
         if not name.split(".")[0].startswith("enh"):
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+            t = p if par is None else par.grad_holder(p)
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
             else:
-                p.grad.zero_()
+                t.grad.zero_()
 
 
 def _begin(state: TrainState) -> None:
@@ -199,9 +204,9 @@ def _begin(state: TrainState) -> None:
 def _update(state: TrainState, fix_global: bool, *opts) -> None:
     """After the backward: the fix-global mask, the grads' reduction over
     the ranks, the optimizers' steps and the strategy's end of step."""
-    if fix_global:
-        _mask_fixed_global(state.system.netG_train)
     par = state.parallel
+    if fix_global:
+        _mask_fixed_global(state.system.netG_train, par)
     if par is not None:
         par.reduce_grads(state)
     for opt in opts:

@@ -4,6 +4,9 @@ over by pix2pixhdaudiosr_torch/convert.py. Inputs come from numpy seeds;
 the JAX Pallas InstanceNorm runs in interpret mode. Layouts: the JAX side
 is NHWC, the port's modules take NCHW (a permute of the same array)."""
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -19,9 +22,13 @@ from pix2pixhdaudiosr_tpu.models import layers as jlayers  # noqa: E402
 
 from pix2pixhdaudiosr_torch.convert import jax_to_torch_generator  # noqa: E402
 from pix2pixhdaudiosr_torch.models import layers as tlayers  # noqa: E402
+from pix2pixhdaudiosr_torch.models.discriminator import build_discriminator  # noqa: E402
 from pix2pixhdaudiosr_torch.models.generator import build_generator  # noqa: E402
 from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,  # noqa: E402
                                              instance_norm_act_ref)
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_networks import LADDER  # noqa: E402
 
 
 def nchw(x):
@@ -170,13 +177,23 @@ def test_convert_covers_every_tensor():
     assert "enh1_up.ConvTranspose_0.weight" in sd
 
 
-def test_flagship_parameter_count():
-    """LocalEnhancer G3L2 at ngf 48, 2-channel io: 156,050,690 parameters
-    (the JAX package's ladder oracle), built on the meta device; and
-    "encoder" builds the feature Encoder with as many parameters as the
-    JAX package's."""
-    m = build_generator("local", 2, 2, 48, 4, 3, 1, 2, device="meta")
-    assert sum(p.numel() for p in m.parameters()) == 156_050_690
+@pytest.mark.parametrize("gb,lb,ngf,expected", LADDER)
+def test_flagship_parameter_count(gb, lb, ngf, expected):
+    """Every row of the JAX package's param ladder (tests/test_networks.py
+    LADDER: LocalEnhancer, 2-channel io, 4 downsamples), built on the meta
+    device: the flagship G3L2 at ngf 48 156,050,690 parameters, the
+    reference's default G9L3 at ngf 64 730,713,346."""
+    m = build_generator("local", 2, 2, ngf, 4, gb, 1, lb, device="meta")
+    assert sum(p.numel() for p in m.parameters()) == expected
+
+
+def test_encoder_and_discriminator_parameter_counts():
+    """The default D (input 4, ndf 64, 3 layers, 2 scales, intermediate
+    features) has 5,531,522 parameters, as the JAX package's
+    (tests/test_networks.py), on the meta device; "encoder" builds the
+    feature Encoder with as many parameters as the JAX package's."""
+    d = build_discriminator(4, 64, 3, False, 2, True, device="meta")
+    assert sum(p.numel() for p in d.parameters()) == 5_531_522
     from pix2pixhdaudiosr_tpu.models.generator import Encoder as JEncoder
     e = build_generator("encoder", 2, 2, 48, 4, 3, 1, 2, device="meta")
     want = JEncoder(2, 2, 48, 4).init(jax.random.PRNGKey(0),

@@ -1,6 +1,6 @@
 """Multi-rank cases of the port's parallel modes, run on the CPU over gloo
 (tests/test_torch_cp.py, tests/test_torch_tp.py, tests/test_torch_dp.py,
-tests/test_torch_zero_fsdp.py).
+tests/test_torch_zero_fsdp.py, tests/test_torch_fsdp_units.py).
 
 `run_world(n, job, cases)` starts n ranks (torch.multiprocessing, spawn;
 one thread each) that join one gloo group through the port's own
@@ -492,7 +492,7 @@ def shard_shapes(state) -> dict:
 def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
               mesh_axes=("data",), steps: int = 2, first_noise: int = 0,
               params=None, adam=None, pool: int = 0, resume=None, save=None,
-              base=TRAIN, draw: bool = False):
+              base=TRAIN, draw: bool = False, fix_global: bool = False):
     """`steps` toy train steps (the flags `base` + `extra`) of the job's
     global batch (job["batch"], numpy [B, S]) under `mode` (dp, zero, fsdp;
     "one": this process alone, no strategy, `group` unused), step i with
@@ -509,7 +509,9 @@ def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
     parallel.dp.pool_rows. `resume`: a directory whose `latest` is
     restored into another init (seed 99) before the strategy, as
     train_loop does ("step_before": its step count); `save`: a directory
-    that one process writes `latest` into after the steps."""
+    that one process writes `latest` into after the steps. `fix_global`:
+    every step in the niter_fix_global phase (G's non-enhancer grads
+    zeroed). Under FSDP, "units" (fsdp_watch)."""
     from pix2pixhdaudiosr_torch import trainer
     from pix2pixhdaudiosr_torch.parallel import mesh as M
     from pix2pixhdaudiosr_torch.parallel.dp import apply_dp, pool_rows
@@ -531,6 +533,7 @@ def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
         {"dp": apply_dp, "zero": apply_zero, "fsdp": apply_fsdp}[mode](
             state, layout)
         data = layout.data
+    watch = fsdp_watch(state) if mode == "fsdp" else None
     rows = train_rows(job, data)
     if draw:
         noises = [torch.Generator(device=device).manual_seed(40 + i)
@@ -543,7 +546,7 @@ def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
         g_step, d_step = trainer.make_pool_steps(state.system)
         image_pool = ImagePool(pool, 5)
         for i in range(steps):
-            lg, aux = g_step(state, rows, noises[i])
+            lg, aux = g_step(state, rows, noises[i], fix_global=fix_global)
             pooled = pool_rows(image_pool, aux["fake_pair"], data)
             ld = d_step(state, rows, noises[i], pooled)
             losses.append({**{k: float(v) for k, v in lg.items()},
@@ -552,7 +555,7 @@ def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
     else:
         step = trainer.make_train_step(state.system)
         for i in range(steps):
-            lo, _ = step(state, rows, noises[i])
+            lo, _ = step(state, rows, noises[i], fix_global=fix_global)
             losses.append({k: float(v) for k, v in lo.items()})
             states.append(read_state(state))
             if i == 0 and mode == "one":
@@ -567,6 +570,40 @@ def train_run(group, job, mode: str = "dp", extra=(), mesh_shape=(-1,),
         out["held"] = state.parallel.held_bytes(state)
         if mode != "dp":
             out["shards"] = shard_shapes(state)
+    if watch is not None:
+        out["units"] = dict(watch, peak=state.parallel.gathered_peak,
+                            bytes=state.parallel.unit_bytes(),
+                            traffic=data.traffic())
+    return out
+
+
+def fsdp_watch(state) -> dict:
+    """What an FSDP state's steps do, read from hooks registered after the
+    strategy's own: "grads_alive", the most units holding a whole grad of
+    a sharded leaf when a leaf's grad accumulates (the strategy has just
+    reduced the unit whose grads are all there); "leftover", the whole
+    grads of sharded leaves still there when reduce_grads begins. The
+    gathered-bytes peak and the group's traffic start from here."""
+    par = state.parallel
+    split = [p for u in par.units for p in u.params]
+    unit_of = {id(p): u.name for u in par.units for p in u.params}
+    out = dict(grads_alive=0, leftover=0)
+
+    def accumulated(_p):
+        alive = {unit_of[id(q)] for q in split if q.grad is not None}
+        out["grads_alive"] = max(out["grads_alive"], len(alive))
+
+    for p in split:
+        p.register_post_accumulate_grad_hook(accumulated)
+    reduce = par.reduce_grads
+
+    def reduce_grads(st):
+        out["leftover"] += sum(q.grad is not None for q in split)
+        reduce(st)
+
+    par.reduce_grads = reduce_grads
+    par.data.reset_traffic()
+    par.reset_gathered_peak()
     return out
 
 
@@ -761,6 +798,25 @@ def case_sharded_resume(group, job):
     out["one_to_zero"] = train_run(group, job, "zero", steps=1, first_noise=2,
                                    resume=one_dir)
     return out
+
+
+# the runs of case_fsdp_units: train_run's arguments beside the mode
+FSDP_RUNS = {"plain": {}, "remat_full": dict(extra=["--remat_g", "full"]),
+             "remat_dots": dict(extra=["--remat_g", "dots"]),
+             "fix_global": dict(fix_global=True), "pool": dict(pool=2),
+             "bf16": dict(extra=["--compute_dtype", "bfloat16"]),
+             "time_d_match": dict(extra=RECIPES["time_d_match"]),
+             "hifigan": dict(extra=RECIPES["hifigan"], steps=1),
+             "family_a": dict(extra=RECIPES["family_a"])}
+
+
+def case_fsdp_units(group, job):
+    """FSDP's per-unit gather against replicated DP over the same ranks,
+    from one seeded init, for each run of job["fsdp_runs"] (FSDP_RUNS'
+    names)."""
+    return {name: {mode: train_run(group, job, mode, **FSDP_RUNS[name])
+                   for mode in ("dp", "fsdp")}
+            for name in job["fsdp_runs"]}
 
 
 def case_dp_card(group, job):
