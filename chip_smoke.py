@@ -163,7 +163,15 @@ Phases, each fatal on failure (exit code 1):
      CLI on 10 FLAC files: 2 steps and a resumed third, every decode on
      the native route, B3 and its backward as many a step as G, netE and
      3 D forwards hold InstanceNorms, G, netE and D equal to the saved
-     weights before the resumed run's first step;
+     weights before the resumed run's first step; then the converged-
+     quality gate (tests/test_quality_gate.py: GATE_FLAGS on its 8-tone
+     corpus, 32 steps at batch 4, an eval every 4 steps) through the CLI
+     in f32 (TF32 off, as the CLI sets it): eval.csv's LSD and SNR meet
+     the JAX gate's three thresholds (the last LSD below 2.8, more than
+     0.4 below the first at its least, an SNR above the first), and every
+     step launches B1 2, B3 and its backward 21 each, every eval batch B1
+     1, B3 9, B2 1, each launch on the route its planner gives the shape
+     (the trajectory and the leg's seconds printed: [quality gate]);
  13. the CLIs at their default behaviours, flagship width, on 8 one-second
      files, FLAC (written by the port's write_flac) and wav: where
      matplotlib or PIL is missing, the training and generate CLIs without
@@ -353,6 +361,7 @@ torch.backends.cudnn.allow_tf32 both False).
 from __future__ import annotations
 
 import contextlib
+import csv
 import functools
 import gc
 import io
@@ -2725,6 +2734,173 @@ def phase_recipe_cli(dev, counters) -> dict:
     del state
     torch.cuda.empty_cache()
     print("[recipe cli] " + json.dumps(res))
+    return res
+
+
+# The converged-quality gate: the JAX package's tests/test_quality_gate.py
+# (its Config as the CLI's flags, its corpus, its thresholds), which
+# tests/test_torch_quality_gate.py runs on the port's CPU and phase 12 on
+# the card
+GATE_FLAGS = [
+    "--name", "qgate", "--netG", "global", "--ngf", "16",
+    "--n_downsample_global", "2", "--n_blocks_global", "2", "--ndf", "8",
+    "--n_layers_D", "2", "--num_D", "2", "--input_nc", "2", "--output_nc",
+    "2", "--label_nc", "0", "--batchSize", "4", "--explicit_encoding",
+    "--mask_mode", "mode2", "--no_instance", "--no_vgg_loss",
+    "--use_match_loss", "--niter", "32", "--niter_decay", "0",
+    "--save_epoch_freq", str(10 ** 6), "--save_latest_freq", str(10 ** 9),
+    "--print_freq", str(10 ** 9), "--display_freq", str(10 ** 9),
+    "--eval_freq", "16", "--validation_split", "0.25", "--eval_size", "2",
+    "--nThreads", "2", "--seed", "7", "--compute_dtype", "float32",
+    "--no_html"]
+GATE_STEPS, GATE_EVALS = 32, 8
+GATE_FINAL_LSD, GATE_LSD_GAIN = 2.8, 0.4
+
+
+def write_gate_corpus(wav_dir: str) -> None:
+    """The gate's corpus (a copy of tests/test_quality_gate.py's
+    _make_corpus, seed 42): 8 one-second 48 kHz harmonic tones, f0 220 +
+    35 i, written by the port's write_wav."""
+    import numpy as np
+    from pix2pixhdaudiosr_torch.data.wavio import write_wav
+    os.makedirs(wav_dir, exist_ok=True)
+    rng = np.random.default_rng(42)
+    for i in range(8):
+        t = np.arange(48000) / 48000.0
+        f0 = 220.0 + 35.0 * i
+        x = sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6.28)) / k
+                for k in range(1, 40) if f0 * k < 20000)
+        x = (0.35 * x / np.max(np.abs(x))).astype(np.float32)
+        write_wav(os.path.join(wav_dir, f"h{i}.wav"), x, 48000)
+
+
+def gate_misses(lsds: list, snrs: list) -> list:
+    """The JAX gate's conditions (tests/test_quality_gate.py:58-64) that an
+    eval.csv trajectory misses."""
+    if len(lsds) < 2:
+        return [f"{len(lsds)} eval rows"]
+    return [what for what, ok in (
+        (f"final LSD {lsds[-1]} not below {GATE_FINAL_LSD}",
+         lsds[-1] < GATE_FINAL_LSD),
+        (f"LSD improved by {lsds[0] - min(lsds)}, not more than "
+         f"{GATE_LSD_GAIN}", lsds[0] - min(lsds) > GATE_LSD_GAIN),
+        (f"no SNR above the first {snrs[0]}", max(snrs) > snrs[0])) if not ok]
+
+
+def planned_launches(train: bool, g_norms: int, d_norms: int) -> dict:
+    """What one gate train step (train) or eval batch launches, by kernel,
+    given the InstanceNorms of a G and of a D forward (count_norms): B1 2
+    a step and 1 an eval batch, B2 1 an eval batch; B3 (and in a step its
+    backward) once per InstanceNorm of G and, in a step, of D's three
+    forwards."""
+    n_in = g_norms + 3 * d_norms if train else g_norms
+    return {"mdct2": TRAIN_MDCT_LAUNCHES if train else 1,
+            "imdct2": 0 if train else 1,
+            "instance_norm_act": n_in,
+            "instance_norm_act_grad": n_in if train else 0,
+            "imdct2_grad": 0}
+
+
+def check_planned_routes(what: str, delta: dict, cfg, batch: int,
+                         want: dict) -> None:
+    """One step's or eval batch's counts ({kernel: {count: value}}, from
+    counts set to 0 just before it) against planned_launches' `want`, each
+    on its planner's route: B1 / B2 on the tensor cores where
+    mdct_kernels.tc_route admits the codec; B3 one-pass for the shapes
+    plan_instance_norm sends there, B3's backward by
+    plan_instance_norm_grad's route, at the batch and f32."""
+    import torch
+    from pix2pixhdaudiosr_torch.ops import mdct_kernels, norm
+    got = {k: delta[k]["launches"] for k in want}
+    check(got == want, f"{what}: launches {got}, planned {want}")
+    tc = mdct_kernels.tc_route(cfg.win_length, cfg.hop_length, cfg.n_fft)
+    for k in ("mdct2", "imdct2"):
+        check(delta[k]["launches_tc"] == want[k] * tc,
+              f"{what}: {k} {delta[k]['launches_tc']} of {want[k]} on the "
+              f"tensor-core route (tc_route {tc})")
+    f32 = torch.float32
+    fwd = delta["instance_norm_act"]
+    onepass = sum(n for (H, W, C), n in fwd["launches_by_shape"].items()
+                  if norm.plan_instance_norm(batch, H, W, C, f32).route
+                  == "onepass")
+    check(fwd["launches_onepass"] == onepass,
+          f"{what}: B3 {fwd['launches_onepass']} one-pass launches, its "
+          f"planner {onepass} (shapes {fwd['launches_by_shape']})")
+    bwd = delta["instance_norm_act_grad"]
+    routes = {}
+    for (H, W, C), n in bwd["launches_by_shape"].items():
+        r = norm.plan_instance_norm_grad(batch, H, W, C, f32).route
+        routes[r] = routes.get(r, 0) + n
+    check(bwd["launches_by_route"] == routes,
+          f"{what}: B3's backward by route {bwd['launches_by_route']}, its "
+          f"planner {routes}")
+
+
+def phase_quality_gate(dev, counters) -> dict:
+    """The converged-quality gate through the training CLI on `dev`
+    (GATE_FLAGS on write_gate_corpus, f32; on the card TF32 off as the CLI
+    sets it): eval.csv meets the JAX gate's thresholds (gate_misses), and
+    each of the 32 steps and 8 eval batches launches planned_launches on
+    the planners' routes (check_planned_routes). Prints the LSD and SNR
+    trajectory and the leg's seconds."""
+    from pix2pixhdaudiosr_torch import train_loop
+    corpus = os.path.join(WORK, "gate_corpus")
+    write_gate_corpus(corpus)
+    argv = [*GATE_FLAGS, "--checkpoints_dir", WORK, "--dataroot", corpus,
+            "--device", dev]
+    calls, faults = [], []
+    makers = (train_loop.make_train_step, train_loop.make_eval_step)
+
+    def counted(make, train):
+        def wrap(system):
+            fn = make(system)
+            want = planned_launches(train, count_norms(system.netG_train),
+                                    count_norms(system.netD))
+
+            def call(*args, **kw):
+                for counter in counters.values():
+                    reset_counts(counter)
+                out = fn(*args, **kw)
+                batch = (args[1]["label"] if train else args[0]).shape[0]
+                what = f"gate {'step' if train else 'eval'} call {len(calls)}"
+                calls.append(train)
+                try:
+                    check_planned_routes(what, {k: vars(counter) for k, counter
+                                                in counters.items()},
+                                         system.cfg, batch, want)
+                except SmokeFailure as e:
+                    faults.append(str(e))
+                return out
+            return call
+        return wrap
+
+    train_loop.make_train_step = counted(makers[0], True)
+    train_loop.make_eval_step = counted(makers[1], False)
+    try:
+        t0 = time.perf_counter()
+        state, out = run_quiet(train_loop.main, argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        train_loop.make_train_step, train_loop.make_eval_step = makers
+    path = os.path.join(WORK, "qgate", "eval.csv")
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    lsds = [float(r["lsd"]) for r in rows]
+    snrs = [float(r["snr"]) for r in rows]
+    res = dict(seconds=seconds, lsd=lsds, snr=snrs, steps=state.step,
+               eval_batches=calls.count(False))
+    print("[quality gate] " + json.dumps(res))
+    check(state.step == GATE_STEPS and len(lsds) == GATE_EVALS,
+          f"the gate took {state.step} steps and wrote {len(lsds)} eval rows")
+    check(calls.count(True) == GATE_STEPS
+          and res["eval_batches"] == GATE_EVALS,
+          f"the gate ran {len(calls)} counted steps and eval batches")
+    check(not faults, f"the gate's launches: {faults[:3]} ({len(faults)} "
+          f"calls off plan)")
+    misses = gate_misses(lsds, snrs)
+    check(not misses, f"the quality gate on {dev}: {misses}; LSD {lsds}, "
+          f"SNR {snrs}")
+    del state
     return res
 
 
@@ -6129,6 +6305,7 @@ def main() -> int:
         train_cli = timed("train cli", phase_train_cli, dev, train_counters,
                           wav, n_in)
         recipe_cli = timed("recipe cli", phase_recipe_cli, dev, train_counters)
+        gate = timed("quality gate", phase_quality_gate, dev, train_counters)
         family_a = timed("family A cli", phase_family_a, dev, train_counters)
         in_bwd = in_backward_per_step(in_grad, train)
         print("[in grad] a train step's calls: " + json.dumps(in_bwd))
@@ -6205,7 +6382,7 @@ def main() -> int:
         feature_reference=feat_ref, in_grad_family_a=in_grad_a,
         train_step=train, recipe_steps=recipes, knob_steps=knobs,
         remat_grads=remat, train_cli=train_cli, recipe_cli=recipe_cli,
-        family_a_cli=family_a,
+        quality_gate=gate, family_a_cli=family_a,
         in_backward_per_step=in_bwd, cli=cli, flac=flac, cp_one_rank=cp1,
         cp_ranks=cpn, tp_ranks=tpn, dp_ranks=dp, long_tail=long_tail,
         tools=tools,

@@ -28,6 +28,14 @@ reduce-scatters the grads, a step here gathers one *unit* at a time:
           its storages freed again. A backward that does not accumulate the
           unit's grads (the G loss through D, torch.autograd.grad) frees it
           when the grad of its input is done, or at the backward's end.
+          A use is done, and frees the unit unless another use holds it,
+          when the grad of its input is (each forward takes its args
+          through views of its own, whose grads are this use's share
+          alone), or when every node of its graph that hands a grad to
+          one of the unit's leaves has run. So a HiFi-GAN D member closes
+          when its own backward is done: not when the last of the members
+          that read D's input is (the G loss through D), nor when the
+          forward on the other half of the pair is (the D loss).
 
 `--remat_g` re-runs G's forward inside the backward: the pre-hooks gather
 again there, and the copies the recompute saves join the unit's backward.
@@ -103,10 +111,11 @@ class _Use:
     outputs; closed: done; adopted: made by a recompute inside a
     backward, opened with the unit's next use."""
 
-    __slots__ = ("unit", "casts", "state")
+    __slots__ = ("unit", "casts", "state", "waiting")
 
     def __init__(self, unit: "_Unit", casts: List[_Cast]):
         self.unit, self.casts, self.state = unit, casts, "pending"
+        self.waiting = 0              # its nodes that grad a leaf, yet to run
 
 
 class _Unit:
@@ -160,7 +169,7 @@ class FSDPParallel(ZeroParallel):
                              f"{missing[:4]}")
         for unit in self.units:
             unit.module.register_forward_pre_hook(
-                lambda m, args, u=unit: self._pre_forward(u))
+                lambda m, args, u=unit: self._pre_forward(u, args))
             unit.module.register_forward_hook(
                 lambda m, args, out, u=unit: self._post_forward(u, args, out))
             for p in unit.params:
@@ -239,24 +248,30 @@ class FSDPParallel(ZeroParallel):
             m._parameters[key] = p
 
     # -- the hooks --------------------------------------------------------------
-    def _pre_forward(self, unit: _Unit) -> None:
+    def _pre_forward(self, unit: _Unit, args: tuple):
+        """Gather the unit and cast its conv leaves under autocast; where
+        autograd records, the forward's args, each tensor that needs a grad
+        as a view of its own, whose grad is this use's share alone."""
         if self.whole:
-            return
+            return None
         self._unswap(unit)
         self._fill(unit)
         dev = unit.params[0].device.type
         dtype = (torch.get_autocast_dtype(dev)
                  if torch.is_autocast_enabled(dev) else None)
-        if dtype is None or dtype == unit.params[0].dtype or not unit.slots:
-            return
         unit.casts = []
-        for m, key, p in unit.slots:
-            c = p.to(dtype)
-            m._parameters[key] = c
-            unit.casts.append((c, _Cast(c, p, self._cast_died)))
-            self._count(unit.casts[-1][1].nbytes)
-        if not unit.direct and not unit.open:
-            self._release(unit)
+        if dtype is not None and dtype != unit.params[0].dtype and unit.slots:
+            for m, key, p in unit.slots:
+                c = p.to(dtype)
+                m._parameters[key] = c
+                unit.casts.append((c, _Cast(c, p, self._cast_died)))
+                self._count(unit.casts[-1][1].nbytes)
+            if not unit.direct and not unit.open:
+                self._release(unit)
+        if not torch.is_grad_enabled():
+            return None
+        return tuple(a.view_as(a) if torch.is_tensor(a) and a.requires_grad
+                     else a for a in args)
 
     def _post_forward(self, unit: _Unit, args, output) -> None:
         if self.whole:
@@ -273,6 +288,10 @@ class FSDPParallel(ZeroParallel):
             for t in _tensors(args):
                 if t.requires_grad:
                     t.register_hook(lambda g, u=use: self._close_use(u))
+            feeders = self._feeders(unit, outs, args)
+            use.waiting = len(feeders)
+            for node in feeders:
+                node.register_hook(lambda gi, go, u=use: self._fed(u))
             if unit.open:       # a recompute inside the unit's own backward
                 use.state = "open"
                 unit.open.append(use)
@@ -326,6 +345,39 @@ class FSDPParallel(ZeroParallel):
             self._free_casts(use.casts)
             if not unit.open:
                 self._release(unit)
+
+    @staticmethod
+    def _feeders(unit: _Unit, outs, args) -> list:
+        """The nodes of a use's graph that hand a grad to one of the unit's
+        leaves (an edge to its AccumulateGrad), walked from the outputs'
+        nodes back to the args' and the leaves'."""
+        leaves = {id(p) for p in unit.params}
+        stop = {t.grad_fn for t in _tensors(args) if t.grad_fn is not None}
+        todo = [t.grad_fn for t in outs if t.grad_fn is not None]
+        seen, found = set(), []
+        while todo:
+            node = todo.pop()
+            if node in seen or node in stop:
+                continue
+            seen.add(node)
+            feeds = False
+            for nxt, _ in node.next_functions:
+                if nxt is None:
+                    continue
+                if hasattr(nxt, "variable"):
+                    feeds |= id(nxt.variable) in leaves
+                else:
+                    todo.append(nxt)
+            if feeds:
+                found.append(node)
+        return found
+
+    def _fed(self, use: _Use) -> None:
+        """One more node of the use that grads its leaves has run; once
+        every one has, its backward is done."""
+        use.waiting -= 1
+        if use.waiting == 0:
+            self._close_use(use)
 
     def _accumulated(self, unit: _Unit, p: torch.Tensor) -> None:
         """p's grad is whole: once all of the unit's are, reduce-scatter

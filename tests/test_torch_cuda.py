@@ -543,6 +543,24 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert res["in_launches"] == res["in_launches_onepass"] > 0
 
 
+def test_quality_gate_on_card(cuda, tmp_path, monkeypatch):
+    """The converged-quality gate (tests/test_quality_gate.py's corpus,
+    config and seed) through the training CLI on the card, f32 with TF32
+    off (chip_smoke.phase_quality_gate, phase 12's leg): eval.csv meets the
+    JAX gate's three thresholds, and each of the 32 steps and 8 eval
+    batches launches B1, B3, B3's backward and B2 as planned, each on its
+    planner's route. It raises chip_smoke.SmokeFailure on a miss."""
+    import chip_smoke
+    from pix2pixhdaudiosr_torch.ops import mdct_kernels as mk
+    from pix2pixhdaudiosr_torch.ops import norm
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path))
+    res = chip_smoke.phase_quality_gate("cuda", dict(
+        mdct2=mk.mdct2, imdct2=mk.imdct2, imdct2_grad=mk.imdct2_grad,
+        instance_norm_act=norm.instance_norm_act,
+        instance_norm_act_grad=norm.instance_norm_act_grad))
+    assert (res["steps"], res["eval_batches"], len(res["lsd"])) == (32, 8, 8)
+
+
 def _ulp_excess(got, want):
     """max of |got - want| - one bf16 ulp (of the larger) - 1e-6 max(1,
     max|want|): <= 0 when every element agrees within one ulp. Near zero

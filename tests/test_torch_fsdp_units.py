@@ -3,7 +3,8 @@ the CPU over gloo: one world of 2 ranks (tests/torch_parallel_cases.py,
 case_fsdp_units) runs the toy train step (TRAIN, global batch 4) under
 replicated DP and under FSDP from one seeded init, 2 steps each: plain,
 --remat_g full and dots, the niter_fix_global phase, the fake pool's split
-steps, bf16 compute, the time-D + match recipe and Family A's netE. Each
+steps, bf16 compute, the time-D + match recipe, the HiFi-GAN D (one step:
+its four members all read D's input) and Family A's netE. Each
 FSDP run equals its DP run within test_torch_zero_fsdp.py's bounds, holds
 at most the two largest units' bytes gathered at any moment, keeps no
 whole grad of a sharded leaf beyond its unit's backward, and makes the same
@@ -36,7 +37,7 @@ from pix2pixhdaudiosr_torch.parallel.zero import shard_dim  # noqa: E402
 
 BATCH, SEG, N = 4, 480, 2
 RUNS = ["plain", "remat_full", "remat_dots", "fix_global", "pool", "bf16",
-        "time_d_match", "family_a"]
+        "time_d_match", "hifigan", "family_a"]
 # the reference's default generator: --netG local at its defaults
 G730 = ["--netG", "local", "--input_nc", "2", "--output_nc", "2",
         "--label_nc", "0", "--no_instance", "--explicit_encoding"]
