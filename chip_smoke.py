@@ -138,7 +138,11 @@ Phases, each fatal on failure (exit code 1):
      launches a step (2), every loss finite and every parameter moved,
      and a torch.profiler trace of one step split into forward, backward
      and optimizer, with the InstanceNorm backward's device ms (kernels
-     and copies) and share; then the two recipe steps at full
+     and copies) and share, each kernel counted once (a CUPTI marker that
+     shares an operator's id adds none) and the split held to itself and
+     to CUDA events around the traced step (trace_problems: the parts
+     within 1% of the kernels' sum, the device busy within 1.05x the
+     events' span); then the two recipe steps at full
      width: --use_match_loss --use_time_D --lambda_time 10 at batch 64 and
      --use_hifigan_D at batch 32 (RECIPES), each the same measurements,
      every parameter of every net moved, launches a step as
@@ -147,11 +151,14 @@ Phases, each fatal on failure (exit code 1):
      routes) and the optional losses' codec half in f32 in the bf16 step;
      then the flagship step with each memory knob (KNOBS: --remat_g full,
      --remat_g dots, --adam_mu_bf16), the same measurements, B3 62 a step
-     under remat (G's 22 recomputed; the backward 40) and G's Adam moments
-     6 bytes a parameter with --adam_mu_bf16 (8 plain); and the remat
+     under remat (G's 22 recomputed; the backward 40), each remat step's
+     peak at least REMAT_SAVING_GIB below the plain step's, and G's Adam
+     moments 6 bytes a parameter with --adam_mu_bf16 (8 plain); and the remat
      grads on the card (batch 16) against the card's plain step: in f32
      within 4x the widest gap of three plain runs (+ 1e-6 of a net's
-     max|g|), in bf16 read;
+     max|g|), in bf16 read, and in bf16 each of G's 22 InstanceNorm inputs
+     that --remat_g full and dots recompute in the backward equal to the
+     forward's bit for bit (remat_norm_inputs);
  12. the training CLI (python -m pix2pixhdaudiosr_torch.train_loop) at
      flagship width on a synthetic wav corpus: 2 steps at batch 2 (B3 and
      its backward 80 launches each), then the generate CLI on the
@@ -249,8 +256,11 @@ Phases, each fatal on failure (exit code 1):
      flagship width (PatchGAN ndf 64; the G 156,050,690 parameters, cut in
      the parity legs to one resblock in the trunk and one in the enhancer,
      DP_PARITY_DEPTH: 70,998,530), a wall
-     limit of their own. Parity leg (f32, TF32 off, cuDNN's heuristic
-     algorithms): 2 steps on a global batch of 8 (4 a rank) with the same
+     limit of their own. Parity leg (f32, TF32 off, cuDNN's heuristic and
+     deterministic algorithms, parity_cudnn; in this process each net runs
+     on the ranks' row blocks, rank_blocks, so every row's forward is the
+     one it has on its rank): 2 steps on a global batch of 8 (4 a rank)
+     with the same
      mask noise, against the same steps in this process, each from the
      state that this process's step starts from (the seeded init; its
      `latest` after step 1 restored into another init and the mode
@@ -263,8 +273,9 @@ Phases, each fatal on failure (exit code 1):
      leaf's max, the losses within DP_FLOOR_FACTOR x the rounding floor's
      and equal on both ranks; the rounding floor (this process's steps on
      the rows in 3 orders: as given, reversed, halves swapped, every batch
-     sum reordered) within the same bounds, and 2 planted faults of the
-     dp step (grads left unreduced; summed, not averaged) beyond them;
+     sum reordered) within the same bounds, and 3 planted faults of the
+     dp step (grads left unreduced; summed, not averaged; rounded to bf16
+     before and after the all-reduce) beyond them;
      ZeRO's and FSDP's slices per shard_dim and the bytes held between
      steps (ZeRO: the moments about half; FSDP: the parameters too);
      ZeRO's `latest` restored in this process to the same third step
@@ -286,10 +297,12 @@ Phases, each fatal on failure (exit code 1):
      the recipes under DP (DP_RECIPES: the time-D + match step and the
      HiFi-GAN D, f32, the parity leg's batch and depth): one step from the
      seeded init against the same step in this process (its rounding
-     floor from the rows in DP_ORDERS), within parity_bounds (a kind whose
-     one-process floor alone exceeds them, the time-D step's G moments,
-     read: recipe_bounds; the D optimizer's kinds held in any case), the
-     losses
+     floor from the rows in DP_ORDERS), every kind within parity_bounds
+     and the floor too (the time-domain D on the one-process step's
+     branches of the dB floor, in every order and on each rank's rows:
+     card_floor; the rank's step on its own branches read beside it, and
+     the same step with its grads left unreduced beyond the bounds of G's
+     kinds), the losses
      within DP_FLOOR_FACTOR x the floor's and equal on both ranks, B1, B3
      and B3' (and for HiFi-GAN B2 and B2') launched on each rank, with
      each rank's wall ms, gloo bytes and peak GiB. Then the training
@@ -470,8 +483,11 @@ CLI_FILES, CLI_STEPS = 8, 3
 # the flagship G's InstanceNorms by (H, W, C) in one forward: 22
 G_IN_BY_SHAPE = {(512, 128, 48): 2, (256, 64, 96): 7, (128, 32, 192): 2,
                  (64, 16, 384): 2, (32, 8, 768): 2, (16, 4, 1536): 7}
-# the memory knobs' legs of the flagship train step (batch 64)
+# the memory knobs' legs of the flagship train step (batch 64); each remat
+# mode's peak must sit REMAT_SAVING_GIB below the plain step's (an H100,
+# bf16, tools/remat_peak.py: full and dots 0.82 GiB below it)
 KNOBS = (["--remat_g", "full"], ["--remat_g", "dots"], ["--adam_mu_bf16"])
+REMAT_SAVING_GIB = 0.5
 # the batch of the remat grads' card-against-card reading
 REMAT_BATCH = 16
 # Family A's instance-feature recipe (scripts/train_recipes.sh:50-54,
@@ -1798,9 +1814,28 @@ def card_floor(floors, min_value: float):
     def time_d_input(label_frames, test_frames):
         keep = next(it)
         return torch.stack([20.0 * torch.log10(torch.where(
-            k.cpu(), f.abs(), min_value)) - 20.0
+            k.to(f.device), f.abs(), min_value)) - 20.0
             for k, f in zip(keep, (label_frames, test_frames))], dim=-1)
     return time_d_input
+
+
+def record_floors(system, floors: list) -> None:
+    """Make system.time_d_input append, call by call, its branch of the
+    dB floor to `floors` (the masks |frames| >= min_value of the label's
+    and the tested frames, card_floor's input) before it computes as it
+    does."""
+    time_d_input, floor = system.time_d_input, system.cfg.min_value
+
+    def spy(label, test):
+        floors.append(tuple(f.detach().abs() >= floor for f in (label, test)))
+        return time_d_input(label, test)
+    system.time_d_input = spy
+
+
+def floor_rows(floors: list, rows) -> list:
+    """Recorded dB-floor branches (record_floors) of the batch's `rows`
+    (an index list, or a slice), in that order, call by call."""
+    return [tuple(k[rows] for k in call) for call in floors]
 
 
 def _cpu(tree):
@@ -1933,13 +1968,9 @@ def phase_train_reference(dev, extra=(), diagnose: bool = False) -> dict:
         layers.instance_norm_act = in_fn
         layers.instance_norm_act_grad = in_grad or instance_norm_act_grad
         fm_loss = system_mod.feature_matching_loss
-        own_floors, time_d_input = [], system.time_d_input
+        own_floors = []
         if floors is None:
-            def floor_spy(label, test):
-                own_floors.append(tuple(f.detach().abs() >= cfg.min_value
-                                        for f in (label, test)))
-                return time_d_input(label, test)
-            system.time_d_input = floor_spy
+            record_floors(system, own_floors)
         else:
             system.time_d_input = card_floor(floors, cfg.min_value)
 
@@ -2140,46 +2171,142 @@ def _is_annotation(event) -> bool:
             or event.key.startswith("Optimizer."))
 
 
+def _is_runtime(event) -> bool:
+    """A CUDA runtime or driver call, or a CUPTI marker, on the host
+    timeline (cudaLaunchKernel, cuLaunchKernel, "Command Buffer Full"),
+    not an operator."""
+    name = event.name
+    return (name.startswith("cuda") or name == "Command Buffer Full"
+            or (name.startswith("cu") and name[2:3].isupper()))
+
+
+def _owners(events) -> list:
+    """The CPU events whose kernels a trace counts, one per correlation id.
+    The profiler hands a kernel to every CPU event whose id equals the
+    kernel's launching operator's id, and a runtime call or a CUPTI marker
+    numbers its events in another sequence that can meet an operator's:
+    torch.optim's launch bursts fill the command buffer, and each "Command
+    Buffer Full" marker that met the id of a foreach op of the Adam step
+    took that op's kernels a second time (the time-D + match step's
+    optimizer part read 14.52-18.16 ms against its kernels' 4.33, H100).
+    Of the events sharing an id, an operator owns the kernels."""
+    from torch.autograd import DeviceType
+    owners = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA or not e.kernels:
+            continue
+        held = owners.get(e.id)
+        if held is None or (_is_runtime(held) and not _is_runtime(e)):
+            owners[e.id] = e
+    return list(owners.values())
+
+
+def trace_split(events) -> dict:
+    """A traced step's device time from its profiler events (prof.events()):
+    kernel_ms, the sum of its kernels' and copies' durations (the device
+    events that are not user ranges, _is_annotation); busy_ms, the time
+    the device ran one or more of them (the union of their intervals: the
+    HiFi-GAN D's grouped convs run on 16 side streams beside the step's
+    own, so there the sum exceeds the step's span); parts_ms, kernel_ms by
+    the part of the step whose outermost event launched each kernel
+    (_phase_of), each kernel counted once, under the operator that owns it
+    (_owners); part_kernels, {part: {kernel: [ms, calls]}}; streams, the
+    device streams that ran a kernel. A user range mirrored on the device
+    (torch.optim's "Optimizer.step#...") can come back as a kernel of the
+    CPU event that opened it, spanning the kernels under it and the idle
+    time between them: it is no kernel, so the parts leave it out
+    (range_ms: what it would have added)."""
+    from torch.autograd import DeviceType
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and not _is_annotation(e)]
+    ranges = {e.name for e in events if e.device_type == DeviceType.CUDA
+              and _is_annotation(e)}
+    parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    part_kernels = {k: {} for k in parts}
+    range_ms = 0.0
+    for e in _owners(events):
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            if k.name in ranges:
+                range_ms += ms
+                continue
+            part = _phase_of(e)
+            parts[part] += ms
+            row = part_kernels[part].setdefault(k.name[:60], [0.0, 0])
+            row[0] += ms
+            row[1] += 1
+    busy, end = 0.0, None
+    for s, t in sorted((e.time_range.start, e.time_range.end)
+                       for e in on_device):
+        if end is None or s > end:
+            busy, end = busy + (t - s), t
+        elif t > end:
+            busy, end = busy + (t - end), t
+    return dict(kernel_ms=sum(e.self_device_time_total
+                              for e in on_device) / 1e3,
+                busy_ms=busy / 1e3, parts_ms=parts,
+                part_kernels=part_kernels, range_ms=range_ms,
+                streams=len({getattr(e, "device_resource_id", None)
+                             for e in on_device}))
+
+
+def trace_problems(split: dict, event_ms: float) -> list:
+    """What makes a traced step's split (trace_split) disagree with itself
+    or with the step's own CUDA-event time: its parts not summing to its
+    kernels within 1% (a kernel counted twice, or under no part), or the
+    device busy beyond 1.05x the time between the events around the step
+    (no kernel of the step runs outside them; on one stream busy_ms is
+    the kernels' sum)."""
+    out = []
+    parts, total = sum(split["parts_ms"].values()), split["kernel_ms"]
+    if abs(parts - total) > 0.01 * total:
+        out.append(f"its parts sum to {parts:.3f} ms, its kernels to "
+                   f"{total:.3f} ms")
+    if split["busy_ms"] > 1.05 * event_ms:
+        out.append(f"its kernels keep the device busy {split['busy_ms']:.3f} "
+                   f"ms, beyond 1.05x its {event_ms:.3f} ms by CUDA events")
+    return out
+
+
 def profile_train_step(run_step, top: int = 16) -> dict:
-    """One traced train step: the device time of its kernels by part
-    (forward, backward, optimizer: each kernel counted once, under the
-    outermost event that launched it, _phase_of) with each part's top 4
-    kernels by device time, the InstanceNorm
-    forward's device time (under the Function's op), its backward's (under
-    the autograd node InstanceNormActBackward) with its share and its
-    kernels by name (ms, calls), and the `top` kernels by device time."""
+    """One traced train step, CUDA events around it inside the trace: its
+    time by those events (event_ms), the device time of its kernels
+    (busy_ms: the time the device ran one or more; kernel_ms, their sum;
+    the two are equal on one stream) and by
+    part (forward, backward, optimizer: trace_split) with each part's top
+    4 kernels by device time, what disagrees (trace_problems, which the
+    caller checks), the InstanceNorm forward's device time (under the
+    Function's op), its backward's (under the autograd node
+    InstanceNormActBackward) with its share and its kernels by name (ms,
+    calls), and the `top` kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):  # a trace may come back without kernels (device_ms)
+    for _ in range(3):  # a trace may come back without kernels (kernel_ms 0)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
+            start.record()
             run_step()
+            end.record()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA
-                          and not _is_annotation(e)),
-                         key=lambda e: -e.self_device_time_total)
-        if kernels:
+        events = prof.events()
+        split = trace_split(events)
+        if split["kernel_ms"] > 0:
             break
     else:
         raise SmokeFailure("3 profiler traces of a train step came back "
                            "without kernels")
-    parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-    part_kernels = {k: {} for k in parts}
+    event_ms = start.elapsed_time(end)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not _is_annotation(e)),
+                     key=lambda e: -e.self_device_time_total)
     in_fwd, in_bwd, in_kernels = 0.0, 0.0, {}
-    for e in prof.events():
+    for e in _owners(events):
         ms = e.self_device_time_total / 1e3
-        if ms <= 0 or e.device_type == DeviceType.CUDA:
-            continue
-        part = _phase_of(e)
-        parts[part] += ms
-        for k in e.kernels:
-            row = part_kernels[part].setdefault(k.name[:60], [0.0, 0])
-            row[0] += k.duration / 1e3
-            row[1] += 1
         outer = e
         while outer.cpu_parent is not None:
             outer = outer.cpu_parent
@@ -2193,13 +2320,17 @@ def profile_train_step(run_step, top: int = 16) -> dict:
                 row[1] += 1
         elif "InstanceNormAct" in outer.name:
             in_fwd += ms
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
-    return dict(host_wall_ms=wall, device_ms=total, parts_ms=parts,
+    return dict(host_wall_ms=wall, event_ms=event_ms,
+                busy_ms=split["busy_ms"], kernel_ms=split["kernel_ms"],
+                streams=split["streams"], parts_ms=split["parts_ms"],
+                range_ms=split["range_ms"],
+                problems=trace_problems(split, event_ms),
                 parts_top={k: sorted(([n, *v] for n, v in rows.items()),
                                      key=lambda r: -r[1])[:4]
-                           for k, rows in part_kernels.items()},
+                           for k, rows in split["part_kernels"].items()},
                 in_forward_ms=in_fwd,
-                in_backward_ms=in_bwd, in_backward_share=in_bwd / total,
+                in_backward_ms=in_bwd,
+                in_backward_share=in_bwd / split["kernel_ms"],
                 in_backward_kernels=sorted(([k, *v] for k, v in in_kernels.items()),
                                            key=lambda r: -r[1]),
                 top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
@@ -2296,7 +2427,10 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
     expected_step_launches (B3 all one-pass, its backward shape by shape
     as the forward's, by route and the dy copies reported; MDCT2, IMDCT2
     and IMDCT2's backward on the tensor-core route), no launch of the
-    serving-only kernels, and the optional losses' codec half in f32.
+    serving-only kernels, the optional losses' codec half in f32, and the
+    traced step consistent with itself and its CUDA events
+    (trace_problems: its parts within 1% of its kernels' sum, the device
+    busy within 1.05x the events' span).
     With --remat_g, B3's forward launches G's 22 again a step (shape by
     shape, the backward's + G's); the Adams' moment bytes are read (with
     --adam_mu_bf16 G's are 6 bytes a parameter, else 8)."""
@@ -2391,6 +2525,8 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
               for l in res["losses"]), "a train-step loss is not finite")
     check(moved == res["param_tensors"], f"{res['param_tensors'] - moved} "
           f"parameter tensors did not move")
+    check(not res["profile"]["problems"], f"the traced step: "
+          f"{'; '.join(res['profile']['problems'])}")
     want = expected_step_launches(cfg)
     for k, fn in counters.items():
         n, n_tc = counts[k]
@@ -2432,18 +2568,85 @@ def phase_train_step(dev, counters, extra=(), batch: int = TRAIN_BATCH) -> dict:
     return res
 
 
+def remat_norm_inputs(system, data, noise, mode: str) -> tuple:
+    """The InstanceNorm inputs of the G forward (netE's included) in one
+    system.losses_and_grads under --remat_g `mode`, keyed by call order:
+    (the forward's, the backward's recompute's), each a list of copies of
+    the inputs of models/layers.instance_norm_act (the entry of the
+    InstanceNormAct Function) made while the function that
+    system.remat_forward rematerializes runs. The recompute must reproduce
+    the forward bit for bit, as the JAX package's remat does."""
+    from pix2pixhdaudiosr_torch import system as system_mod
+    from pix2pixhdaudiosr_torch.models import layers
+    calls, inside = [], [False]
+    norm, remat = layers.instance_norm_act, system_mod.remat_forward
+
+    def spy_norm(x, act, **kw):
+        if inside[0]:
+            calls.append(x.detach().clone())
+        return norm(x, act, **kw)
+
+    def spy_remat(fn, how):
+        def flagged():
+            inside[0] = True
+            try:
+                return fn()
+            finally:
+                inside[0] = False
+        return remat(flagged, how)
+
+    cfg = system.cfg
+    layers.instance_norm_act, system_mod.remat_forward = spy_norm, spy_remat
+    system.cfg = cfg.replace(remat_g=mode)
+    try:
+        system.losses_and_grads(data, noise=noise)
+    finally:
+        layers.instance_norm_act, system_mod.remat_forward = norm, remat
+        system.cfg = cfg
+    half = len(calls) // 2
+    return calls[:half], calls[half:]
+
+
+def remat_forward_check(first: list, again: list, n_norms: int) -> dict:
+    """remat_norm_inputs' two lists read against each other: both hold
+    n_norms calls, and how many are torch.equal, with the first that is
+    not (its order, shape, elements that differ and their largest gap)."""
+    import torch
+    equal = [a.shape == b.shape and bool(torch.equal(a, b))
+             for a, b in zip(first, again)]
+    out = dict(calls=[len(first), len(again)], equal=sum(equal),
+               first_differing=None)
+    if False in equal:
+        i = equal.index(False)
+        a, b = first[i], again[i]
+        out["first_differing"] = dict(index=i, shape=list(a.shape)) if (
+            a.shape != b.shape) else dict(
+            index=i, shape=list(a.shape), elements=int((a != b).sum()),
+            max_abs=(a.float() - b.float()).abs().max().item())
+    out["ok"] = (len(first) == len(again) == n_norms
+                 and out["equal"] == n_norms)
+    return out
+
+
 def phase_remat_grads(dev, batch: int = REMAT_BATCH) -> dict:
     """The flagship step's losses_and_grads (seeded weights, batch and mask
     noise) on the card, three times plain, then with --remat_g full and
-    dots, in f32 and in bf16. Each net's gap between two runs is its worst
-    leaf's max|a - b| over the net's max|g|; the card's plain runs differ
+    dots, in f32 and in bf16, cuDNN timing its algorithms (as the rest of
+    phase 11). Each net's gap between two runs is its worst leaf's
+    max|a - b| over the net's max|g|; the card's plain runs differ
     (reflect-pad backward atomics, and in f32 the forward too), so in f32
     the remat runs' gap to the first plain run must stay within 4x the
-    widest gap of the three plain pairs + 1e-6. bf16 is read, not checked:
-    there its rounding makes one pair's gap swing 10x between calls (0.10
-    and 0.0099 of G's max for --remat_g full, the plain pairs 0.007-0.010,
-    on an H100). B3 launches 40 a plain run and 62 a remat run (G's 22
-    recomputed), its backward 40 each."""
+    widest gap of the three plain pairs + 1e-6. The bf16 grads are read,
+    not held: a bf16 step's grads follow its forward's rounding, and
+    --remat_g full runs G's forward on other cuDNN algorithms than the
+    plain step (system._same_convs; G's gap 0.14 of its max on an H100,
+    the plain pairs 0.010; before, on the timed ones, 0.10 and 0.0099 in
+    two calls). What holds bf16 is the forward: in one more
+    step for each mode, every InstanceNorm input of G that the backward
+    recomputes must equal the forward's bit for bit (remat_norm_inputs,
+    remat_forward_check), as the JAX package's remat does. B3 launches 40
+    a plain run and 62 a remat run (G's 22 recomputed), its backward 40
+    each."""
     import torch
     from pix2pixhdaudiosr_torch.config import parse_config
     from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
@@ -2459,6 +2662,7 @@ def phase_remat_grads(dev, batch: int = REMAT_BATCH) -> dict:
                          for x, y in zip(a[k], b[k])) / scale
         return out
 
+    torch.backends.cudnn.benchmark = True
     res = dict(batch=batch)
     for dtype in ("float32", "bfloat16"):
         gc.collect()
@@ -2502,6 +2706,15 @@ def phase_remat_grads(dev, batch: int = REMAT_BATCH) -> dict:
                                      / abs(plain[0][0][k])
                                      for k, v in run[0].items()),
                 launches=run[2])
+        if dtype == "bfloat16":
+            n_norms = sum(count_norms(net) for net in system.g_nets().values())
+            row["forward_recompute"] = {}
+            for mode in ("full", "dots"):
+                t1 = time.perf_counter()
+                r = remat_forward_check(*remat_norm_inputs(
+                    system, data, noise, mode), n_norms)
+                row["forward_recompute"][mode] = dict(
+                    r, seconds=time.perf_counter() - t1)
         res[dtype] = row
         del system, plain, remat, base, data
     print("[remat grads] " + json.dumps(res))
@@ -2521,6 +2734,9 @@ def phase_remat_grads(dev, batch: int = REMAT_BATCH) -> dict:
         check(all(n == (TRAIN_IN_LAUNCHES, TRAIN_IN_LAUNCHES)
                   for n in row["plain_launches"]),
               f"plain: B3 / its backward launched {row['plain_launches']}")
+    for mode, r in res["bfloat16"]["forward_recompute"].items():
+        check(r["ok"], f"--remat_g {mode} in bf16: the backward's recompute "
+              f"of G's InstanceNorm inputs differs from the forward's: {r}")
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -4371,8 +4587,7 @@ DP_PARITY_BATCH, DP_PARITY_STEPS = 8, 2
 # them): G 70,998,530 parameters, whose host copies the readings take
 DP_PARITY_DEPTH = ["--n_blocks_global", "1", "--n_blocks_local", "1"]
 # the recipes held under DP in the dp world, f32 at the parity leg's batch
-# and depth: the time-D + match step and the HiFi-GAN D (RECIPES' flags;
-# the time-D step's G moments read, not held: recipe_bounds)
+# and depth: the time-D + match step and the HiFi-GAN D (RECIPES' flags)
 DP_RECIPES = {"time_d_match": RECIPES[0][0], "hifigan": RECIPES[1][0]}
 DP_TIMING_BATCH, DP_TIMING_STEPS = TRAIN_BATCH, 3
 # a flagship train step's launches a rank at its share of the batch (all on
@@ -4388,26 +4603,30 @@ DP_ORDERS = {"one": [0, 1, 2, 3, 4, 5, 6, 7], "reversed": [7, 6, 5, 4, 3, 2, 1, 
 # Moments: the largest gap over a leaf's max (its net's max for the conv
 # biases that feed an InstanceNorm, whose exact grad is 0: norm_fed_biases);
 # after a step exp_avg is (1 - beta1) g, so this reads the reduced grads.
-# On an H100 the floor and every mode read <= 5.3e-3, each planted fault
-# >= 2.7 on its largest kind. Parameters: the largest gap, in units of lr,
-# over the entries whose grad in the reference's step is above 1e-3 of its
-# leaf's max|g| and DP_NOISE_FACTOR x the leaf's grad noise (the largest
-# change of any of its grads over the rows in DP_ORDERS), those biases
-# left out:
-# Adam steps by the sign of a grad, and in a conv that feeds an
-# InstanceNorm the input's per-channel mean cancels in the weight grads, so
-# at flagship width entries up to ~0.5% of a ConvTranspose leaf's max flip
-# sign between two orders (the floor read 2 lr at a 1e-3 threshold alone;
-# so masked, the floor and every mode <= 0.042 lr, the unreduced fault 2).
+# Parameters: the largest gap, in units of lr, over the entries whose grad
+# in the reference's step is above 1e-3 of its leaf's max|g| and
+# DP_NOISE_FACTOR x the leaf's grad noise (the largest change of any of its
+# grads over the rows in DP_ORDERS), those biases left out: Adam steps by
+# the sign of a grad, and in a conv that feeds an InstanceNorm the input's
+# per-channel mean cancels in the weight grads, so entries near 0 flip sign
+# with rounding. Every parity leg runs on parity_cudnn's algorithms, each
+# one-process net on the ranks' row blocks (rank_blocks): every row's
+# forward is then bit for bit the one it has on its rank and in every
+# order, and a floor or a mode reads only the rounding of the sums (an
+# H100, eleven phase-16 runs: every floor's moments <= 4.4e-5 and
+# parameters <= 0.0026 lr, every mode's <= 2e-5 and <= 0.001 lr; the bounds
+# sit ~20x above them: a grad reduced at bf16's precision moves a moment
+# ~5e-3 of its leaf's max. On cuDNN's default algorithms the G forward
+# moved run to run, and the floor's moments read up to 0.0223).
 # DP_FLOOR_FACTOR x the rounding floor's largest relative gap bounds the
-# losses. Every run reads the floor against the same bounds, and 2 planted
-# faults of the dp step (the grads left unreduced; summed, not averaged)
-# must exceed them.
-DP_PARAM_LR = 0.25
-DP_MOMENT_REL = 0.02
+# losses. Every run reads the floor against the same bounds, and 3 planted
+# faults of the dp step (the grads left unreduced; summed, not averaged;
+# rounded to bf16 before and after the all-reduce) must exceed them.
+DP_PARAM_LR = 0.05
+DP_MOMENT_REL = 1e-3
 DP_NOISE_FACTOR = 10
 DP_FLOOR_FACTOR = 4
-DP_FAULTS = ("unreduced", "summed")
+DP_FAULTS = ("unreduced", "summed", "bf16")
 DP_STEP_LAUNCHES = {"mdct2": TRAIN_MDCT_LAUNCHES,
                     "instance_norm_act": TRAIN_IN_LAUNCHES,
                     "instance_norm_act_grad": TRAIN_IN_LAUNCHES}
@@ -4656,7 +4875,7 @@ def g730_rank(world, mode: str, own) -> dict:
     from pix2pixhdaudiosr_torch.parallel.dp import apply_dp
     from pix2pixhdaudiosr_torch.parallel.fsdp import apply_fsdp
     from pix2pixhdaudiosr_torch.trainer import make_train_step
-    torch.backends.cudnn.benchmark = True
+    parity_cudnn(False)
     dev = world.device
     counters = {"mdct2": mdct2, "instance_norm_act": instance_norm_act,
                 "instance_norm_act_grad": instance_norm_act_grad}
@@ -4748,6 +4967,53 @@ def g730_checks(recs: dict, fails: list) -> dict:
                      f"moment bytes between steps")
     print("[dp g730] " + json.dumps(out))
     return out
+
+
+def parity_cudnn(on: bool) -> None:
+    """cuDNN as phase 16's f32 parity legs run it (on: the one-process
+    reference, its floor, every rank's parity and recipe steps) or as the
+    rest of the script does (off: cuDNN times its algorithms). On, it
+    takes its heuristic algorithms, the same in every process (a timed
+    choice follows each process's own timings), and deterministic ones
+    only. On the defaults ConvTranspose's forward (a cuDNN backward-data)
+    summed with atomics: the same G forward moved ~3e-6 of max|y| run to
+    run on an H100 and flipped 3-16 feature-matching L1 signs a step, so
+    the step-2 floor's grad noise jumped (a ConvTranspose leaf at 0.0014
+    or 0.0095 of its max over 10 floors from one state; 0.0218 in one
+    run, past DP_MOMENT_REL) and the time-D step's G moments moved
+    0.2-0.65 of a leaf's max; on these algorithms both floors read
+    <= 5e-5."""
+    import torch
+    torch.backends.cudnn.benchmark = not on
+    torch.backends.cudnn.deterministic = on
+
+
+def _cat_rows(outs):
+    """Row blocks' outputs of one net (tensors, or lists and tuples of
+    them, as the discriminators return) joined along the batch."""
+    import torch
+    if isinstance(outs[0], (list, tuple)):
+        return type(outs[0])(_cat_rows(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def rank_blocks(system, n: int = DP_RANKS) -> None:
+    """Make the trained nets of a one-process parity system (G and every
+    discriminator) run each forward on the batch's n row blocks, one
+    after another, and join the outputs: a rank of phase 16 runs its own
+    block. cuDNN picks its algorithm by the batch size, so on parity_cudnn's
+    deterministic algorithms each row then meets in the reference the
+    arithmetic it meets on its rank (a G forward at 8 rows sat 4e-6 of
+    max|y| from the same rows at 4, H100), and no rounding of the forward
+    can flip a branch (a ReLU, a feature-matching L1 sign, the dB floor)
+    between the two: the step is the same sum of per-row terms."""
+    for net in (system.netG_train, *system.d_nets().values()):
+        forward = net.forward
+
+        def blocked(x, *args, _forward=forward, **kw):
+            return _cat_rows([_forward(rows, *args, **kw)
+                              for rows in x.chunk(n)])
+        net.forward = blocked
 
 
 def dp_train_state(dev, dtype: str, batch: int, seed: int = 0, extra=()):
@@ -4894,14 +5160,28 @@ def ordered_steps(dev, make_state, batch: dict, i: int, save=None) -> dict:
     losses, state (dp_state_dict) and grads (dp_grads, each leaf's grad
     noise raised over the other orders: add_noise), and the rounding
     floor: the widest parity_gaps between two orders, kind by kind, and
-    the widest relative loss gap. With `save`, the first order's state is
-    saved there as `latest`."""
+    the widest relative loss gap. With the time-domain D, the first order
+    records its branch of the dB floor (record_floors: `floors`, by the
+    batch's rows) and the other orders take it (card_floor), as the ranks'
+    steps do (dp_recipe_rank): an element within rounding of the floor
+    takes either branch in two f32 steps, and its grad jumps by
+    8.7 / min_value. Each order's nets run on the ranks' row blocks
+    (rank_blocks). With `save`, the first order's state is saved there as
+    `latest`."""
     import torch
     from pix2pixhdaudiosr_torch.trainer import make_train_step
     from pix2pixhdaudiosr_torch.utils import checkpoint as ckpt
-    runs = {}
+    runs, floors = {}, None
     for name, order in DP_ORDERS.items():
         state = make_state()
+        system = state.system
+        rank_blocks(system)
+        if system.cfg.use_time_d and floors is None:
+            floors = []
+            record_floors(system, floors)
+        elif system.cfg.use_time_d:
+            system.time_d_input = card_floor(floor_rows(floors, order),
+                                             system.cfg.min_value)
         data = {k: v[order].contiguous() for k, v in batch.items()}
         lo = make_train_step(state.system)(state, data, dp_noise(
             state.system, dev, DP_PARITY_BATCH, i)[order].contiguous())[0]
@@ -4924,7 +5204,9 @@ def ordered_steps(dev, make_state, batch: dict, i: int, save=None) -> dict:
                 lr=lr, floor={kind: max(g[kind] for g in gaps)
                               for kind in gaps[0]},
                 floor_loss=max(loss_gaps([runs[a][0]], [runs[b][0]])
-                               for a, b in pairs))
+                               for a, b in pairs),
+                floors=floors and [tuple(k.cpu() for k in call)
+                                   for call in floors])
 
 
 def beyond(bounds: dict) -> list:
@@ -4963,8 +5245,7 @@ def dp_rank_worker(mode: str) -> int:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the parity leg on cuDNN's heuristic algorithms, as the parent's runs
-    torch.backends.cudnn.benchmark = False
+    parity_cudnn(True)      # as the parent's runs
     apply = {"dp": apply_dp, "zero": apply_zero, "fsdp": apply_fsdp}[mode]
     world = mesh.initialize(torch.device("cuda:0"))
     dev = world.device
@@ -4982,13 +5263,13 @@ def dp_rank_worker(mode: str) -> int:
     ref = torch.load(os.path.join(WORK, "dp_ref.pt"), mmap=True,
                      weights_only=True) if world.rank == 0 else None
 
-    def parity_steps(fault=None) -> tuple:
-        """The parity steps under the mode (and `fault`, its reduce_grads),
-        each from the state the reference's starts from (dp_parity_state):
-        (losses, the gaps to the reference on rank 0, the last state, its
-        G and D parameters' count)."""
+    def parity_steps(fault=None, steps=DP_PARITY_STEPS) -> tuple:
+        """The first `steps` parity steps under the mode (and `fault`, its
+        reduce_grads), each from the state the reference's starts from
+        (dp_parity_state): (losses, the gaps to the reference on rank 0,
+        the last state, its G and D parameters' count)."""
         losses, gaps, state = [], [], None
-        for i in range(DP_PARITY_STEPS):
+        for i in range(steps):
             del state
             gc.collect()
             torch.cuda.empty_cache()
@@ -5059,19 +5340,32 @@ def dp_rank_worker(mode: str) -> int:
             all_reduce_mean_([p.grad for p in par._params(state)
                               if p.grad is not None], par.members, 1)
 
+        def bf16(state):
+            par = state.parallel
+            grads = [p.grad for p in par._params(state) if p.grad is not None]
+            for g in grads:
+                g.copy_(g.to(torch.bfloat16))
+            type(par).reduce_grads(par, state)    # the mode's own reduce
+            for g in grads:
+                g.copy_(g.to(torch.bfloat16))
+
         parity["faults"] = {}
-        for name, fault in zip(DP_FAULTS, (unreduced, summed)):
-            lo, fault_gaps, _, _ = parity_steps(fault)
+        # bf16's rounding shows at step 1 (its moments 5e-3 of a leaf's max)
+        for name, fault, steps in zip(DP_FAULTS, (unreduced, summed, bf16),
+                                      (DP_PARITY_STEPS, DP_PARITY_STEPS, 1)):
+            t1 = time.perf_counter()
+            lo, fault_gaps, _, _ = parity_steps(fault, steps)
             if ref is not None:
                 parity["faults"][name] = dict(
-                    gaps=fault_gaps, loss_gap=loss_gaps(lo, ref["losses"]))
+                    gaps=fault_gaps, loss_gap=loss_gaps(lo, ref["losses"]),
+                    seconds=time.perf_counter() - t1)
     del rows, ref
     gc.collect()
     torch.cuda.empty_cache()
     rec["seconds"]["parity"] = time.perf_counter() - t0
 
     # -- timing and launch leg (bf16), cuDNN timing its algorithms
-    torch.backends.cudnn.benchmark = True
+    parity_cudnn(False)
     counters = {"mdct2": mdct2, "instance_norm_act": instance_norm_act,
                 "instance_norm_act_grad": instance_norm_act_grad}
     layout = mesh.make_data_layout(world, DP_TIMING_BATCH)
@@ -5139,12 +5433,17 @@ def dp_rank_worker(mode: str) -> int:
 
 def dp_recipe_rank(world, own) -> dict:
     """The recipes of DP_RECIPES on one rank of phase 16's dp world, f32
-    (TF32 off, cuDNN's heuristic algorithms), at the parity leg's batch
-    and depth: one step on this rank's rows of the parent's batch with the
-    global mask noise, from the seeded init, under DP; its wall time (the
-    host clock, synchronized), gloo bytes (Group.traffic), peak memory and
-    launches; on rank 0 its whole state against the parent's one-process
-    step (parity_gaps) and its losses' gap."""
+    (TF32 off, parity_cudnn), at the parity leg's batch and depth: one
+    step on this rank's rows of the parent's batch with the global mask
+    noise, from the seeded init, under DP, the time-domain D on the
+    one-process step's branches of the dB floor (its rows of them:
+    card_floor); its wall time (the host clock, synchronized), gloo bytes
+    (Group.traffic), peak memory and launches; on rank 0 its whole state
+    against the parent's one-process step (parity_gaps) and its losses'
+    gap. With the time-domain D, two more steps from the same start read
+    alike: on the rank's own branches of the floor ("own_branches"), and
+    on the recorded ones with the grads left unreduced (the planted fault
+    "unreduced", which the held kinds must reject)."""
     import torch
     from pix2pixhdaudiosr_torch.ops.mdct_kernels import (imdct2, imdct2_grad,
                                                          mdct2)
@@ -5153,21 +5452,33 @@ def dp_recipe_rank(world, own) -> dict:
     from pix2pixhdaudiosr_torch.parallel import mesh
     from pix2pixhdaudiosr_torch.parallel.dp import apply_dp
     from pix2pixhdaudiosr_torch.trainer import make_train_step
-    torch.backends.cudnn.benchmark = False
+    parity_cudnn(True)
     dev = world.device
     counters = {"mdct2": mdct2, "imdct2": imdct2, "imdct2_grad": imdct2_grad,
                 "instance_norm_act": instance_norm_act,
                 "instance_norm_act_grad": instance_norm_act_grad}
     layout = mesh.make_data_layout(world, DP_PARITY_BATCH)
     rows = own(flagship_train_batch(dev, DP_PARITY_BATCH), layout)
+    n = DP_PARITY_BATCH // layout.data.size
+    mine = slice(layout.data.rank * n, (layout.data.rank + 1) * n)
+    floors = torch.load(os.path.join(WORK, "dp_recipe_floors.pt"),
+                        weights_only=True)
     ref = torch.load(os.path.join(WORK, "dp_recipe_ref.pt"), mmap=True,
                      weights_only=True) if world.rank == 0 else None
-    out = {}
-    for name, flags in DP_RECIPES.items():
+
+    def step(name, flags, replay=True, fault=None) -> dict:
+        """One DP step of the recipe from the seeded init: its readings
+        (seconds: the leg's, set-up included) and, on rank 0, its gaps to
+        the one-process step."""
+        t_leg = time.perf_counter()
         state = dp_train_state(dev, "float32", DP_PARITY_BATCH,
                                extra=[*flags, *DP_PARITY_DEPTH])
-        apply_dp(state, layout)
-        step = make_train_step(state.system)
+        par = apply_dp(state, layout)
+        if fault is not None:
+            par.reduce_grads = fault
+        if replay and floors[name] is not None:
+            state.system.time_d_input = card_floor(
+                floor_rows(floors[name], mine), state.system.cfg.min_value)
         noise = dp_noise(state.system, dev, DP_PARITY_BATCH, 0)
         for fn in counters.values():
             reset_counts(fn)
@@ -5175,7 +5486,7 @@ def dp_recipe_rank(world, own) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        lo = step(state, rows, noise)[0]
+        lo = make_train_step(state.system)(state, rows, noise)[0]
         torch.cuda.synchronize()
         r = dict(wall_ms=1e3 * (time.perf_counter() - t0),
                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -5189,36 +5500,30 @@ def dp_recipe_rank(world, own) -> dict:
                                       ref[name]["grads"],
                                       state.system.cfg.lr, dev),
                      loss_gap=loss_gaps(r["losses"], ref[name]["losses"]))
-        out[name] = r
-        del state, step, got
+        del state, par, got
         gc.collect()
         torch.cuda.empty_cache()
+        r["seconds"] = time.perf_counter() - t_leg
+        return r
+
+    out = {}
+    for name, flags in DP_RECIPES.items():
+        out[name] = step(name, flags)
+        if floors[name] is not None:
+            out[name]["own_branches"] = step(name, flags, replay=False)
+            out[name]["unreduced"] = step(name, flags,
+                                          fault=lambda state: None)
     return out
-
-
-def recipe_bounds(gaps: dict, floor: dict) -> tuple:
-    """parity_bounds of a recipe's gaps split in two: (the kinds whose
-    rounding floor, one process on the rows in DP_ORDERS, is within its
-    bound, held; the kinds whose floor is not, read only). With the
-    time-domain D, G's grads follow the rounding of the frames at the dB
-    floor (20 / (ln 10 f) a unit of f): at flagship width the floor of G's
-    moments alone reads 0.5x to 2.4x a leaf's max (--min_value 1e-3 or the
-    recipe's 1e-7; an H100, this script), and two such floors differ by as
-    much, so no bound on them would separate a fault from rounding."""
-    held, read = {}, {}
-    for kind, (gap, bound, leaf) in parity_bounds(gaps).items():
-        (read if floor[kind][0] > bound else held)[kind] = (gap, bound, leaf)
-    return held, read
 
 
 def dp_recipe_checks(recs, recipes: dict, fails: list) -> None:
     """The recipes under DP (dp_recipe_rank) against their one-process
     steps: every rank's losses equal, rank 0's within DP_FLOOR_FACTOR x
-    the floor's (relative) and its parameters and moments within
-    parity_bounds, but a kind whose one-process floor alone exceeds them
-    (recipe_bounds: the time-D step's G moments), which is read; D's
-    parameters and the D optimizer's moments (every discriminator's,
-    reduced in the same all-reduce as G's grads) must be held; B1, B3 and
+    the floor's (relative), its parameters and moments, G's and every
+    discriminator's, within parity_bounds, and the one-process floor
+    within them too; with the time-domain D, the rank's step on its own
+    branches of the dB floor read ("own_branches") and the planted fault
+    (its grads left unreduced) beyond the bounds of G's kinds; B1, B3 and
     B3' launched on every rank, and with the HiFi-GAN D, B2 and its
     backward (B2'). A reading beyond its bound is added to `fails`; each
     recipe's readings go into `recipes`."""
@@ -5227,16 +5532,22 @@ def dp_recipe_checks(recs, recipes: dict, fails: list) -> None:
         check(all(r["recipes"][name]["losses"] == first["losses"]
                   for r in recs), f"{name} under DP: the ranks report "
               f"different losses")
-        row["within"], row["read_only"] = recipe_bounds(first["gaps"],
-                                                        row["floor"])
+        row["within"] = parity_bounds(first["gaps"])
         row["loss_gap"] = first["loss_gap"]
-        if not {"D", "opt_d.exp_avg", "opt_d.exp_avg_sq"} <= set(
-                row["within"]):
-            fails.append(f"{name}: the D kinds' rounding floor beyond the "
-                         f"bounds: {row['floor']}")
+        if beyond(row["floor"]):
+            fails.append(f"{name}: the rounding floor beyond the bounds: "
+                         f"{row['floor']}")
         if beyond(row["within"]):
             fails.append(f"{name} under DP at {DP_RANKS} ranks, f32: beyond "
                          f"the bounds: {row['within']}")
+        if "unreduced" in first:
+            row["own_branches"] = parity_bounds(first["own_branches"]["gaps"])
+            fault = row["unreduced"] = parity_bounds(
+                first["unreduced"]["gaps"])
+            if not {"G", "opt_g.exp_avg", "opt_g.exp_avg_sq"} & set(
+                    beyond(fault)):
+                fails.append(f"{name}: the planted fault `unreduced` within "
+                             f"the bounds of G's kinds: {fault}")
         if first["loss_gap"] > DP_FLOOR_FACTOR * row["floor_loss_gap"] + 1e-6:
             fails.append(f"{name} under DP: loss gap {first['loss_gap']} "
                          f"beyond {DP_FLOOR_FACTOR}x the floor's "
@@ -5354,7 +5665,7 @@ def phase_dp_ranks(dev) -> dict:
     g730 = dict(serve=g730_serve(dev, counters),
                 step=g730_step(dev, counters), kernels=g730_in_timing(dev))
     g730_s = time.perf_counter() - t0
-    torch.backends.cudnn.benchmark = False     # as the ranks' parity leg
+    parity_cudnn(True)      # as the ranks' parity legs
     t0 = time.perf_counter()
     batch = flagship_train_batch(dev, DP_PARITY_BATCH)
     ref, floor, floor_loss, fails = dict(losses=[], states=[], grads=[]), [], \
@@ -5388,18 +5699,20 @@ def phase_dp_ranks(dev) -> dict:
     res["seconds"] = dict(g730=g730_s, reference=time.perf_counter() - t0)
     # the recipes' one-process steps (from the seeded init) and floors
     t1 = time.perf_counter()
-    recipe_ref, res["recipes"] = {}, {}
+    recipe_ref, res["recipes"], floors = {}, {}, {}
     for name, flags in DP_RECIPES.items():
         one = ordered_steps(dev, functools.partial(
             dp_train_state, dev, "float32", DP_PARITY_BATCH,
             extra=[*flags, *DP_PARITY_DEPTH]), batch, 0)
         recipe_ref[name] = dict(losses=[one["losses"]], state=one["state"],
                                 grads=one["grads"])
+        floors[name] = one["floors"]
         res["recipes"][name] = dict(floor=parity_bounds(one["floor"]),
                                     floor_loss_gap=one["floor_loss"])
         del one
         gc.collect()
     torch.save(recipe_ref, os.path.join(WORK, "dp_recipe_ref.pt"))
+    torch.save(floors, os.path.join(WORK, "dp_recipe_floors.pt"))
     del recipe_ref
     gc.collect()
     res["seconds"]["recipe_reference"] = time.perf_counter() - t1
@@ -5477,6 +5790,7 @@ def phase_dp_ranks(dev) -> dict:
     ckpt.load_train_state(state, "latest", os.path.join(WORK, "dp_zero_ck"))
     check(state.step == DP_PARITY_STEPS, f"the ZeRO save resumed at step "
           f"{state.step}")
+    rank_blocks(state.system)
     lo = make_train_step(state.system)(state, batch, dp_noise(
         state.system, dev, DP_PARITY_BATCH, DP_PARITY_STEPS))[0]
     zero3 = torch.load(os.path.join(WORK, "dp_zero_step3.pt"),
@@ -5499,7 +5813,7 @@ def phase_dp_ranks(dev) -> dict:
     del state, zero3
     gc.collect()
     torch.cuda.empty_cache()
-    torch.backends.cudnn.benchmark = True
+    parity_cudnn(False)
     # the training CLI under 2 ranks
     t1 = time.perf_counter()
     cli = run_ranks("cli", DP_RANKS)
@@ -6301,6 +6615,12 @@ def main() -> int:
                    for flags, batch in RECIPES]
         knobs = [timed(f"knob step {' '.join(flags)}", phase_train_step, dev,
                        all_counters, flags) for flags in KNOBS]
+        for knob in knobs:
+            check(knob["flags"][0] != "--remat_g" or knob["peak_gib"]
+                  <= train["peak_gib"] - REMAT_SAVING_GIB,
+                  f"{' '.join(knob['flags'])} peaks at {knob['peak_gib']:.3f}"
+                  f" GiB, the plain step at {train['peak_gib']:.3f}: less "
+                  f"than {REMAT_SAVING_GIB} GiB saved")
         remat = timed("remat grads", phase_remat_grads, dev)
         train_cli = timed("train cli", phase_train_cli, dev, train_counters,
                           wav, n_in)

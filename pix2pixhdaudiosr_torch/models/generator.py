@@ -24,6 +24,15 @@ import torch.nn as nn
 from ..ops import enhancer, quant
 from .layers import ConvIN, ConvTransposeIN, ResnetBlock, avg_pool_3s2
 
+# The output convs (7x7 to output_nc channels) take at most OUT_ROWS rows a
+# call on the card. cuDNN's deterministic engines for them need a workspace
+# in proportion to the rows (48 -> 2 channels at 512 x 128 in bf16, batch
+# 64, on an H100: 1.26 GiB in one call, 0.31 in blocks of 16), and
+# --remat_g full runs G on those engines (system._same_convs), its
+# recompute reaching this conv with every activation of G live: in blocks
+# its step peaks 0.72 GiB lower (tools/remat_peak.py).
+OUT_ROWS = 16
+
 
 class GlobalTrunk(nn.Module):
     """GlobalGenerator without its final (reflect pad, 7x7 conv, tanh):
@@ -114,7 +123,7 @@ class GlobalGenerator(nn.Module):
                                          n_blocks, deconv_mode, int8_trunk,
                                          device=device)
         self.ConvIN_0 = ConvIN(ngf, output_nc, 7, reflect=3, norm=False,
-                               act="tanh", device=device)
+                               act="tanh", rows=OUT_ROWS, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ConvIN_0(self.GlobalTrunk_0(x))
@@ -154,7 +163,7 @@ class LocalEnhancer(nn.Module):
             if n == nle:
                 self.add_module(f"enh{n}_final", ConvIN(
                     ngf_n, output_nc, 7, reflect=3, norm=False, act="tanh",
-                    device=device))
+                    rows=OUT_ROWS, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         nle = self.n_local_enhancers
@@ -225,7 +234,7 @@ class Encoder(nn.Module):
                 ngf * mult, ngf * mult // 2, device=device))
         self.add_module(f"ConvIN_{n_downsampling + 1}", ConvIN(
             ngf, output_nc, 7, reflect=3, norm=False, act="tanh",
-            device=device))
+            rows=OUT_ROWS, device=device))
 
     def forward(self, x: torch.Tensor,
                 inst: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -140,6 +140,9 @@ def cp_avg_pool_3s2(x: torch.Tensor, cp) -> torch.Tensor:
 class ConvIN(nn.Module):
     """(optional reflect pad) -> Conv -> InstanceNorm -> activation.
 
+    With `rows`, the conv takes at most that many rows a call on the card
+    (the output convs: generator.OUT_ROWS).
+
     With `cp` (pix2pixhdaudiosr_tpu/models/layers.py:329-360): a reflect
     pad reflects the frequency axis locally, then takes a reflect halo of
     the frames (the global ends reflect themselves); a zero-padded conv
@@ -148,9 +151,10 @@ class ConvIN(nn.Module):
 
     def __init__(self, in_ch: int, features: int, kernel: int, stride: int = 1,
                  pad: int = 0, reflect: int = 0, norm: bool = True,
-                 act: str = "relu", device=None):
+                 act: str = "relu", rows: int = 0, device=None):
         super().__init__()
         self.reflect, self.pad, self.norm, self.act = reflect, pad, norm, act
+        self.rows = rows
         self.cp = None
         self.Conv_0 = nn.Conv2d(in_ch, features, kernel, stride=stride,
                                 padding=pad, device=device)
@@ -160,7 +164,10 @@ class ConvIN(nn.Module):
         if cp is None:
             if self.reflect:
                 x = F.pad(x, (self.reflect,) * 4, mode="reflect")
-            x = self.Conv_0(x)
+            if self.rows and x.is_cuda and x.shape[0] > self.rows:
+                x = torch.cat([self.Conv_0(r) for r in x.split(self.rows)])
+            else:
+                x = self.Conv_0(x)
         else:
             if self.reflect:
                 x = F.pad(x, (0, 0, self.reflect, self.reflect),

@@ -305,6 +305,16 @@ def nhwc_pitches(name: str, x: torch.Tensor,
     return sample, row
 
 
+def _aligned(x: torch.Tensor, pitches: Tuple[int, int]):
+    """(x, its pitches) for a reader of 16-byte loads: x itself where its
+    start and pitches sit on 16 bytes (`_vectors`), else a channels_last
+    copy (a bf16 same-mode deconv crop whose C * W is no multiple of 8)."""
+    if _vectors(x, pitches):
+        return x, pitches
+    B, C, H, W = x.shape
+    return x.clone(memory_format=torch.channels_last), (H * W * C, W * C)
+
+
 def _ptr(t):
     """A tensor's data pointer for ctypes, None (NULL) for no tensor."""
     return None if t is None else t.data_ptr()
@@ -351,7 +361,7 @@ def _instance_norm_act_cuda(x: torch.Tensor, act: str, eps: float,
                             with_stats: bool):
     """B3's launch, counted: (y, the statistics or None)."""
     _cuda.check_cuda("instance_norm_act", x)
-    pitches = nhwc_pitches("instance_norm_act", x)
+    pitches = nhwc_pitches("instance_norm_act", x, aligned=False)
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     B, C, H, W = x.shape
@@ -360,9 +370,7 @@ def _instance_norm_act_cuda(x: torch.Tensor, act: str, eps: float,
     saved = (torch.empty(2, B, C, dtype=torch.float32, device=x.device)
              if with_stats else None)
     if plan.route == "onepass":
-        if x.data_ptr() % _VEC:
-            raise ValueError("instance_norm_act: the one-pass route needs a "
-                             "16-byte aligned start")
+        x, pitches = _aligned(x, pitches)
         _launch_onepass(x, y, plan, pitches, act, eps, saved)
         instance_norm_act.launches_onepass += 1
     else:  # the two-pass kernels read a contiguous tensor: copy a view
@@ -778,7 +786,7 @@ def instance_norm_act_grad(x: torch.Tensor, dy: torch.Tensor,
         return instance_norm_act_grad_ref(x, dy, saved, act, eps)
     name = "instance_norm_act_grad"
     _cuda.check_cuda(name, x, dy, saved)
-    x_pitches = nhwc_pitches(name, x)
+    x, x_pitches = _aligned(x, nhwc_pitches(name, x, aligned=False))
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     B, C, H, W = x.shape
@@ -791,9 +799,6 @@ def instance_norm_act_grad(x: torch.Tensor, dy: torch.Tensor,
                          f"{tuple(saved.shape)}")
     plan = plan or plan_instance_norm_grad(B, H, W, C, x.dtype)
     vectors = plan.route == "onepass"  # 16-byte copies of x and an nhwc dy
-    if vectors and x.data_ptr() % _VEC:
-        raise ValueError(f"{name}: the one-pass route needs a 16-byte "
-                         f"aligned x")
     dy, layout, dy_sample, dy_pitch = _readable_dy(x, dy, vectors)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device,
                      memory_format=torch.channels_last)

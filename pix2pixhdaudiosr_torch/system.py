@@ -98,15 +98,42 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _same_convs(fn):
+    """fn run on cuDNN's heuristic, deterministic algorithms (its flags
+    restored after). PyTorch keeps the algorithms that cudnn.benchmark
+    timed per thread, and the backward, with the recompute in it, runs on
+    autograd's own thread: there cuDNN times its algorithms anew and may
+    pick others, which round apart (on an H100 a bf16 --remat_g full step
+    recomputed 17 of G's 22 InstanceNorm inputs off the forward's, from
+    global.ConvIN_3's stride-2 conv on). A heuristic choice is the same on
+    every thread, and the deterministic flag is part of the cache's key, so
+    no timed choice cached for the same conv is taken instead: the
+    recompute reproduces the forward bit for bit, as the JAX package's
+    remat does. Those engines cost the bf16 flagship step ~3.5% on an H100
+    (tools/remat_peak.py), and the G's output conv a larger workspace,
+    which generator.OUT_ROWS bounds."""
+    def run():
+        cudnn = torch.backends.cudnn
+        flags = cudnn.benchmark, cudnn.deterministic
+        cudnn.benchmark, cudnn.deterministic = False, True
+        try:
+            return fn()
+        finally:
+            cudnn.benchmark, cudnn.deterministic = flags
+    return run
+
+
 def remat_forward(fn, remat: Optional[str]):
     """fn's output, rematerialized in the backward per the --remat_g mode:
     "" / None runs fn as it is; "full" saves nothing of it (non-reentrant
-    torch.utils.checkpoint, which keeps the RNG state); "dots" saves the
-    outputs of convolution, mm, bmm and addmm and recomputes the rest."""
+    torch.utils.checkpoint, which keeps the RNG state), its convolutions on
+    algorithms that every thread picks alike (_same_convs); "dots" saves
+    the outputs of convolution, mm, bmm and addmm and recomputes the
+    rest."""
     if not remat:
         return fn()
     if remat == "full":
-        return checkpoint(fn, use_reentrant=False)
+        return checkpoint(_same_convs(fn), use_reentrant=False)
     if remat == "dots":
         return checkpoint(fn, use_reentrant=False, context_fn=functools.partial(
             create_selective_checkpoint_contexts, _dots_policy))

@@ -296,7 +296,8 @@ def test_instance_norm_two_pass_route_and_counters(cuda):
     16-byte tile) and rows of 5 channels take the two-pass route, counted in
     `launches` and by shape, not in `launches_onepass`; a strided view there
     is copied by the wrapper. A view whose row pitch is no multiple of 16
-    bytes, and an NCHW tensor, are refused."""
+    bytes is read from a channels_last copy, and an NCHW tensor is
+    refused."""
     from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
                                                  instance_norm_act_ref,
                                                  plan_instance_norm)
@@ -312,8 +313,11 @@ def test_instance_norm_two_pass_route_and_counters(cuda):
         assert instance_norm_act.launches_onepass == n1
         assert instance_norm_act.launches_by_shape[(H, W, C)] == by_shape + 1
         _assert_in_close(got, instance_norm_act_ref(x, "leaky"))
-    with pytest.raises(ValueError, match="16-byte"):
-        instance_norm_act(_in_input(cuda, (2, 4, 9, 11), "bfloat16")[..., :8, :10])
+    view = _in_input(cuda, (2, 4, 9, 11), "bfloat16")[..., :8, :10]
+    got = instance_norm_act(view, "relu")
+    _assert_in_close(got, instance_norm_act_ref(view, "relu"))
+    assert torch.equal(got, instance_norm_act(
+        view.contiguous(memory_format=torch.channels_last), "relu"))
     with pytest.raises(ValueError, match="channels_last"):
         instance_norm_act(_in_input(cuda, (2, 48, 8, 8), "bfloat16").contiguous())
 
@@ -343,6 +347,25 @@ def test_instance_norm_function_matches_twin_autograd(cuda, hwc, act, dtype):
     res = chip_smoke.in_grad_check(x, act, dy)
     assert instance_norm_act.launches_onepass == n1 + 1
     assert res["ok"], res
+
+
+def test_instance_norm_function_copies_misaligned_views(cuda):
+    """A bf16 crop whose sample and row pitches are no multiples of 16
+    bytes (a same-mode deconv's at C * W no multiple of 8, as at ngf 4)
+    through InstanceNormAct: the forward and the backward kernels read a
+    channels_last copy, so y and dx equal those of the copy taken first."""
+    from pix2pixhdaudiosr_torch.models.layers import InstanceNormAct
+    view = _in_input(cuda, (2, 4, 9, 11), "bfloat16")[..., :8, :10]
+    view = view.detach().requires_grad_()
+    copy = view.detach().contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    dy = _in_input(cuda, (2, 4, 8, 10), "bfloat16", seed=9)
+    ys = []
+    for x in (view, copy):
+        ys.append(InstanceNormAct.apply(x, "relu"))
+        ys[-1].backward(dy)
+    assert torch.equal(ys[0], ys[1])
+    assert torch.equal(view.grad, copy.grad)
 
 
 def _assert_grad_close(got, want):
@@ -541,6 +564,39 @@ def test_train_step_on_card_matches_cpu(cuda):
     import chip_smoke
     res = chip_smoke.phase_train_reference("cuda")
     assert res["in_launches"] == res["in_launches_onepass"] > 0
+
+
+@pytest.mark.parametrize("mode", ["full", "dots"])
+def test_remat_forward_on_card_bit_equal(cuda, mode):
+    """--remat_g `mode` in bf16 at chip_smoke.TOY_TRAIN's width, cuDNN
+    timing its algorithms (as phase 11): each of G's InstanceNorm inputs
+    that the backward recomputes equals the forward's bit for bit
+    (chip_smoke.remat_norm_inputs, the check of phase 11's remat leg)."""
+    import chip_smoke
+    from pix2pixhdaudiosr_torch.config import parse_config
+    from pix2pixhdaudiosr_torch.system import Pix2PixHDSystem
+    from pix2pixhdaudiosr_torch.trainer import init_state
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        cfg = parse_config(chip_smoke.TOY_TRAIN + ["--compute_dtype",
+                                                   "bfloat16"],
+                           is_train=True, save=False)
+        system = Pix2PixHDSystem(cfg, device=cuda)
+        init_state(system, 0)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        data = {k: torch.randn(2, chip_smoke.TOY_SEG, generator=gen,
+                               device=cuda) * 0.2 for k in ("label", "image")}
+        b, f, t, c = system.spectro_shape(2)
+        noise = torch.randn(b, system.codec.mask_size(f), t, c,
+                            generator=gen, device=cuda)
+        first, again = chip_smoke.remat_norm_inputs(system, data, noise, mode)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    n = chip_smoke.count_norms(system.netG_train)
+    check = chip_smoke.remat_forward_check(first, again, n)
+    assert check["ok"], check
+    assert first[0].is_cuda and first[0].dtype == torch.bfloat16
 
 
 def test_quality_gate_on_card(cuda, tmp_path, monkeypatch):
