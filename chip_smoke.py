@@ -179,6 +179,22 @@ Phases, each fatal on failure (exit code 1):
      step launches B1 2, B3 and its backward 21 each, every eval batch B1
      1, B3 9, B2 1, each launch on the route its planner gives the shape
      (the trajectory and the leg's seconds printed: [quality gate]);
+     then the flagship soak (phase_flagship_soak): the flagship recipe of
+     scripts/realspeech_soak_torch.sh (tools/flagship_soak_torch.py,
+     SOAK_FLAGS, bf16) at half its schedule (100 epochs of 2 steps at
+     batch 64, fix-global to epoch 15, decay from 76) through the CLI on
+     a seeded 160-file harmonic corpus, SIGINT after epoch 10 and
+     --continue_train; every step launches B1 2, B3 and its backward 40,
+     every eval batch B1 1, B3 22, B2 1, each on its planner's route; the
+     fix-global switch printed once, after epoch 15; both learning rates
+     0 after the last epoch; G, D and both Adams bit-equal to the saved
+     state before the first resumed step; eval.csv within soak_misses'
+     thresholds; then on the two held-out 3 s files the generate CLI on
+     the trained G plain, --fused_enhancer (batch 128), --int8_trunk and
+     --data_type 8 and on phase 5's seeded G (B1 1, B2 1 on the tensor
+     cores, B3 22, fused B3 17 and B4 4 a file), held to serve_misses
+     against the lowpassed input's and the untrained G's LSD
+     ([flagship soak]; its checkpoints deleted);
  13. the CLIs at their default behaviours, flagship width, on 8 one-second
      files, FLAC (written by the port's write_flac) and wav: where
      matplotlib or PIL is missing, the training and generate CLIs without
@@ -280,7 +296,7 @@ Phases, each fatal on failure (exit code 1):
      steps (ZeRO: the moments about half; FSDP: the parameters too);
      ZeRO's `latest` restored in this process to the same third step
      (parity_bounds; losses rtol 1e-4). Timing leg (bf16): a batch of 64,
-     32 a rank, 1 warm-up and 3 timed steps a mode, every count set to 0
+     32 a rank, 1 warm-up and 1 timed step a mode, every count set to 0
      just before them: per rank the step's wall time, gloo bytes
      (Group.traffic), peak CUDA memory and launches a step, B1 2 (on the
      tensor cores), B3 40 (one-pass) and B3' 40 asserted; FSDP's and DP's
@@ -363,6 +379,8 @@ HiFi-GAN recipe step; `serve_launches` from one plain serve forward,
 `dp_launches_per_step` from one bf16 step of phase 16 on rank 0, a mode
 each; `g730_serve_launches` and `g730_launches_per_step` from one forward
 and one step of phase 16's 730M G; `export_launches` from one forward of phase 17's exported engine;
+`soak_launches` from one step, one eval batch and one plain serve of a
+held-out file of phase 12's flagship soak;
 for B3's cross-shard entries, from the one-rank generate --cp_shards
 4 run);
 the last line is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -3052,23 +3070,16 @@ def check_planned_routes(what: str, delta: dict, cfg, batch: int,
           f"planner {routes}")
 
 
-def phase_quality_gate(dev, counters) -> dict:
-    """The converged-quality gate through the training CLI on `dev`
-    (GATE_FLAGS on write_gate_corpus, f32; on the card TF32 off as the CLI
-    sets it): eval.csv meets the JAX gate's thresholds (gate_misses), and
-    each of the 32 steps and 8 eval batches launches planned_launches on
-    the planners' routes (check_planned_routes). Prints the LSD and SNR
-    trajectory and the leg's seconds."""
-    from pix2pixhdaudiosr_torch import train_loop
-    corpus = os.path.join(WORK, "gate_corpus")
-    write_gate_corpus(corpus)
-    argv = [*GATE_FLAGS, "--checkpoints_dir", WORK, "--dataroot", corpus,
-            "--device", dev]
-    calls, faults = [], []
-    makers = (train_loop.make_train_step, train_loop.make_eval_step)
-
-    def counted(make, train):
-        def wrap(system):
+def planned_wrap(counters, calls: list, faults: list, what: str):
+    """A wrapper `wrap(make, train)` of train_loop.make_train_step (train
+    True) or make_eval_step whose calls each set every count of
+    `counters` to 0 just before and hold the call's launches to
+    planned_launches (from count_norms of the built G and D) on the
+    planners' routes (check_planned_routes), at the call's batch. Each
+    call appends (train, {kernel: launches}) to `calls` and a miss to
+    `faults`."""
+    def wrap(make, train):
+        def made(system):
             fn = make(system)
             want = planned_launches(train, count_norms(system.netG_train),
                                     count_norms(system.netD))
@@ -3078,20 +3089,39 @@ def phase_quality_gate(dev, counters) -> dict:
                     reset_counts(counter)
                 out = fn(*args, **kw)
                 batch = (args[1]["label"] if train else args[0]).shape[0]
-                what = f"gate {'step' if train else 'eval'} call {len(calls)}"
-                calls.append(train)
+                kind = "step" if train else "eval"
+                label = f"{what} {kind} call {len(calls)}"
+                calls.append((train, {k: c.launches
+                                      for k, c in counters.items()}))
                 try:
-                    check_planned_routes(what, {k: vars(counter) for k, counter
-                                                in counters.items()},
+                    check_planned_routes(label, {k: vars(c) for k, c
+                                                 in counters.items()},
                                          system.cfg, batch, want)
                 except SmokeFailure as e:
                     faults.append(str(e))
                 return out
             return call
-        return wrap
+        return made
+    return wrap
 
-    train_loop.make_train_step = counted(makers[0], True)
-    train_loop.make_eval_step = counted(makers[1], False)
+
+def phase_quality_gate(dev, counters) -> dict:
+    """The converged-quality gate through the training CLI on `dev`
+    (GATE_FLAGS on write_gate_corpus, f32; on the card TF32 off as the CLI
+    sets it): eval.csv meets the JAX gate's thresholds (gate_misses), and
+    each of the 32 steps and 8 eval batches launches planned_launches on
+    the planners' routes (planned_wrap). Prints the LSD and SNR
+    trajectory and the leg's seconds."""
+    from pix2pixhdaudiosr_torch import train_loop
+    corpus = os.path.join(WORK, "gate_corpus")
+    write_gate_corpus(corpus)
+    argv = [*GATE_FLAGS, "--checkpoints_dir", WORK, "--dataroot", corpus,
+            "--device", dev]
+    calls, faults = [], []
+    wrap = planned_wrap(counters, calls, faults, "gate")
+    makers = (train_loop.make_train_step, train_loop.make_eval_step)
+    train_loop.make_train_step = wrap(makers[0], True)
+    train_loop.make_eval_step = wrap(makers[1], False)
     try:
         t0 = time.perf_counter()
         state, out = run_quiet(train_loop.main, argv)
@@ -3103,12 +3133,13 @@ def phase_quality_gate(dev, counters) -> dict:
         rows = list(csv.DictReader(f))
     lsds = [float(r["lsd"]) for r in rows]
     snrs = [float(r["snr"]) for r in rows]
+    kinds = [train for train, _ in calls]
     res = dict(seconds=seconds, lsd=lsds, snr=snrs, steps=state.step,
-               eval_batches=calls.count(False))
+               eval_batches=kinds.count(False))
     print("[quality gate] " + json.dumps(res))
     check(state.step == GATE_STEPS and len(lsds) == GATE_EVALS,
           f"the gate took {state.step} steps and wrote {len(lsds)} eval rows")
-    check(calls.count(True) == GATE_STEPS
+    check(kinds.count(True) == GATE_STEPS
           and res["eval_batches"] == GATE_EVALS,
           f"the gate ran {len(calls)} counted steps and eval batches")
     check(not faults, f"the gate's launches: {faults[:3]} ({len(faults)} "
@@ -3117,6 +3148,102 @@ def phase_quality_gate(dev, counters) -> dict:
     check(not misses, f"the quality gate on {dev}: {misses}; LSD {lsds}, "
           f"SNR {snrs}")
     del state
+    return res
+
+
+def soak_counters() -> dict:
+    """The kernel wrappers whose counts the flagship soak reads (train
+    steps, eval batches, the serve chain's ways)."""
+    from pix2pixhdaudiosr_torch.ops.enhancer import conv3x3_in
+    from pix2pixhdaudiosr_torch.ops.mdct_kernels import (imdct2, imdct2_grad,
+                                                         mdct2)
+    from pix2pixhdaudiosr_torch.ops.norm import (instance_norm_act,
+                                                 instance_norm_act_grad)
+    return {"mdct2": mdct2, "imdct2": imdct2, "imdct2_grad": imdct2_grad,
+            "instance_norm_act": instance_norm_act,
+            "instance_norm_act_grad": instance_norm_act_grad,
+            "conv3x3_in": conv3x3_in}
+
+
+# a held-out file's serve (3 s: one batch) by way: B1, B2 and B3 (the
+# fused way: B3 17 and B4 4)
+SOAK_SERVE_LAUNCHES = {
+    way: {"mdct2": 1, "imdct2": 1, "conv3x3_in": 4 if way == "fused" else 0,
+          "instance_norm_act": IN_LAUNCHES["fused_enhancer" if way == "fused"
+                                           else "plain"]}
+    for way in ("plain", "fused", "int8_trunk", "data_type_8", "untrained")}
+
+
+def phase_flagship_soak(dev, counters, work: str, untrained: str = None,
+                        fault: str = None) -> dict:
+    """The flagship recipe (tools/flagship_soak_torch.py: SOAK_FLAGS at
+    HALF_SCHEDULE, 100 epochs of 2 steps at batch 64, bf16) through the
+    training CLI on write_soak_corpus, SIGINT after epoch 10 and
+    --continue_train (train_leg), then the serve chain on its
+    latest_net_G.pth (serve_chain: the held-out files plain, fused, int8
+    trunk, --data_type 8, beside the untrained G in `untrained`, else a
+    seeded one, and the lowpassed input). Fails unless every step and
+    eval batch launches planned_launches on the planners' routes
+    (planned_wrap), every serve SOAK_SERVE_LAUNCHES with B1 and B2 on the
+    tensor cores, the schedule holds (train_leg's misses: the switch once
+    after epoch 15, both learning rates 0 at the end, the resumed state
+    bit-equal to the saved one), eval.csv meets soak_misses and the
+    serves serve_misses. `fault` is train_leg's. Deletes `work`."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import flagship_soak_torch as soak
+    corpus = os.path.join(work, "soak_corpus")
+    calls, faults = [], []
+    serves = {}
+
+    @contextlib.contextmanager
+    def around(way):
+        for counter in counters.values():
+            reset_counts(counter)
+        yield
+        got = {k: c.launches for k, c in counters.items()
+               if k in SOAK_SERVE_LAUNCHES[way]}
+        tc = {k: counters[k].launches_tc for k in ("mdct2", "imdct2")}
+        serves.setdefault(way, got)
+        if got != SOAK_SERVE_LAUNCHES[way] or tc != {"mdct2": 1, "imdct2": 1}:
+            faults.append(f"serve {way}: launches {got} (tensor cores {tc}), "
+                          f"planned {SOAK_SERVE_LAUNCHES[way]}")
+
+    try:
+        soak.write_soak_corpus(corpus)
+        if untrained is None:
+            untrained = os.path.join(work, "untrained")
+            os.makedirs(untrained)
+            flagship_generator_pth(untrained)
+        flags = [*soak.SOAK_FLAGS, *soak.HALF_SCHEDULE, *soak.soak_saves(100),
+                 "--name", "soak", "--checkpoints_dir", work, "--dataroot",
+                 os.path.join(corpus, "train")]
+        leg = soak.train_leg(flags, dev, soak.HALF_INTERRUPT_EPOCH,
+                             planned_wrap(counters, calls, faults, "soak"),
+                             fault)
+        expr = os.path.join(work, "soak")
+        soak.prune(expr)
+        serve = soak.serve_chain(dev, expr, untrained,
+                                 os.path.join(corpus, "eval"), work, around)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    kinds = [train for train, _ in calls]
+    res = dict(leg, serve=serve, fault=fault, launches=dict(
+        step=next(n for train, n in calls if train),
+        eval_batch=next(n for train, n in calls if not train),
+        serve_file=serves))
+    res["misses"] = dict(schedule=leg["misses"],
+                         convergence=soak.soak_misses(leg["lsd"], leg["snr"]),
+                         serve=soak.serve_misses(serve["files"]))
+    print("[flagship soak] " + json.dumps(res))
+    check(kinds.count(True) == leg["steps"]
+          and kinds.count(False) == len(leg["lsd"]),
+          f"the soak ran {kinds.count(True)} counted steps and "
+          f"{kinds.count(False)} eval batches for {leg['steps']} steps and "
+          f"{len(leg['lsd'])} eval rows")
+    check(not faults, f"the soak's launches: {faults[:3]} ({len(faults)} "
+          f"calls off plan)")
+    for kind, misses in res["misses"].items():
+        check(not misses, f"the flagship soak's {kind}: {misses}")
     return res
 
 
@@ -3450,7 +3577,7 @@ def phase_flac() -> dict:
     files through the Loader (2 threads, as --nThreads), without the
     resample cache, with it cold and with it warm; on the native route
     (runtime/native_audio.py: C++ decode and resample), with its OpenMP
-    team at the default size and at 1 thread (3 runs each in turns, the
+    team at the default size and at 1 thread (2 runs each in turns, the
     fastest kept beside the runs), and on the Python route (data/flac.py's
     decoder, numpy resample_np). Before the Python route
     runs, every FLAC decode of the run so far must have taken the native
@@ -3498,9 +3625,9 @@ def phase_flac() -> dict:
 
     caches = (("no_cache", False), ("cold_cache", True), ("warm_cache", True))
     try:
-        # the native routes 3 times each, in turns: the OpenMP team at the
+        # the native routes twice each, in turns: the OpenMP team at the
         # default size, then at 1 thread
-        for i, route in enumerate(("native", "native_omp1") * 3):
+        for i, route in enumerate(("native", "native_omp1") * 2):
             native_audio.set_threads(1 if route == "native_omp1" else 0)
             for name, cached in caches:
                 timed_batch(name, route, os.path.join(WORK, f"cache_{i}")
@@ -4589,7 +4716,7 @@ DP_PARITY_DEPTH = ["--n_blocks_global", "1", "--n_blocks_local", "1"]
 # the recipes held under DP in the dp world, f32 at the parity leg's batch
 # and depth: the time-D + match step and the HiFi-GAN D (RECIPES' flags)
 DP_RECIPES = {"time_d_match": RECIPES[0][0], "hifigan": RECIPES[1][0]}
-DP_TIMING_BATCH, DP_TIMING_STEPS = TRAIN_BATCH, 3
+DP_TIMING_BATCH, DP_TIMING_STEPS = TRAIN_BATCH, 1
 # a flagship train step's launches a rank at its share of the batch (all on
 # the fast routes): B1 2, B3 and its backward 40
 # the rounding floor's orders of the parity batch's rows: as given, reversed,
@@ -6626,6 +6753,9 @@ def main() -> int:
                           wav, n_in)
         recipe_cli = timed("recipe cli", phase_recipe_cli, dev, train_counters)
         gate = timed("quality gate", phase_quality_gate, dev, train_counters)
+        soak = timed("flagship soak", phase_flagship_soak, dev,
+                     soak_counters(), os.path.join(WORK, "soak"),
+                     os.path.join(WORK, "smoke"))
         family_a = timed("family A cli", phase_family_a, dev, train_counters)
         in_bwd = in_backward_per_step(in_grad, train)
         print("[in grad] a train step's calls: " + json.dumps(in_bwd))
@@ -6686,6 +6816,11 @@ def main() -> int:
                     g730_launches_per_step=dp["g730"]["step"][
                         "launches_per_step"].get(k, 0),
                     export_launches=tools["engine"]["launches"][k],
+                    soak_launches={
+                        part: soak["launches"][part].get(k, 0)
+                        for part in ("step", "eval_batch")} | {
+                        "serve_file": soak["launches"]["serve_file"][
+                            "plain"].get(k, 0)},
                     **{f: rec[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}) for k in KERNELS]
@@ -6702,7 +6837,7 @@ def main() -> int:
         feature_reference=feat_ref, in_grad_family_a=in_grad_a,
         train_step=train, recipe_steps=recipes, knob_steps=knobs,
         remat_grads=remat, train_cli=train_cli, recipe_cli=recipe_cli,
-        quality_gate=gate, family_a_cli=family_a,
+        quality_gate=gate, flagship_soak=soak, family_a_cli=family_a,
         in_backward_per_step=in_bwd, cli=cli, flac=flac, cp_one_rank=cp1,
         cp_ranks=cpn, tp_ranks=tpn, dp_ranks=dp, long_tail=long_tail,
         tools=tools,

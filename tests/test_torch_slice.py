@@ -363,7 +363,8 @@ def test_jax_free_imports():
     device resampler, VGG19, the UI model) imports and runs, the feature
     tools, the port's other tools (the AOT engine, the checkpoint
     import, the corpus tools, the real-speech corpus, the reference
-    outputs' scores, the VCTK preparation) and the root CLI twins import,
+    outputs' scores, the VCTK preparation, the flagship soak) and the root
+    CLI twins import,
     the data package exports the JAX package's data names, and no module
     of the JAX package gets loaded, by name or from a file under
     pix2pixhdaudiosr_tpu/ (a module executed by path under another name),
@@ -411,7 +412,7 @@ def test_jax_free_imports():
         "import aot_engine_torch, import_torch_checkpoint_torch\n"
         "import seg_audio_torch, split_dataset_torch\n"
         "import prep_realspeech_torch, score_reference_outputs_torch\n"
-        "import fetch_vctk_torch\n"
+        "import fetch_vctk_torch, flagship_soak_torch\n"
         "from pix2pixhdaudiosr_torch.data import (read_wav, write_wav, wav_info,\n"
         "    discover_files, train_val_split, AudioDataset, AudioTestDataset, Loader)\n"
         "import train_torch, generate_audio_torch, eval_matric_torch\n"
